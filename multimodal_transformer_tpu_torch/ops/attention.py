@@ -1,0 +1,133 @@
+"""Multi-head attention and the pre-norm encoder stack.
+
+Counterpart of `multimodal_transformer_tpu/ops/attention.py` in eval mode.
+Two mask modes, as in the JAX package:
+
+  * "query" (the reference's quirk, kept as it is): the [B, T, 1] mask is
+    broadcast over the query rows only, so padded query rows get -1e9
+    everywhere while valid queries still attend to padded keys;
+  * "key_query": padded keys are masked as well, which makes the valid rows
+    independent of how much padding a batch carries.
+
+`encoder_stack` dispatches: a CUDA tensor in "key_query" mode goes to the
+fused encoder kernel (ops/cuda/encoder.py); a CPU tensor takes the plain
+path below.  "query" mode has no kernel yet and raises on CUDA.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+
+from ..utils.init import init_linear
+from .dispatch import use_kernel
+from .norm import LayerNorm
+
+NEG_INF = -1e9
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, d_model: int, gen: torch.Generator | None = None):
+        super().__init__()
+        self.linears = nn.ModuleList(nn.Linear(d_model, d_model)
+                                     for _ in range(4))
+        if gen is not None:
+            for lin in self.linears:
+                init_linear(lin, gen)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.w_1 = nn.Linear(d_model, d_ff)
+        self.w_2 = nn.Linear(d_ff, d_model)
+        if gen is not None:
+            init_linear(self.w_1, gen)
+            init_linear(self.w_2, gen)
+
+
+class Sublayer(nn.Module):
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.norm = LayerNorm(d_model)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, d_ff: int,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, gen)
+        self.feed_forward = FeedForward(d_model, d_ff, gen)
+        self.sublayer = nn.ModuleList(Sublayer(d_model) for _ in range(2))
+
+
+class Encoder(nn.Module):
+    """N identical layers (the reference deep-copies one initialised layer)
+    plus a final norm."""
+
+    def __init__(self, d_model: int, d_ff: int, n_layers: int,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        layer = EncoderLayer(d_model, d_ff, gen)
+        self.layers = nn.ModuleList(copy.deepcopy(layer)
+                                    for _ in range(n_layers))
+        self.norm = LayerNorm(d_model)
+
+
+def multi_head_attention(attn: MultiHeadAttention, query, key, value,
+                         mask=None, *, h: int, mask_mode: str = "query"):
+    """query/key/value [B, T, D]; mask [B, T, 1] or None.  Returns [B, T, D]."""
+    B, _, D = query.shape
+    d_k = D // h
+
+    def proj(lin, x):
+        return lin(x).view(B, -1, h, d_k).transpose(1, 2)
+
+    q = proj(attn.linears[0], query)     # [B, h, Tq, d_k]
+    k = proj(attn.linears[1], key)
+    v = proj(attn.linears[2], value)
+    scale = torch.tensor(d_k, dtype=query.dtype, device=query.device).sqrt()
+    scores = q @ k.transpose(-2, -1) / scale
+    if mask is not None:
+        qmask = mask[:, None, :, 0:1]                 # [B, 1, Tq, 1]
+        scores = scores.masked_fill(qmask == 0, NEG_INF)
+        if mask_mode == "key_query":
+            kmask = mask[..., 0][:, None, None, :]    # [B, 1, 1, Tk]
+            scores = scores.masked_fill(kmask == 0, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    x = (p @ v).transpose(1, 2).reshape(B, -1, D)
+    return attn.linears[3](x)
+
+
+def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str):
+    normed = layer.sublayer[0].norm(x)
+    x = x + multi_head_attention(layer.self_attn, normed, normed, normed,
+                                 mask, h=h, mask_mode=mask_mode)
+    normed = layer.sublayer[1].norm(x)
+    ff = layer.feed_forward
+    return x + ff.w_2(torch.relu(ff.w_1(normed)))
+
+
+def encoder_stack_plain(enc: Encoder, x, mask=None, *, h: int = 8,
+                        mask_mode: str = "query"):
+    """The plain path, on any device.  x: [B, T, D]."""
+    for layer in enc.layers:
+        x = encoder_layer(layer, x, mask, h=h, mask_mode=mask_mode)
+    return enc.norm(x)
+
+
+def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
+                  mask_mode: str = "query"):
+    """Full N-layer pre-norm encoder with final norm.  x: [B, T, D]."""
+    if use_kernel(x):
+        if mask is None or mask_mode != "key_query":
+            raise NotImplementedError(
+                "encoder_stack on CUDA runs the fused key_query kernel only; "
+                f"mask_mode={mask_mode!r} (mask {'absent' if mask is None else 'given'}) "
+                "has no CUDA path yet (ROADMAP open items: query mode on CUDA)")
+        from .cuda.encoder import encoder_stack_fused
+        return encoder_stack_fused(enc, x, mask, h=h)
+    return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode)

@@ -1,0 +1,54 @@
+"""The CUDA kernels against their plain versions on the card (the kernel
+phase of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
+B=32, T=160 A+V+L, fp32 and bf16, within the competitive bound
+err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6.
+
+Needs an NVIDIA GPU and nvcc; skips without them.  On the card:
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; chip_smoke.py "
+                    "covers the same checks)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T", [160, 137, 544])
+def test_encoder_kernel_within_bound(device, T, dtype):
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder, verify
+    before = encoder.launches
+    c = verify.check_encoder(32, T, DTYPES[dtype], device=device, reps=1)
+    assert encoder.launches > before
+    assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mfn_kernel_within_bound(device, dtype):
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn, verify
+    before = mfn.launches
+    c = verify.check_mfn(32, 160, DTYPES[dtype], device=device, reps=1)
+    assert mfn.launches > before
+    assert c.ok, c.line()
+
+
+def test_query_mode_raises_on_cuda(device):
+    from multimodal_transformer_tpu_torch.ops.attention import (Encoder,
+                                                                encoder_stack)
+    enc = Encoder(256, 128, 1).to(device)
+    x = torch.randn(2, 8, 256, device=device)
+    with pytest.raises(NotImplementedError):
+        encoder_stack(enc, x, torch.ones(2, 8, 1, device=device),
+                      mask_mode="query")

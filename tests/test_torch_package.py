@@ -1,0 +1,119 @@
+"""Shape of the PyTorch port and its gate on the card: no JAX or host-only
+imports, parameter names shared with the JAX tree, the re-homed bucketing,
+and chip_smoke.py refusing to run without a CUDA device."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from multimodal_transformer_tpu.data.batching import \
+    bucketed_eval_batches as jbucketed
+from multimodal_transformer_tpu.models import build_model as jbuild_model
+from multimodal_transformer_tpu.models import default_config as jdefault_config
+from multimodal_transformer_tpu_torch import build_model, default_config
+from multimodal_transformer_tpu_torch.data import bucketed_eval_batches
+from multimodal_transformer_tpu_torch.ops.cuda import _build
+from multimodal_transformer_tpu_torch.utils.params import flatten_tree
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "multimodal_transformer_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "pandas", "msgpack", "matplotlib",
+             "multimodal_transformer_tpu"}
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_forbidden_imports(path):
+    bad = set(_imported_roots(REPO / path)) & FORBIDDEN
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("comb", ["AVL", "AL", "VL", "AV"])
+def test_state_dict_keys_equal_jax_tree(comb):
+    mods = tuple(m for m, c in (("acoustic", "A"), ("image", "V"),
+                                ("linguistic", "L")) if c in comb)
+    jinit, _ = jbuild_model(jdefault_config("MFT", mods))
+    shapes = jax.eval_shape(jinit, jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in flatten_tree(shapes).items()}
+    got = {k: tuple(v.shape) for k, v in
+           build_model(default_config("MFT", mods)).state_dict().items()}
+    assert got == want
+
+
+def test_other_families_raise_not_implemented():
+    for family, mods in (("SFT", ("image", "linguistic")),
+                         ("B3-MFN", ("acoustic", "linguistic")),
+                         ("MFT", ("linguistic",))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(default_config(family, mods))
+
+
+@pytest.mark.parametrize("batch_size,time_multiple", [(4, 8), (32, 32), (3, 5)])
+def test_bucketed_batches_match_jax(batch_size, time_multiple):
+    rs = np.random.RandomState(0)
+    lens = [3, 8, 5, 11, 14, 7, 1, 0, 12]
+    data = {"a": rs.randn(9, 14, 2, 3).astype(np.float32),
+            "b": rs.randn(9, 14, 4, 5).astype(np.float32)}
+    target = rs.randn(9, 14).astype(np.float32)
+    got = list(bucketed_eval_batches(data, target, lens, batch_size,
+                                     time_multiple))
+    want = list(jbucketed(data, target, lens, batch_size, time_multiple))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.lengths == w.lengths and g.indices == w.indices
+        np.testing.assert_array_equal(g.mask, w.mask)
+        np.testing.assert_array_equal(g.target, w.target)
+        for m in data:
+            np.testing.assert_array_equal(g.data[m], w.data[m])
+
+
+def test_import_builds_nothing():
+    code = ("import multimodal_transformer_tpu_torch as p, sys; "
+            "from multimodal_transformer_tpu_torch.ops.cuda import _build; "
+            "assert _build._lib is None; "
+            "assert not any(m.split('.')[0] in ('jax', 'pandas', 'flax') "
+            "for m in sys.modules), sorted(sys.modules)")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_library_name_follows_the_sources():
+    p = _build.library_path()
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("libmmtx_")
+    assert {s.name for s in _build.sources()} == {"encoder.cu", "mfn.cu"}
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_refuses_without_cuda(where, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs for real")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
