@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Four phases, any
+Run from the repository root: `python3 chip_smoke.py`.  Six phases, any
 failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -14,7 +14,18 @@ failure exits nonzero:
    seed) answers 3 requests of 20 videos; traces are checked for length,
    finiteness, determinism and against the plain fp32 forward; both kernels'
    launch counters must show the main path went through them; B=32, T=160
-   bf16 forwards are timed.
+   bf16 forwards are timed;
+5. train kernels: the four training kernels (encoder stack forward and layer
+   backward, MFN forward and reverse recurrence) against their plain
+   versions at B=32, T=160 and T=400, fp32 and bf16, the bound applied to
+   every output tensor (dx and each gradient included);
+6. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
+   masters, dropout on, over 100 synthetic videos of 20-400 windows at
+   batch size 25 (launch counters exact, every loss finite); one fp32 step
+   of the kernel path against the plain path from the same parameters,
+   batch and seeds (loss within 1e-4 relative, every gradient within 1e-3
+   relative L2); the same step twice gives bit-identical gradients; B=32,
+   T=160 mixed steps are timed on both paths and profiled.
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}.
@@ -24,6 +35,8 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
+import math
 import subprocess
 import sys
 import time
@@ -35,13 +48,31 @@ FRAMES = {"acoustic": 4, "image": 4, "linguistic": 32}
 # of magnitude ~0.06 at this random init: the all-bf16 plain path differs by
 # ~1e-3 on the CPU, and the kernel path keeps more of its math in fp32.
 SLICE_TOL = 3e-3
-REQUESTS, VIDEOS, MAX_WINDOWS = 3, 20, 400
+REQUESTS, VIDEOS, MIN_WINDOWS, MAX_WINDOWS = 3, 20, 20, 400
 BENCH_B, BENCH_T = 32, 160
+TRAIN_VIDEOS, TRAIN_BATCH = 100, 25
+TRAIN_T = (160, 400)
+# one fp32 step, kernel path against plain path: the masks are bit-identical,
+# so only the order of float32 sums differs.  A gradient passes when
+# |g_kernel - g_plain| <= GRAD_RTOL |g_plain| + GRAD_FLOOR |all grads|: the
+# floor covers the k-projection biases, whose gradients are mathematically
+# zero (softmax row gradients sum to zero) and so are pure rounding noise.
+LOSS_RTOL, GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-6
 SOURCES = {
     "encoder_stack_fused": ("multimodal_transformer_tpu_torch/csrc/encoder.cu",
                             "multimodal_transformer_tpu/ops/pallas/encoder.py:313"),
     "mfn_scan_fused": ("multimodal_transformer_tpu_torch/csrc/mfn.cu",
                        "multimodal_transformer_tpu/ops/pallas/mfn_kernel.py:145"),
+    "encoder_stack_train_fwd": (
+        "multimodal_transformer_tpu_torch/csrc/encoder_train.cu",
+        "multimodal_transformer_tpu/ops/pallas/encoder.py:1179"),
+    "encoder_layer_bwd": (
+        "multimodal_transformer_tpu_torch/csrc/encoder_train.cu",
+        "multimodal_transformer_tpu/ops/pallas/encoder.py:1284"),
+    "mfn_train_fwd": ("multimodal_transformer_tpu_torch/csrc/mfn_train.cu",
+                      "multimodal_transformer_tpu/ops/pallas/mfn_train.py:147"),
+    "mfn_train_bwd": ("multimodal_transformer_tpu_torch/csrc/mfn_train.cu",
+                      "multimodal_transformer_tpu/ops/pallas/mfn_train.py:435"),
 }
 
 
@@ -103,7 +134,7 @@ def run_slice(torch, np, device):
     rng = np.random.default_rng(0)
     requests = []
     for _ in range(REQUESTS):
-        lens = rng.integers(20, MAX_WINDOWS + 1, size=VIDEOS)
+        lens = rng.integers(MIN_WINDOWS, MAX_WINDOWS + 1, size=VIDEOS)
         W = int(lens.max())
         data = {m: rng.standard_normal((VIDEOS, W, FRAMES[m], cfg.mod_dimension[m]),
                                        dtype=np.float32) for m in AVL}
@@ -170,6 +201,205 @@ def run_slice(torch, np, device):
     return enc_launches, mfn_launches
 
 
+def run_train_kernel_checks(torch, device):
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+
+    fns = (verify.check_encoder_train_fwd, verify.check_encoder_layer_bwd,
+           verify.check_mfn_train_fwd, verify.check_mfn_train_bwd)
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for T in TRAIN_T:
+            for fn in fns:
+                # timed at the main path's shape only
+                checks.append(fn(32, T, dtype, device=device,
+                                 reps=5 if T == BENCH_T else 0))
+                print(checks[-1].line(), flush=True)
+                if not checks[-1].ok:
+                    for name, (e, p) in checks[-1].parts.items():
+                        print(f"    {name}: err {e:.3e} plain err {p:.3e}",
+                              flush=True)
+    bad = [c for c in checks if not c.ok]
+    if bad:
+        raise SmokeFailure(f"{len(bad)} train kernel check(s) outside the "
+                           "bound")
+    return checks
+
+
+class _Losses(logging.Handler):
+    """Collects the running losses of the Engine's `Batch:` lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.values = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("Batch:"):
+            self.values.append(float(msg.split("Loss:")[1]))
+
+
+def _bench_batch(np, Batch, cfg, B, T, seed):
+    """bench.py's training batch: lengths T - (i % 5), random targets."""
+    rs = np.random.RandomState(seed)
+    data = {m: rs.randn(B, T, FRAMES[m], cfg.mod_dimension[m]).astype(
+        np.float32) for m in AVL}
+    target = rs.randn(B, T, 1).astype(np.float32)
+    lens = [T - (i % 5) for i in range(B)]
+    mask = np.zeros((B, T, 1), np.float32)
+    for i, n in enumerate(lens):
+        mask[i, :n] = 1.0
+    return Batch(data, target, mask, lens)
+
+
+def _grads(torch, engine, batch, seeds, plain):
+    params = [p for _, p in engine.module.named_parameters()]
+    loss = engine.batch_loss(batch, seeds, plain=plain)
+    grads = torch.autograd.grad(loss / float(sum(batch.lengths)), params)
+    return float(loss.detach()), grads
+
+
+def _profile(torch, step, n: int):
+    """Device time by kernel over n steps, and the device's busy share: the
+    union of the intervals in which a kernel or a copy ran, over the host's
+    wall time.  User annotations (e.g. the optimizer's step range) are not
+    device work and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    cpu_names = {e.name for e in events if not str(e.device_type).endswith("CUDA")}
+    dev = [e for e in events if str(e.device_type).endswith("CUDA")
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in cpu_names]
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in dev:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
+    print(f"profile: {n} steps, wall {wall_us / 1e3 / n:.3f} ms/step, device "
+          f"busy {busy / 1e3 / n:.3f} ms/step = {busy / wall_us:.3f} of the "
+          f"wall time ({sum(t for t, _ in by_name.values()) / 1e3 / n:.3f} "
+          "ms/step of kernels and copies summed)", flush=True)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
+        print(f"  {t / 1e3 / n:9.3f} ms/step {c // n:5d} calls/step "
+              f"{name[:90]}", flush=True)
+
+
+def run_train(torch, np, device):
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as enct
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    engine = Engine(cfg, seed=0, train_dtype=torch.bfloat16, device=device)
+    losses = _Losses()
+    log = logging.getLogger("chip_smoke.train")
+    log.setLevel(logging.INFO)
+    log.addHandler(losses)
+    engine.logger = log
+    rng = np.random.default_rng(2)
+    lens = rng.integers(MIN_WINDOWS, MAX_WINDOWS + 1, size=TRAIN_VIDEOS)
+    W = int(lens.max())
+    data = {m: rng.standard_normal((TRAIN_VIDEOS, W, FRAMES[m],
+                                    cfg.mod_dimension[m]), dtype=np.float32)
+            for m in AVL}
+    target = rng.standard_normal((TRAIN_VIDEOS, W), dtype=np.float32)
+    steps = -(-TRAIN_VIDEOS // TRAIN_BATCH)
+
+    enct.reset_launches()
+    mfnt.reset_launches()
+    t0 = time.perf_counter()
+    epoch_loss = engine.train_epoch(data, target, list(lens),
+                                    batch_size=TRAIN_BATCH,
+                                    rng=np.random.RandomState(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"encoder_stack_train_fwd": enct.fwd_launches,
+           "encoder_layer_bwd": enct.bwd_launches,
+           "mfn_train_fwd": mfnt.fwd_launches,
+           "mfn_train_bwd": mfnt.bwd_launches}
+    want = {"encoder_stack_train_fwd": 3 * steps,
+            "encoder_layer_bwd": 3 * 6 * steps,
+            "mfn_train_fwd": steps, "mfn_train_bwd": steps}
+    print(f"trained 1 epoch of {TRAIN_VIDEOS} videos ({steps} steps of "
+          f"batch {TRAIN_BATCH}, bf16 mixed, dropout on) in {wall:.3f} s "
+          f"(first use); running losses {losses.values}, epoch loss "
+          f"{epoch_loss:.5f}; launches {got}", flush=True)
+    if got != want:
+        raise SmokeFailure(f"expected launches {want} on the training path")
+    if len(losses.values) != steps or not all(
+            math.isfinite(v) for v in losses.values + [epoch_loss]):
+        raise SmokeFailure("a training loss is not finite")
+
+    # one fp32 step, kernel path against plain path
+    from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+
+    B, T = BENCH_B, BENCH_T
+    batch = _bench_batch(np, Batch, cfg, B, T, seed=3)
+    f32 = Engine(cfg, seed=1, device=device)
+    seeds = DropoutSeeds.draw(AVL, 6, T, torch.Generator().manual_seed(4))
+    loss_k, g_k = _grads(torch, f32, batch, seeds, plain=False)
+    loss_p, g_p = _grads(torch, f32, batch, seeds, plain=True)
+    _, g_k2 = _grads(torch, f32, batch, seeds, plain=False)
+    names = [n for n, _ in f32.module.named_parameters()]
+    total = torch.sqrt(sum((g.double() ** 2).sum() for g in g_p)).item()
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, g_k, g_p):
+        diff = (a.double() - b.double()).norm().item()
+        limit = GRAD_RTOL * b.double().norm().item() + GRAD_FLOOR * total
+        if diff / limit > worst:
+            worst, worst_name = diff / limit, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+    print(f"fp32 step B={B} T={T}: loss kernel {loss_k:.6f} plain "
+          f"{loss_p:.6f} (rel {loss_rel:.2e}, tol {LOSS_RTOL:.0e}); worst "
+          f"gradient {worst_name}: {worst:.3f} of its limit "
+          f"({GRAD_RTOL:.0e} rel L2 + {GRAD_FLOOR:.0e} of |all grads| = "
+          f"{total:.4e}); repeated step bit-identical: {same}", flush=True)
+    if loss_rel > LOSS_RTOL or worst > 1.0:
+        raise SmokeFailure("the fp32 kernel-path step disagrees with the "
+                           "plain path")
+    if not same:
+        raise SmokeFailure("the same step twice gave different gradients")
+
+    mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device)
+    on_card = Batch({m: torch.from_numpy(v).to(device, torch.bfloat16)
+                     for m, v in batch.data.items()},
+                    torch.from_numpy(batch.target).to(device),
+                    torch.from_numpy(batch.mask).to(device, torch.bfloat16),
+                    batch.lengths)
+    ms = time_ms(lambda: mixed.train_step(batch), reps=9)
+    card_ms = time_ms(lambda: mixed.train_step(on_card), reps=9)
+    plain_ms = time_ms(lambda: mixed.train_step(on_card, plain=True),
+                       reps=3, warmup=1)
+    print(f"train step B={B} T={T} bf16 mixed (fwd + bwd + Adam), median, "
+          f"CUDA events: kernel path {ms:.3f} ms/step from a host batch, "
+          f"{card_ms:.3f} ms/step from a batch on the card; plain path "
+          f"{plain_ms:.3f} ms/step from a batch on the card", flush=True)
+    for what, b in (("host batch", batch), ("batch on the card", on_card)):
+        print(f"profile of the kernel path, {what}:", flush=True)
+        try:
+            _profile(torch, lambda: mixed.train_step(b), 5)
+        except Exception as e:  # the profiler is a reading, not a check
+            print(f"profile: not available ({type(e).__name__}: {e})",
+                  flush=True)
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -206,10 +436,16 @@ def main() -> int:
     phase("slice")
     enc_launches, mfn_launches = run_slice(torch, np, device)
 
+    phase("train kernels against their plain versions")
+    checks += run_train_kernel_checks(torch, device)
+
+    phase("train")
+    launches = run_train(torch, np, device)
+
     main_case = {c.name: c for c in checks
                  if c.dtype == "bfloat16" and c.shape.startswith("B=32 T=160 ")}
-    launches = {"encoder_stack_fused": enc_launches,
-                "mfn_scan_fused": mfn_launches}
+    launches.update({"encoder_stack_fused": enc_launches,
+                     "mfn_scan_fused": mfn_launches})
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         c = main_case[name]

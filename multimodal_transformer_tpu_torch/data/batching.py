@@ -1,11 +1,14 @@
-"""Bucketed fixed-shape eval batches (numpy only).
+"""Training batches and bucketed fixed-shape eval batches (numpy only).
 
 Re-homed from `multimodal_transformer_tpu/data/batching.py`: that package's
 `data/__init__` imports the SENDv1 reader, which needs pandas.  Same
-semantics, batch for batch: videos are grouped by their length rounded up to
-`time_multiple`, every batch has exactly `batch_size` rows (the last partial
-batch of a bucket cycles its videos, with their mask and target zeroed), and
-masks are trailing (1 for the first `length` steps, then 0).
+semantics, batch for batch.  `make_batches` is the reference's batcher:
+optionally shuffled indices, chunks of `batch_size`, each chunk sorted by
+length (descending, stable) and cut to its longest video.
+`bucketed_eval_batches` groups videos by their length rounded up to
+`time_multiple`, and every batch has exactly `batch_size` rows (the last
+partial batch of a bucket cycles its videos, with their mask and target
+zeroed).  Masks are trailing (1 for the first `length` steps, then 0).
 """
 
 from __future__ import annotations
@@ -37,6 +40,36 @@ def _take_time(a: np.ndarray, idx: List[int], t: int) -> np.ndarray:
         pad[1] = (0, t - out.shape[1])
         out = np.pad(out, pad)
     return out
+
+
+def make_batches(data: Dict[str, np.ndarray], target: np.ndarray,
+                 seq_lens: Sequence[int], batch_size: int = 25,
+                 shuffle: bool = False,
+                 rng: Optional[np.random.RandomState] = None,
+                 pad_time_to: Optional[int] = None) -> Iterator[Batch]:
+    """Reference-semantics batches.  data: mod -> [V, W, F, D]; target:
+    [V, W]; seq_lens: windows per video; rng: the shuffle's RandomState
+    (numpy's global one when None); pad_time_to: round each batch's length
+    up to a multiple (valid only with key-masked attention)."""
+    n = target.shape[0]
+    index = list(range(n))
+    if shuffle:
+        (rng or np.random).shuffle(index)
+    for i in range(0, n, batch_size):
+        chunk = index[i:i + batch_size]
+        lens = [int(seq_lens[j]) for j in chunk]
+        order = sorted(range(len(chunk)), key=lambda k: -lens[k])
+        chunk = [chunk[k] for k in order]
+        lens = [lens[k] for k in order]
+        t_max = max(lens)
+        if pad_time_to is not None:
+            t_max = _round_up(t_max, pad_time_to)
+        batch_data = {m: _take_time(a, chunk, t_max) for m, a in data.items()}
+        tgt = _take_time(target, chunk, t_max)[..., None].astype(np.float32)
+        mask = np.zeros((len(chunk), t_max, 1), dtype=np.float32)
+        for bi, ln in enumerate(lens):
+            mask[bi, :ln] = 1.0
+        yield Batch(batch_data, tgt, mask, lens, list(chunk))
 
 
 def bucketed_eval_batches(data: Dict[str, np.ndarray], target: np.ndarray,

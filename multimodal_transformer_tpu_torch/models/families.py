@@ -13,8 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import Encoder, encoder_stack, encoder_stack_plain
-from ..ops.cuda.mfn import mfn_scan_fused_plain
-from ..ops.mfn_core import MFN, hoisted_inputs, mfn_head, mfn_scan
+from ..ops.mfn_core import MFN, mfn_scan
 from ..utils.init import init_linear
 from .config import FAMILIES, MFT_EMBED_DIM, ModelConfig
 from .frontend import add_frontend, frontend_apply
@@ -49,26 +48,28 @@ class MFT(nn.Module):
         self.Transformer = MFTHead(cfg, gen)
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
-                plain: bool = False):
-        """plain=True runs the plain PyTorch encoder and MFN recurrence on
-        any device: the reference that the CUDA path is checked against."""
+                seeds=None, plain: bool = False):
+        """seeds: a DropoutSeeds (ops/seeds.py) for a training step, None
+        for eval.  plain=True runs the plain PyTorch encoder and MFN
+        recurrence on any device: the reference that the CUDA path is
+        checked against."""
         mods = self.cfg.modalities
         mask_mode = mask_mode or self.cfg.mask_mode
         enc_fn = encoder_stack_plain if plain else encoder_stack
-        outs = frontend_apply(self, inputs, mods)
+        outs = frontend_apply(self, inputs, mods,
+                              None if seeds is None else seeds.front)
         head = self.Transformer
         mfn_in = {}
         for m in mods:
             e = getattr(head, f"embed_{m}")(outs[m])
             mfn_in[m] = enc_fn(getattr(head, f"transformer_{m}"), e, mask,
-                               h=ENCODER_HEADS, mask_mode=mask_mode)
-        if plain:
-            hs, mems = mfn_scan_fused_plain(
-                hoisted_inputs(head.mfn, mfn_in),
-                [getattr(head.mfn, f"lstm_{m}").weight_hh for m in mods],
-                head.mfn.gate_tensors())
-            return mfn_head(head.mfn, hs, mems) * mask
-        return mfn_scan(head.mfn, mfn_in) * mask
+                               h=ENCODER_HEADS, mask_mode=mask_mode,
+                               seeds=None if seeds is None else seeds.encoder[m])
+        if seeds is None:
+            pred = mfn_scan(head.mfn, mfn_in, plain=plain)
+        else:
+            pred = mfn_scan(head.mfn, mfn_in, seeds.mfn, seeds.out, plain=plain)
+        return pred * mask
 
 
 def build_model(cfg: ModelConfig, *,

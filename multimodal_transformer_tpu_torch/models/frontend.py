@@ -1,8 +1,11 @@
-"""CNN + Highway front end, one per modality (eval mode).
+"""CNN + Highway front end, one per modality.
 
 Counterpart of `multimodal_transformer_tpu/models/frontend.py`: every
 [B, W, F, D] window tensor goes through Conv1d(k=2) + max over the frames
-(computed as one pair-concat matmul) and a Highway gate.  Dropout is off.
+(computed as one pair-concat matmul) and a Highway gate, then, in training,
+hash dropout (p = 0.3) over the flat [B, W, E] positions.  The front end is
+plain PyTorch with autograd for its backward (the JAX package computes it
+in XLA; its window-embed kernel is off by default).
 """
 
 from __future__ import annotations
@@ -10,8 +13,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.basic import Highway, conv1d_window_embed
+from ..ops.basic import Highway, conv1d_window_embed, dropout
 from ..utils.init import init_conv1d
+
+DROPOUT = 0.3
 
 
 class CNN(nn.Module):
@@ -36,7 +41,9 @@ def add_frontend(module: nn.Module, mods, dims, window_embed_size,
         setattr(module, f"highway_{m}", Highway(e, gen))
 
 
-def frontend_apply(module: nn.Module, inputs, mods) -> dict:
-    """inputs: mod -> [B, W, F, D].  Returns mod -> [B, W, E_mod]."""
-    return {m: getattr(module, f"highway_{m}")(
-                getattr(module, f"cnn_{m}")(inputs[m])) for m in mods}
+def frontend_apply(module: nn.Module, inputs, mods, seeds=None) -> dict:
+    """inputs: mod -> [B, W, F, D]; seeds: mod -> dropout seed in training,
+    None in eval.  Returns mod -> [B, W, E_mod]."""
+    return {m: dropout(getattr(module, f"highway_{m}")(
+                getattr(module, f"cnn_{m}")(inputs[m])),
+                None if seeds is None else seeds[m], DROPOUT) for m in mods}

@@ -1,7 +1,10 @@
 """Multi-head attention and the pre-norm encoder stack.
 
-Counterpart of `multimodal_transformer_tpu/ops/attention.py` in eval mode.
-Two mask modes, as in the JAX package:
+Counterpart of `multimodal_transformer_tpu/ops/attention.py`.  Training
+mode takes the stack's [N, 4] dropout seed table (one seed per layer for
+each of the four sites: attention probabilities, attention output, FFN
+hidden, FFN output) and applies the hash dropout of ops/basic.py; without
+seeds the stack runs in eval mode.  Two mask modes, as in the JAX package:
 
   * "query" (the reference's quirk, kept as it is): the [B, T, 1] mask is
     broadcast over the query rows only, so padded query rows get -1e9
@@ -10,8 +13,10 @@ Two mask modes, as in the JAX package:
     independent of how much padding a batch carries.
 
 `encoder_stack` dispatches: a CUDA tensor in "key_query" mode goes to the
-fused encoder kernel (ops/cuda/encoder.py); a CPU tensor takes the plain
-path below.  "query" mode has no kernel yet and raises on CUDA.
+fused encoder kernel (ops/cuda/encoder.py), or with seeds to the training
+kernels (ops/cuda/encoder_train.py, whose output takes the final norm here
+so that autograd owns its parameters); a CPU tensor takes the plain path
+below.  "query" mode has no kernel yet and raises on CUDA.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ import torch
 from torch import nn
 
 from ..utils.init import init_linear
+from .basic import dropout
 from .dispatch import use_kernel
 from .norm import LayerNorm
 
 NEG_INF = -1e9
+DROPOUT = 0.1
 
 
 class MultiHeadAttention(nn.Module):
@@ -78,8 +85,11 @@ class Encoder(nn.Module):
 
 
 def multi_head_attention(attn: MultiHeadAttention, query, key, value,
-                         mask=None, *, h: int, mask_mode: str = "query"):
-    """query/key/value [B, T, D]; mask [B, T, 1] or None.  Returns [B, T, D]."""
+                         mask=None, *, h: int, mask_mode: str = "query",
+                         seed=None, dropout_p: float = DROPOUT):
+    """query/key/value [B, T, D]; mask [B, T, 1] or None; seed: the dropout
+    seed of the [B, h, T, T] probabilities (None in eval).  Returns
+    [B, T, D]."""
     B, _, D = query.shape
     d_k = D // h
 
@@ -97,37 +107,54 @@ def multi_head_attention(attn: MultiHeadAttention, query, key, value,
         if mask_mode == "key_query":
             kmask = mask[..., 0][:, None, None, :]    # [B, 1, 1, Tk]
             scores = scores.masked_fill(kmask == 0, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
+    p = dropout(torch.softmax(scores, dim=-1), seed, dropout_p)
     x = (p @ v).transpose(1, 2).reshape(B, -1, D)
     return attn.linears[3](x)
 
 
-def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str):
+def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str,
+                  seeds=None, dropout_p: float = DROPOUT):
+    """seeds: the layer's 4 site seeds, or None in eval."""
+    s = [None] * 4 if seeds is None else [int(v) for v in seeds]
     normed = layer.sublayer[0].norm(x)
-    x = x + multi_head_attention(layer.self_attn, normed, normed, normed,
-                                 mask, h=h, mask_mode=mask_mode)
+    x = x + dropout(multi_head_attention(layer.self_attn, normed, normed,
+                                         normed, mask, h=h,
+                                         mask_mode=mask_mode, seed=s[0],
+                                         dropout_p=dropout_p),
+                    s[1], dropout_p)
     normed = layer.sublayer[1].norm(x)
     ff = layer.feed_forward
-    return x + ff.w_2(torch.relu(ff.w_1(normed)))
+    mid = dropout(torch.relu(ff.w_1(normed)), s[2], dropout_p)
+    return x + dropout(ff.w_2(mid), s[3], dropout_p)
 
 
 def encoder_stack_plain(enc: Encoder, x, mask=None, *, h: int = 8,
-                        mask_mode: str = "query"):
-    """The plain path, on any device.  x: [B, T, D]."""
-    for layer in enc.layers:
-        x = encoder_layer(layer, x, mask, h=h, mask_mode=mask_mode)
+                        mask_mode: str = "query", seeds=None,
+                        dropout_p: float = DROPOUT):
+    """The plain path, on any device.  x: [B, T, D]; seeds: [N, 4] or None."""
+    for l, layer in enumerate(enc.layers):
+        x = encoder_layer(layer, x, mask, h=h, mask_mode=mask_mode,
+                          seeds=None if seeds is None else seeds[l],
+                          dropout_p=dropout_p)
     return enc.norm(x)
 
 
 def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
-                  mask_mode: str = "query"):
-    """Full N-layer pre-norm encoder with final norm.  x: [B, T, D]."""
+                  mask_mode: str = "query", seeds=None,
+                  dropout_p: float = DROPOUT):
+    """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
+    seeds: the [N, 4] dropout seed table in training, None in eval."""
     if use_kernel(x):
         if mask is None or mask_mode != "key_query":
             raise NotImplementedError(
-                "encoder_stack on CUDA runs the fused key_query kernel only; "
+                "encoder_stack on CUDA runs the fused key_query kernels only; "
                 f"mask_mode={mask_mode!r} (mask {'absent' if mask is None else 'given'}) "
                 "has no CUDA path yet (ROADMAP open items: query mode on CUDA)")
-        from .cuda.encoder import encoder_stack_fused
-        return encoder_stack_fused(enc, x, mask, h=h)
-    return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode)
+        if seeds is None:
+            from .cuda.encoder import encoder_stack_fused
+            return encoder_stack_fused(enc, x, mask, h=h)
+        from .cuda.encoder_train import encoder_stack_train
+        y = encoder_stack_train(enc, x, mask, h=h, p=dropout_p, seeds=seeds)
+        return enc.norm(y.to(x.dtype))
+    return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode,
+                               seeds=seeds, dropout_p=dropout_p)

@@ -1,7 +1,10 @@
-"""Basic building blocks: linear, the windowed CNN embed and the Highway gate.
+"""Basic building blocks: linear, the windowed CNN embed, the Highway gate
+and the counter-based hash dropout.
 
-Counterparts of `multimodal_transformer_tpu/ops/basic.py` in eval mode (no
-dropout).  Parameters are in torch layout, the same as the JAX package's.
+Counterparts of `multimodal_transformer_tpu/ops/basic.py`.  Parameters are in
+torch layout, the same as the JAX package's.  Dropout is the JAX package's
+"hash" impl: a murmur3 fmix32 of (seed, flat position), so the same seed
+gives the same mask bits here, in the CUDA kernels and in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,6 +14,55 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.init import init_linear
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 a in [0, 2**32): the product is split in
+    16-bit halves so that no intermediate leaves the int64 range."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def keep_threshold(p: float) -> int:
+    """The uint32 drop threshold of probability p, computed exactly as the
+    JAX package does: P(hash < t) = p."""
+    return min(int(round(p * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def hash_keep_mask(seed: int, idx: torch.Tensor, p: float) -> torch.Tensor:
+    """Bernoulli(1 - p) keep mask: murmur3's fmix32 over the position counter
+    idx (int64 holding uint32 values) with the uint32 seed injected up front.
+    Bit-identical to the JAX package's `hash_keep_mask`."""
+    h = (_mul32(idx & _M32, 0x9E3779B1) + (int(seed) & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h >= keep_threshold(p)
+
+
+def dropout_with_idx(x: torch.Tensor, seed: int, p: float,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """Inverted dropout whose mask bits hash the given positions."""
+    if p == 0.0:
+        return x
+    keep = hash_keep_mask(seed, idx, p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def dropout(x: torch.Tensor, seed: int | None, p: float) -> torch.Tensor:
+    """Inverted dropout, where(keep, x / (1 - p), 0), with the keep bits of
+    x's flat positions; seed=None (eval) or p == 0 is the identity."""
+    if seed is None or p == 0.0:
+        return x
+    idx = torch.arange(x.numel(), dtype=torch.int64,
+                       device=x.device).view(x.shape)
+    return dropout_with_idx(x, seed, p, idx)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

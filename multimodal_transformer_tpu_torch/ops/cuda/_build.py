@@ -27,12 +27,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argument types (restype is always c_int: cudaGetLastError())
+_U = ctypes.c_uint
+_F = ctypes.c_float
+# name -> argument types.  The launches return c_int (cudaGetLastError());
+# the *_workspace sizes return c_longlong (bytes).
 _SIGNATURES = {
     "mmtx_encoder_stack": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
     "mmtx_mfn_scan": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _P],
+    "mmtx_encoder_train_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    "mmtx_encoder_train_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _U, _F, _P, _I,
+                               _I, _I, _I, _I, _P],
+    "mmtx_encoder_layer_bwd": [_I, _P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _P],
+    "mmtx_mfn_train_fwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
+                           _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mmtx_mfn_train_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    "mmtx_mfn_train_bwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 _lock = threading.Lock()
@@ -98,7 +112,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = (ctypes.c_longlong if name.endswith("_workspace")
+                              else ctypes.c_int)
             _lib = lib
     return _lib
 

@@ -22,7 +22,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..dispatch import check_kernel_dtype, use_kernel
+from ..dispatch import acc_dtype, check_kernel_dtype, use_kernel
 from . import _build
 
 MAX_MODS = 4
@@ -39,7 +39,7 @@ def reset_launches() -> None:
 
 def mfn_scan_fused_plain(xps, whhs, gates):
     dtype = xps[0].dtype
-    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    acc = acc_dtype(dtype)
     B, T = xps[0].shape[:2]
     dev = xps[0].device
     hid = [w.shape[1] for w in whhs]
@@ -114,24 +114,33 @@ def smem_bytes(total_h: int, mem: int, h1: int, h2: int, hg1: int,
     return 4 * (12 * total_h + h1 + mem + h2 + hg1 + hg2 + 3 * mem + 2)
 
 
+def kernel_args(xps, whhs, gates, what: str):
+    """Checks what the MFN kernels take and returns (dtype code, B, T, mem,
+    h_att1, h_att2, h_g1, h_g2, hidden sizes); raises for anything else."""
+    x0 = xps[0]
+    dtype_code = check_kernel_dtype(x0, what)
+    B, T, mem, h1, h2, hg1, hg2 = _check_shapes(xps, whhs, gates)
+    for t in list(xps) + list(whhs) + list(gates):
+        if t.device != x0.device or t.dtype != x0.dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: every tensor must be contiguous, on {x0.device} "
+                f"and in {x0.dtype}; got {t.dtype} on {t.device}")
+    hid = [w.shape[1] for w in whhs]
+    if smem_bytes(sum(hid), mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:
+        raise ValueError(f"{what}: widths need more than 48 KB of shared "
+                         "memory per block")
+    return dtype_code, B, T, mem, h1, h2, hg1, hg2, hid
+
+
 def mfn_scan_fused(xps, whhs, gates):
     """The MFN recurrence.  See the module docstring."""
     x0 = xps[0]
     if not use_kernel(x0):
         return mfn_scan_fused_plain(xps, whhs, gates)
     global launches
-    dtype_code = check_kernel_dtype(x0, "mfn_scan_fused")
-    B, T, mem, h1, h2, hg1, hg2 = _check_shapes(xps, whhs, gates)
-    for t in list(xps) + list(whhs) + list(gates):
-        if t.device != x0.device or t.dtype != x0.dtype or not t.is_contiguous():
-            raise ValueError(
-                "mfn_scan_fused: every tensor must be contiguous, on "
-                f"{x0.device} and in {x0.dtype}; got {t.dtype} on {t.device}")
-    hid = [w.shape[1] for w in whhs]
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
+        xps, whhs, gates, "mfn_scan_fused")
     total_h = sum(hid)
-    if smem_bytes(total_h, mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:
-        raise ValueError("mfn_scan_fused: widths need more than 48 KB of "
-                         "shared memory per block")
     hs = torch.empty((B, T, total_h), dtype=x0.dtype, device=x0.device)
     mems = torch.empty((B, T, mem), dtype=x0.dtype, device=x0.device)
     xp_ptrs = _build.pointer_array([t.data_ptr() for t in xps])

@@ -1,7 +1,8 @@
 """Check each CUDA kernel against its plain version on the card.
 
-The bound is competitive: with `ref` the plain version run in float64 on
-the same (already rounded) inputs and weights,
+The bound is competitive and applies to every output tensor: with `ref` the
+plain version run in float64 on the same (already rounded) inputs and
+weights,
 
     max|kernel - ref| <= 2 * max|plain - ref| + 1e-6
 
@@ -14,19 +15,27 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import statistics
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ...models.config import MFT_EMBED_DIM
 from ..attention import Encoder
-from ..mfn_core import MFN, hoisted_inputs
+from ..mfn_core import DROPOUTS, MFN, hoisted_inputs
 from . import encoder as enc_k
+from . import encoder_train as enct_k
 from . import mfn as mfn_k
+from . import mfn_train as mfnt_k
 
 SLACK = 1e-6
 AVL = ("acoustic", "image", "linguistic")
+ENC_P = 0.1
+MFN_PS = (DROPOUTS["gamma1"], DROPOUTS["gamma2"])
+TRAIN_LAYERS = 6
+KERNEL_BURST = 5  # back-to-back kernel calls per timed window
 
 
 @dataclasses.dataclass
@@ -34,30 +43,47 @@ class KernelCheck:
     name: str
     shape: str
     dtype: str
-    err: float          # max |kernel - fp64 plain| on valid rows
-    plain_err: float    # max |plain in dtype - fp64 plain| on valid rows
+    parts: Dict[str, Tuple[float, float]]  # output -> (err, plain err)
     nan_free: bool
-    ms: float           # kernel time, median of warm repeats
+    ms: float           # kernel ms per call, median of warm bursts (nan: untimed)
     plain_ms: float
 
+    @staticmethod
+    def bound_of(plain_err: float) -> float:
+        return 2.0 * plain_err + SLACK
+
     @property
-    def bound(self) -> float:
-        return 2.0 * self.plain_err + SLACK
+    def err(self) -> float:
+        """max |kernel - fp64 plain| over every output tensor."""
+        return max(e for e, _ in self.parts.values())
+
+    @property
+    def worst(self) -> str:
+        """The output closest to (or furthest past) its bound."""
+        return max(self.parts, key=lambda k: self.parts[k][0]
+                   / self.bound_of(self.parts[k][1]))
 
     @property
     def ok(self) -> bool:
-        return self.nan_free and self.err <= self.bound
+        return self.nan_free and all(e <= self.bound_of(p)
+                                     for e, p in self.parts.values())
 
     def line(self) -> str:
-        return (f"{self.name:22s} {self.shape:18s} {self.dtype:9s} "
-                f"err={self.err:.3e} bound={self.bound:.3e} "
-                f"(plain err {self.plain_err:.3e}) "
-                f"kernel={self.ms:.3f} ms plain={self.plain_ms:.3f} ms "
-                f"{'PASS' if self.ok else 'FAIL'}")
+        e, p = self.parts[self.worst]
+        return (f"{self.name:24s} {self.shape:18s} {self.dtype:9s} "
+                f"{len(self.parts):2d} outputs, worst {self.worst}: "
+                f"err={e:.3e} bound={self.bound_of(p):.3e} "
+                f"(plain err {p:.3e}) kernel={self.ms:.3f} ms "
+                f"plain={self.plain_ms:.3f} ms {'PASS' if self.ok else 'FAIL'}")
 
 
-def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over reps calls, timed with CUDA events."""
+def time_ms(fn, reps: int = 7, warmup: int = 2, burst: int = 1) -> float:
+    """Milliseconds per fn() call, timed with CUDA events: the median over
+    reps of a burst of back-to-back calls divided by its length (a burst
+    keeps the card's queue full, so the host's per-call preparation after
+    the first call overlaps the card's work); nan when reps is 0."""
+    if reps <= 0:
+        return math.nan
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -66,10 +92,11 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -81,8 +108,23 @@ def lengths_for(B: int, T: int, seed: int) -> np.ndarray:
     return lens
 
 
-def _max_err(a: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor) -> float:
-    return (a.double() - ref)[valid].abs().max().item()
+def _max_err(a: torch.Tensor, ref: torch.Tensor, valid=None) -> float:
+    d = (a.double() - ref.double()).abs()
+    return (d[valid] if valid is not None else d).max().item()
+
+
+def _parts(names, kern, plain, ref, valids) -> Dict[str, Tuple[float, float]]:
+    return {n: (_max_err(k, r, v), _max_err(p, r, v))
+            for n, k, p, r, v in zip(names, kern, plain, ref, valids)}
+
+
+def _finite(ts, valids) -> bool:
+    return all(bool(torch.isfinite((t if v is None else t[v]).float()).all())
+               for t, v in zip(ts, valids))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def random_encoder(gen: torch.Generator, D: int = 256, F: int = 128,
@@ -102,6 +144,16 @@ def random_encoder(gen: torch.Generator, D: int = 256, F: int = 128,
     return enc
 
 
+def random_seeds(gen: torch.Generator, *shape) -> torch.Tensor:
+    return torch.randint(0, 2 ** 32, shape, generator=gen, dtype=torch.int64)
+
+
+def _key_mask(B: int, T: int, seed: int, dtype, device):
+    lens = torch.as_tensor(lengths_for(B, T, seed))
+    mask = (torch.arange(T)[None, :] < lens[:, None]).to(dtype)[..., None]
+    return mask.to(device)
+
+
 @torch.no_grad()
 def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
                   D: int = 256, h: int = 8, F: int = 128, n_layers: int = 6,
@@ -109,9 +161,7 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
     gen = torch.Generator().manual_seed(seed)
     enc = random_encoder(gen, D, F, n_layers).to(device=device, dtype=dtype)
     x = torch.randn(B, T, D, generator=gen).to(device=device, dtype=dtype)
-    lens = torch.as_tensor(lengths_for(B, T, seed))
-    mask = (torch.arange(T)[None, :] < lens[:, None]).to(dtype)[..., None]
-    mask = mask.to(device)
+    mask = _key_mask(B, T, seed, dtype, device)
     valid = mask[..., 0].bool()
 
     ref = enc_k.encoder_stack_fused_plain(copy.deepcopy(enc).double(),
@@ -119,12 +169,14 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
     plain = enc_k.encoder_stack_fused_plain(enc, x, mask, h=h)
     kern = enc_k.encoder_stack_fused(enc, x, mask, h=h)
     torch.cuda.synchronize()
-    nan_free = bool(torch.isfinite(kern.float()[valid]).all())
     return KernelCheck(
-        "encoder_stack_fused", f"B={B} T={T} D={D}", str(dtype).split(".")[-1],
-        _max_err(kern, ref, valid), _max_err(plain, ref, valid), nan_free,
-        time_ms(lambda: enc_k.encoder_stack_fused(enc, x, mask, h=h), reps),
-        time_ms(lambda: enc_k.encoder_stack_fused_plain(enc, x, mask, h=h), reps))
+        "encoder_stack_fused", f"B={B} T={T} D={D}", _dtype_name(dtype),
+        _parts(["out"], [kern], [plain], [ref], [valid]),
+        _finite([kern], [valid]),
+        time_ms(lambda: enc_k.encoder_stack_fused(enc, x, mask, h=h), reps,
+                burst=KERNEL_BURST),
+        time_ms(lambda: enc_k.encoder_stack_fused_plain(enc, x, mask, h=h),
+                reps))
 
 
 @torch.no_grad()
@@ -145,13 +197,159 @@ def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
     plain = mfn_k.mfn_scan_fused_plain(xps, whhs, gates)
     kern = mfn_k.mfn_scan_fused(xps, whhs, gates)
     torch.cuda.synchronize()
-    ref_c, plain_c, kern_c = (torch.cat(o, dim=-1) for o in (ref, plain, kern))
-    valid = torch.ones(ref_c.shape, dtype=torch.bool, device=ref_c.device)
-    nan_free = bool(torch.isfinite(kern_c.float()).all())
     return KernelCheck(
-        "mfn_scan_fused", f"B={B} T={T} A+V+L", str(dtype).split(".")[-1],
-        _max_err(kern_c, ref_c, valid), _max_err(plain_c, ref_c, valid),
-        nan_free,
-        time_ms(lambda: mfn_k.mfn_scan_fused(xps, whhs, gates), reps),
+        "mfn_scan_fused", f"B={B} T={T} A+V+L", _dtype_name(dtype),
+        _parts(["hs", "mems"], kern, plain, ref, [None, None]),
+        _finite(kern, [None, None]),
+        time_ms(lambda: mfn_k.mfn_scan_fused(xps, whhs, gates), reps,
+                burst=KERNEL_BURST),
         time_ms(lambda: mfn_k.mfn_scan_fused_plain(xps, whhs, gates), reps,
                 warmup=1))
+
+
+def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
+    gen = torch.Generator().manual_seed(seed)
+    enc = random_encoder(gen, D, F, n_layers).to(device=device, dtype=dtype)
+    params = [t.detach() for layer in enc.layers
+              for t in enct_k._layer_tensors(layer)]
+    x = torch.randn(B, T, D, generator=gen).to(device=device, dtype=dtype)
+    kmask = _key_mask(B, T, seed, torch.float32, device)[..., 0]
+    seeds = random_seeds(gen, n_layers, 4)
+    return gen, params, x, kmask, seeds
+
+
+@torch.no_grad()
+def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
+                            seed: int = 0, D: int = 256, h: int = 8,
+                            F: int = 128, n_layers: int = TRAIN_LAYERS,
+                            reps: int = 5) -> KernelCheck:
+    """Kernel 3: the stack's output and every layer's saved input."""
+    _, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
+                                                     seed, D, F, n_layers)
+    valid = kmask.bool()
+    args = (kmask, seeds, ENC_P, h)
+    ref = enct_k.encoder_stack_train_fwd_plain([p.double() for p in params],
+                                               x.double(), *args)
+    plain = enct_k.encoder_stack_train_fwd_plain(params, x, *args)
+    kern = enct_k.encoder_stack_train_fwd(params, x, *args)
+    torch.cuda.synchronize()
+    names = ["out"] + [f"saved[{l}]" for l in range(1, n_layers)]
+    split = lambda o: [o[0]] + [o[1][l] for l in range(1, n_layers)]
+    valids = [valid] * n_layers
+    return KernelCheck(
+        "encoder_stack_train_fwd", f"B={B} T={T} D={D}", _dtype_name(dtype),
+        _parts(names, split(kern), split(plain), split(ref), valids),
+        _finite(split(kern), valids),
+        time_ms(lambda: enct_k.encoder_stack_train_fwd(params, x, *args),
+                reps, burst=KERNEL_BURST),
+        time_ms(lambda: enct_k.encoder_stack_train_fwd_plain(params, x,
+                                                             *args), reps))
+
+
+GRAD_NAMES = ("ln1.a", "ln1.b", "q.w", "q.b", "k.w", "k.b", "v.w", "v.b",
+              "out.w", "out.b", "ln2.a", "ln2.b", "ff1.w", "ff1.b", "ff2.w",
+              "ff2.b")
+
+
+def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
+                            seed: int = 0, D: int = 256, h: int = 8,
+                            F: int = 128, reps: int = 5) -> KernelCheck:
+    """Kernel 4: dx and the 16 parameter grads of one layer, from a random
+    layer input and a random output cotangent that is 0 past each video's
+    length."""
+    gen, lp, _, kmask, seeds = _encoder_train_case(B, T, dtype, device, seed,
+                                                   D, F, 1)
+    x = torch.randn(B, T, D, generator=gen).to(device)
+    dy = torch.randn(B, T, D, generator=gen).to(device) * kmask[..., None]
+    valid = kmask.bool()
+    args = (kmask, seeds[0], ENC_P, h)
+    ref = enct_k.encoder_layer_bwd_plain([p.double() for p in lp], x.double(),
+                                         dy.double(), *args)
+    plain = enct_k.encoder_layer_bwd_plain(lp, x, dy, *args)
+    with torch.no_grad():
+        kern = enct_k.encoder_layer_bwd(lp, x, dy, *args)
+    torch.cuda.synchronize()
+    flat = lambda o: [o[0]] + list(o[1])
+    valids = [valid] + [None] * len(lp)
+    return KernelCheck(
+        "encoder_layer_bwd", f"B={B} T={T} D={D}", _dtype_name(dtype),
+        _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
+               valids),
+        _finite(flat(kern), valids),
+        time_ms(lambda: enct_k.encoder_layer_bwd(lp, x, dy, *args), reps,
+                burst=KERNEL_BURST),
+        time_ms(lambda: enct_k.encoder_layer_bwd_plain(lp, x, dy, *args),
+                reps))
+
+
+def _mfn_train_case(B, T, dtype, device, seed, mods):
+    gen = torch.Generator().manual_seed(seed)
+    mfn = MFN(mods, MFT_EMBED_DIM, output_dim=1, gen=gen).to(device=device,
+                                                            dtype=dtype)
+    with torch.no_grad():
+        inputs = {m: torch.randn(B, T, MFT_EMBED_DIM[m], generator=gen).to(
+            device=device, dtype=dtype) for m in mods}
+        xps = [x.contiguous() for x in hoisted_inputs(mfn, inputs)]
+    whhs = [getattr(mfn, f"lstm_{m}").weight_hh.detach() for m in mods]
+    gates = [g.detach() for g in mfn.gate_tensors()]
+    return gen, xps, whhs, gates, random_seeds(gen, T, 2)
+
+
+def _double(ts):
+    return [t.double() for t in ts]
+
+
+@torch.no_grad()
+def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
+                        seed: int = 0, mods=AVL, reps: int = 5) -> KernelCheck:
+    """Kernel 6: hs, cs and mems."""
+    _, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
+                                                 mods)
+    ref = mfnt_k.mfn_train_fwd_plain(_double(xps), _double(whhs),
+                                     _double(gates), seeds, MFN_PS)
+    plain = mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds, MFN_PS)
+    kern = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS)
+    torch.cuda.synchronize()
+    valids = [None] * 3
+    return KernelCheck(
+        "mfn_train_fwd", f"B={B} T={T} A+V+L", _dtype_name(dtype),
+        _parts(["hs", "cs", "mems"], kern, plain, ref, valids),
+        _finite(kern, valids),
+        time_ms(lambda: mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS),
+                reps, burst=KERNEL_BURST),
+        time_ms(lambda: mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds,
+                                                   MFN_PS), reps, warmup=1))
+
+
+def check_mfn_train_bwd(B: int, T: int, dtype: torch.dtype, *, device,
+                        seed: int = 0, mods=AVL, reps: int = 3) -> KernelCheck:
+    """Kernel 7: d_xps and every parameter grad, from kernel 6's saved
+    states (the same stored states feed all three versions) and random
+    cotangents."""
+    gen, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
+                                                   mods)
+    with torch.no_grad():
+        hs, cs, mems = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS)
+    g_hs = torch.randn(hs.shape, generator=gen).to(device)
+    g_mems = torch.randn(mems.shape, generator=gen).to(device)
+    saved = (hs, cs, mems, g_hs, g_mems)
+    ref = mfnt_k.mfn_train_bwd_plain(_double(xps), _double(whhs),
+                                     _double(gates), seeds, MFN_PS,
+                                     *_double(saved))
+    plain = mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds, MFN_PS, *saved)
+    with torch.no_grad():
+        kern = mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, MFN_PS, *saved)
+    torch.cuda.synchronize()
+    names = ([f"d_xp[{m}]" for m in mods] + [f"d_whh[{m}]" for m in mods]
+             + [f"d_gate[{i}]" for i in range(16)])
+    flat = lambda o: list(o[0]) + list(o[1]) + list(o[2])
+    valids = [None] * len(names)
+    return KernelCheck(
+        "mfn_train_bwd", f"B={B} T={T} A+V+L", _dtype_name(dtype),
+        _parts(names, flat(kern), flat(plain), flat(ref), valids),
+        _finite(flat(kern), valids),
+        time_ms(lambda: mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, MFN_PS,
+                                             *saved), reps, burst=KERNEL_BURST),
+        time_ms(lambda: mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds,
+                                                   MFN_PS, *saved),
+                min(reps, 1), warmup=0))

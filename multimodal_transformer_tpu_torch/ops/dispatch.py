@@ -22,3 +22,9 @@ def check_kernel_dtype(x: torch.Tensor, what: str) -> int:
         return 1
     raise TypeError(f"{what}: the CUDA kernel takes float32 or bfloat16, "
                     f"got {x.dtype}")
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype of the plain versions: float64 for float64
+    inputs (the reference for error bounds), float32 otherwise."""
+    return torch.float64 if dtype == torch.float64 else torch.float32

@@ -1,10 +1,18 @@
-"""Memory Fusion Network, eval mode.
+"""Memory Fusion Network.
 
 Counterpart of `multimodal_transformer_tpu/ops/mfn_core.py`.  The LSTM input
 projections of every step are hoisted out of the recurrence as one batched
-matmul per modality; the recurrence itself is `mfn_scan_fused`
-(ops/cuda/mfn.py), which runs the CUDA kernel for CUDA tensors and a plain
-Python loop over T for CPU tensors; the output head runs batched afterwards.
+matmul per modality; the output head runs batched afterwards.  In eval the
+recurrence is `mfn_scan_fused` (ops/cuda/mfn.py).  In training it takes the
+[T, 2] gamma1/gamma2 dropout seeds: a CUDA tensor goes to the training
+kernels (ops/cuda/mfn_train.py, forward and reverse recurrence), a CPU
+tensor to the plain recurrence with autograd; the head drops out its hidden
+with the `out` seed.  Both CUDA wrappers run a plain Python loop over T for
+CPU tensors.
+
+The head's dropout indexes the TIME-major [T, B, 64] hidden, as the JAX
+package's head does (it runs time-major): element [b, t, c] of the port's
+batch-major hidden takes the keep bit of position (t * B + b) * 64 + c.
 
 Gate algebra (reference MFT/multiTransformer.py:200-224):
     c*       = [c_{t-1}; c_t]
@@ -21,7 +29,10 @@ import torch
 from torch import nn
 
 from ..utils.init import init_linear, init_lstm_cell
-from .cuda.mfn import mfn_scan_fused
+from .basic import dropout_with_idx
+from .cuda.mfn import mfn_scan_fused, mfn_scan_fused_plain
+from .cuda.mfn_train import mfn_states_train, mfn_train_fwd_plain
+from .dispatch import use_kernel
 
 HIDDEN_DIM = {"linguistic": 88, "emotient": 16, "acoustic": 48, "image": 88}
 MEM_DIM = 128
@@ -79,19 +90,38 @@ def hoisted_inputs(mfn: MFN, inputs) -> list:
     return xps
 
 
-def mfn_states(mfn: MFN, inputs):
-    """(hs [B, T, total_h], mems [B, T, MEM_DIM]) of the recurrence."""
+def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
+    """(hs [B, T, total_h], mems [B, T, MEM_DIM]) of the recurrence; seeds:
+    [T, 2] in training, None in eval; plain=True takes the plain PyTorch
+    recurrence on any device."""
+    xps = hoisted_inputs(mfn, inputs)
     whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in mfn.mods]
-    return mfn_scan_fused(hoisted_inputs(mfn, inputs), whhs,
-                          mfn.gate_tensors())
+    gates = mfn.gate_tensors()
+    if seeds is None:
+        scan = mfn_scan_fused_plain if plain else mfn_scan_fused
+        return scan(xps, whhs, gates)
+    ps = (DROPOUTS["gamma1"], DROPOUTS["gamma2"])
+    if plain or not use_kernel(xps[0]):
+        hs, _, mems = mfn_train_fwd_plain(xps, whhs, gates, seeds, ps)
+        return hs, mems
+    return mfn_states_train(xps, whhs, gates, seeds, ps)
 
 
-def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor) -> torch.Tensor:
+def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
+             out_seed=None) -> torch.Tensor:
     feats = torch.cat([hs, mems], dim=-1)
-    return mfn.out_fc2(torch.relu(mfn.out_fc1(feats)))
+    h = torch.relu(mfn.out_fc1(feats))
+    if out_seed is not None:
+        B, T, W = h.shape
+        idx = torch.arange(T * B * W, dtype=torch.int64,
+                           device=h.device).view(T, B, W).transpose(0, 1)
+        h = dropout_with_idx(h, int(out_seed), DROPOUTS["out"], idx)
+    return mfn.out_fc2(h)
 
 
-def mfn_scan(mfn: MFN, inputs) -> torch.Tensor:
-    """MFN forward.  inputs: mod -> [B, T, D_mod].  Returns [B, T, out]."""
-    hs, mems = mfn_states(mfn, inputs)
-    return mfn_head(mfn, hs, mems)
+def mfn_scan(mfn: MFN, inputs, seeds=None, out_seed=None, *,
+             plain: bool = False) -> torch.Tensor:
+    """MFN forward.  inputs: mod -> [B, T, D_mod]; seeds [T, 2] and
+    out_seed in training.  Returns [B, T, out]."""
+    hs, mems = mfn_states(mfn, inputs, seeds, plain=plain)
+    return mfn_head(mfn, hs, mems, out_seed)

@@ -71,6 +71,6 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
 
 def export_params(module: nn.Module):
     """module's parameters as the JAX package's nested tree of float32
-    numpy arrays."""
-    return unflatten_tree({k: v.detach().float().cpu().numpy()
+    numpy arrays (copies: later steps on the module do not change them)."""
+    return unflatten_tree({k: v.detach().float().cpu().numpy().copy()
                            for k, v in module.state_dict().items()})

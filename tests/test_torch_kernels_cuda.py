@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain versions on the card (the kernel
-phase of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
-B=32, T=160 A+V+L, fp32 and bf16, within the competitive bound
-err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6.
+phases of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
+B=32, T=160 A+V+L, and the four training kernels (encoder stack forward and
+layer backward, MFN forward and reverse recurrence) at B=32, T in {160, 400},
+fp32 and bf16, within the competitive bound
+err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
+output tensor.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  On the card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -41,6 +44,29 @@ def test_mfn_kernel_within_bound(device, dtype):
     before = mfn.launches
     c = verify.check_mfn(32, 160, DTYPES[dtype], device=device, reps=1)
     assert mfn.launches > before
+    assert c.ok, c.line()
+
+
+TRAIN_KERNELS = {"encoder_stack_train_fwd": ("encoder_train", "fwd_launches"),
+                 "encoder_layer_bwd": ("encoder_train", "bwd_launches"),
+                 "mfn_train_fwd": ("mfn_train", "fwd_launches"),
+                 "mfn_train_bwd": ("mfn_train", "bwd_launches")}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T", [160, 400])
+@pytest.mark.parametrize("kernel", sorted(TRAIN_KERNELS))
+def test_train_kernel_within_bound(device, kernel, T, dtype):
+    import importlib
+
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    module, counter = TRAIN_KERNELS[kernel]
+    mod = importlib.import_module(
+        f"multimodal_transformer_tpu_torch.ops.cuda.{module}")
+    before = getattr(mod, counter)
+    c = getattr(verify, f"check_{kernel}")(32, T, DTYPES[dtype],
+                                           device=device, reps=0)
+    assert getattr(mod, counter) > before
     assert c.ok, c.line()
 
 

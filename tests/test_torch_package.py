@@ -101,7 +101,8 @@ def test_import_builds_nothing():
 def test_library_name_follows_the_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libmmtx_")
-    assert {s.name for s in _build.sources()} == {"encoder.cu", "mfn.cu"}
+    assert {s.name for s in _build.sources()} == {
+        "encoder.cu", "mfn.cu", "encoder_train.cu", "mfn_train.cu"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
