@@ -34,12 +34,13 @@ from .optim import ReduceLROnPlateau, make_adam
 
 
 class Engine:
-    """Trains one (family, modalities) configuration on one device."""
+    """Trains one (family, modalities) configuration on one device (the
+    card unless the caller names another)."""
 
     def __init__(self, cfg: ModelConfig, lr: float = 1e-4,
                  weight_decay: float = 1e-4, seed: int = 1,
                  train_dtype: Optional[torch.dtype] = None,
-                 device: torch.device | str = "cpu", *, logger=None,
+                 device: torch.device | str = "cuda", *, logger=None,
                  seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None):
         self.cfg = cfg
         self.device = torch.device(device)

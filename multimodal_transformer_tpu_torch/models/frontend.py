@@ -2,10 +2,13 @@
 
 Counterpart of `multimodal_transformer_tpu/models/frontend.py`: every
 [B, W, F, D] window tensor goes through Conv1d(k=2) + max over the frames
-(computed as one pair-concat matmul) and a Highway gate, then, in training,
-hash dropout (p = 0.3) over the flat [B, W, E] positions.  The front end is
-plain PyTorch with autograd for its backward (the JAX package computes it
-in XLA; its window-embed kernel is off by default).
+and a Highway gate, then, in training, hash dropout (p = 0.3) over the flat
+[B, W, E] positions.  Dispatch follows the port's rule: a CUDA tensor takes
+kernel 10 (`WindowEmbedHighway`, ops/cuda/window_embed.py: kernel forward,
+plain VJP backward); a CPU tensor, `plain=True`, or the B1-LSTM Highway
+(`relu_proj=True`, ReLU on the projection, which the kernel does not
+compute, as the Pallas kernel does not) take the plain conv (one
+pair-concat matmul) + Highway with autograd.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import torch
 from torch import nn
 
 from ..ops.basic import Highway, conv1d_window_embed, dropout
+from ..ops.cuda.window_embed import WindowEmbedHighway
+from ..ops.dispatch import use_kernel
 from ..utils.init import init_conv1d
 
 DROPOUT = 0.3
@@ -41,9 +46,20 @@ def add_frontend(module: nn.Module, mods, dims, window_embed_size,
         setattr(module, f"highway_{m}", Highway(e, gen))
 
 
-def frontend_apply(module: nn.Module, inputs, mods, seeds=None) -> dict:
+def frontend_apply(module: nn.Module, inputs, mods, seeds=None, *,
+                   relu_proj: bool = False, plain: bool = False) -> dict:
     """inputs: mod -> [B, W, F, D]; seeds: mod -> dropout seed in training,
     None in eval.  Returns mod -> [B, W, E_mod]."""
-    return {m: dropout(getattr(module, f"highway_{m}")(
-                getattr(module, f"cnn_{m}")(inputs[m])),
-                None if seeds is None else seeds[m], DROPOUT) for m in mods}
+    outs = {}
+    for m in mods:
+        x = inputs[m]
+        cnn, hw = getattr(module, f"cnn_{m}"), getattr(module, f"highway_{m}")
+        if use_kernel(x) and not relu_proj and not plain:
+            y = WindowEmbedHighway.apply(
+                x, cnn.conv1d.weight, cnn.conv1d.bias,
+                hw.linear_projection.weight, hw.linear_projection.bias,
+                hw.linear_gate.weight, hw.linear_gate.bias)
+        else:
+            y = hw(cnn(x), relu_proj)
+        outs[m] = dropout(y, None if seeds is None else seeds[m], DROPOUT)
+    return outs

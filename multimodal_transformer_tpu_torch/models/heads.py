@@ -1,0 +1,138 @@
+"""Output heads of the families other than the multi-modality MFT.
+
+Counterparts of `multimodal_transformer_tpu/models/heads.py`, eval mode:
+
+  * `UniTransformer`: Linear embed (or, as the NLPTransformer of the SFT,
+    Dropout -> Linear -> ReLU) -> encoder -> stepwise LSTM decoder over
+    [o_prev; enc_t] -> MLP; used by SFT, and by MFT and B3-MFN with one
+    modality;
+  * `UniFullTransformer`: Linear embed -> encoder -> per-step MLP (B2-Trans);
+  * `MultiLSTM`: Linear+ReLU embed -> local attention whose softmax runs
+    over the TIME axis -> LSTM -> causal attention convolution -> MLP
+    (B1-LSTM).
+
+Parameter names follow the JAX trees: `embed`, `encoder`, `decoder`,
+`dec_h0`, `dec_c0`, `out_fc1`, `out_fc2`; `embed`, `attn_fc1`, `attn_fc2`,
+`lstm`, `decoder_fc1`, `decoder_fc2`.  The encoders dispatch as
+`ops.attention.encoder_stack` does (plain=True takes the plain encoder on
+any device); the LSTM recurrences are plain PyTorch, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.attention import Encoder, encoder_stack, encoder_stack_plain
+from ..ops.recurrent import convolve_local_attn, lstm_cell_update, lstm_scan
+from ..utils.init import make_linear, make_lstm
+
+HEADS = 8
+NEG_INF = -1e9
+
+
+def _encode(enc: Encoder, e, mask, mask_mode: str, plain: bool):
+    fn = encoder_stack_plain if plain else encoder_stack
+    return fn(enc, e, mask, h=HEADS, mask_mode=mask_mode)
+
+
+def _mlp_out(head: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return head.out_fc2(torch.relu(head.out_fc1(x)))
+
+
+class UniTransformer(nn.Module):
+    def __init__(self, window_embed_size: int, embed_dim: int = 256,
+                 h_dim: int = 128, n_enc: int = 6, d_ff: int = 128,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.embed = make_linear(window_embed_size, embed_dim, gen)
+        self.encoder = Encoder(embed_dim, d_ff, n_enc, gen)
+        self.decoder = make_lstm(2 * embed_dim, embed_dim, gen)
+        self.dec_h0 = nn.Parameter(torch.zeros(1, embed_dim))
+        self.dec_c0 = nn.Parameter(torch.zeros(1, embed_dim))
+        self.out_fc1 = make_linear(embed_dim, h_dim, gen)
+        self.out_fc2 = make_linear(h_dim, 1, gen)
+
+    def forward(self, x, mask, *, mask_mode: str, plain: bool = False,
+                embed_is_mlp: bool = False) -> torch.Tensor:
+        """x [B, T, window_embed]; mask [B, T, 1].  Returns [B, T, 1].
+        embed_is_mlp: the NLPTransformer embed, ReLU after the Linear (its
+        Dropout is off in eval)."""
+        e = self.embed(x)
+        if embed_is_mlp:
+            e = torch.relu(e)
+        enc = _encode(self.encoder, e, mask, mask_mode, plain)
+        return _mlp_out(self, lstm_decoder_scan(self, enc)) * mask
+
+
+def lstm_decoder_scan(head: UniTransformer, enc: torch.Tensor) -> torch.Tensor:
+    """The stepwise decoder: i_t = [o_prev; enc_t] -> LSTMCell -> o_t (the new
+    hidden state), from (dec_h0, dec_c0) and o_prev = 0.  The enc_t half of
+    the input projection is hoisted out of the loop.  enc [B, T, D]; returns
+    [B, T, D]."""
+    B, T, D = enc.shape
+    cell = head.decoder
+    w_prev, w_enc = cell.weight_ih[:, :D], cell.weight_ih[:, D:]
+    enc_proj = enc @ w_enc.T + cell.bias_ih + cell.bias_hh  # [B, T, 4H]
+    w_prev_t, w_hh_t = w_prev.T, cell.weight_hh.T
+    h = head.dec_h0.expand(B, D).to(enc.dtype)
+    c = head.dec_c0.expand(B, D).to(enc.dtype)
+    o = torch.zeros(B, D, dtype=enc.dtype, device=enc.device)
+    outs = []
+    for t in range(T):
+        h, c = lstm_cell_update(enc_proj[:, t] + o @ w_prev_t + h @ w_hh_t, c)
+        o = h
+        outs.append(h)
+    return torch.stack(outs, dim=1)
+
+
+class UniFullTransformer(nn.Module):
+    def __init__(self, window_embed_size: int, embed_dim: int = 256,
+                 h_dim: int = 128, n_enc: int = 6, d_ff: int = 128,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.embed = make_linear(window_embed_size, embed_dim, gen)
+        self.encoder = Encoder(embed_dim, d_ff, n_enc, gen)
+        self.out_fc1 = make_linear(embed_dim, h_dim, gen)
+        self.out_fc2 = make_linear(h_dim, 1, gen)
+
+    def forward(self, x, mask, *, mask_mode: str,
+                plain: bool = False) -> torch.Tensor:
+        enc = _encode(self.encoder, self.embed(x), mask, mask_mode, plain)
+        return _mlp_out(self, enc) * mask
+
+
+def time_softmax_attn_weights(head: "MultiLSTM", e: torch.Tensor,
+                              mask=None) -> torch.Tensor:
+    """The B1 local-attention weights: Linear -> ReLU -> Linear -> softmax
+    over the TIME axis (the reference's Softmax(dim=1) on [B, T, attn_len],
+    a quirk kept as it is).  With a [B, T, 1] mask, padded steps' logits are
+    -1e9, so the weights do not depend on the padding; mask=None is the
+    reference's unmasked softmax."""
+    logits = head.attn_fc2(torch.relu(head.attn_fc1(e)))  # [B, T, K]
+    if mask is not None:
+        logits = logits.masked_fill(mask == 0, NEG_INF)
+    return torch.softmax(logits, dim=1)
+
+
+class MultiLSTM(nn.Module):
+    def __init__(self, window_embed_size: int, embed_dim: int = 512,
+                 h_dim: int = 256, attn_len: int = 5,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.embed = make_linear(window_embed_size, embed_dim, gen)
+        self.attn_fc1 = make_linear(embed_dim, embed_dim, gen)
+        self.attn_fc2 = make_linear(embed_dim, attn_len, gen)
+        self.lstm = make_lstm(embed_dim, h_dim, gen)
+        self.decoder_fc1 = make_linear(h_dim, embed_dim, gen)
+        self.decoder_fc2 = make_linear(embed_dim, 1, gen)
+
+    def forward(self, x, mask, *, mask_mode: str) -> torch.Tensor:
+        """mask_mode "query" keeps the reference's unmasked time softmax;
+        "key_query" masks padded steps out of it.  Returns [B, T, 1]."""
+        e = torch.relu(self.embed(x))
+        a = time_softmax_attn_weights(
+            self, e, mask if mask_mode == "key_query" else None)
+        h, _ = lstm_scan(self.lstm, e)
+        d = torch.relu(self.decoder_fc1(convolve_local_attn(h, a)))
+        return self.decoder_fc2(d) * mask

@@ -16,7 +16,11 @@ seeds the stack runs in eval mode.  Two mask modes, as in the JAX package:
 fused encoder kernel (ops/cuda/encoder.py), or with seeds to the training
 kernels (ops/cuda/encoder_train.py, whose output takes the final norm here
 so that autograd owns its parameters); a CPU tensor takes the plain path
-below.  "query" mode has no kernel yet and raises on CUDA.
+below.  "query" mode (and a stack without a mask) takes the plain path on
+any device: that is dispatch by mode, as in the JAX package, whose encoder
+kernels take key_query only and which runs query mode through its jnp
+encoder on the TPU too (`ops/attention.py` there); it is not a fallback on
+failure.
 """
 
 from __future__ import annotations
@@ -144,12 +148,7 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
                   dropout_p: float = DROPOUT):
     """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
     seeds: the [N, 4] dropout seed table in training, None in eval."""
-    if use_kernel(x):
-        if mask is None or mask_mode != "key_query":
-            raise NotImplementedError(
-                "encoder_stack on CUDA runs the fused key_query kernels only; "
-                f"mask_mode={mask_mode!r} (mask {'absent' if mask is None else 'given'}) "
-                "has no CUDA path yet (ROADMAP open items: query mode on CUDA)")
+    if use_kernel(x) and mask is not None and mask_mode == "key_query":
         if seeds is None:
             from .cuda.encoder import encoder_stack_fused
             return encoder_stack_fused(enc, x, mask, h=h)

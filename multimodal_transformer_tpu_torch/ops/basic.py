@@ -85,14 +85,15 @@ def conv1d_window_embed(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(pairs, kernel, bias).amax(dim=-2)
 
 
-def highway(hw: "Highway", x: torch.Tensor,
-            relu_proj: bool = False) -> torch.Tensor:
-    """g * proj(x) + (1 - g) * x with g = sigmoid(gate(x)).  relu_proj=True
-    is the B1-LSTM variant (ReLU on the projection)."""
-    proj = hw.linear_projection(x)
+def highway_fn(x: torch.Tensor, wp, bp, wg, bg,
+               relu_proj: bool = False) -> torch.Tensor:
+    """g * proj(x) + (1 - g) * x with proj(x) = x Wp^T + bp and
+    g = sigmoid(x Wg^T + bg).  relu_proj=True is the B1-LSTM variant (ReLU
+    on the projection)."""
+    proj = F.linear(x, wp, bp)
     if relu_proj:
         proj = torch.relu(proj)
-    gate = torch.sigmoid(hw.linear_gate(x))
+    gate = torch.sigmoid(F.linear(x, wg, bg))
     return gate * proj + (1.0 - gate) * x
 
 
@@ -106,4 +107,6 @@ class Highway(nn.Module):
             init_linear(self.linear_gate, gen)
 
     def forward(self, x: torch.Tensor, relu_proj: bool = False) -> torch.Tensor:
-        return highway(self, x, relu_proj)
+        return highway_fn(x, self.linear_projection.weight,
+                          self.linear_projection.bias, self.linear_gate.weight,
+                          self.linear_gate.bias, relu_proj)

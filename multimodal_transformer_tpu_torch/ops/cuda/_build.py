@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
-`csrc/*.cu` is compiled for Hopper (`sm_90a`) into one shared library with a
-plain C interface, named by a hash of the sources and the flags and kept in
-the package's `_build/` directory (listed in `.gitignore`).  The library is
+`csrc/*.cu` is compiled for Hopper (`sm_90a`), one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, named by a hash of the sources and the flags and kept in the
+package's `_build/` directory (listed in `.gitignore`).  The library is
 loaded with ctypes; every pointer and the stream cross as `c_void_p`.
 Nothing is built when the package is imported, and a failed build raises.
 """
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "mmtx_mfn_train_bwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P],
+    "mmtx_window_embed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P],
 }
 
 _lock = threading.Lock()
@@ -87,19 +90,30 @@ def build(verbose: bool = False) -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, file=sys.stderr, flush=True)
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+             "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+        lib = Path(tmp) / "lib.so"
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        for args, log, rc in logs:
+            if rc != 0:
+                raise KernelBuildError(f"nvcc failed ({rc}): {' '.join(args)}\n"
+                                       f"{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        if verbose:
+            print("".join(log for _, log, _ in logs), file=sys.stderr,
+                  flush=True)
+        os.replace(lib, out)
     return out
 
 

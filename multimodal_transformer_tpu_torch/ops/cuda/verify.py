@@ -9,6 +9,13 @@ weights,
 where `plain` is the plain version in the kernel's own dtype.  Errors are
 taken over valid rows only (rows past a video's length are garbage in every
 implementation).  Used by chip_smoke.py and tests/test_torch_kernels_cuda.py.
+
+Each check also carries the kernel's bound: the least time an H100 SXM could
+take for the same work, the larger of the bytes it must move (every input
+read once, every output written once) over 3.35 TB/s and its operations over
+the peak rate of their type (989 TFLOP/s for bf16 products on the tensor
+cores, 67 TFLOP/s for float32 products, which the rounding points keep off
+TF32), counted from the check's shapes.
 """
 
 from __future__ import annotations
@@ -24,11 +31,13 @@ import torch
 
 from ...models.config import MFT_EMBED_DIM
 from ..attention import Encoder
+from ..basic import conv1d_window_embed, highway_fn
 from ..mfn_core import DROPOUTS, MFN, hoisted_inputs
 from . import encoder as enc_k
 from . import encoder_train as enct_k
 from . import mfn as mfn_k
 from . import mfn_train as mfnt_k
+from . import window_embed as we_k
 
 SLACK = 1e-6
 AVL = ("acoustic", "image", "linguistic")
@@ -36,6 +45,8 @@ ENC_P = 0.1
 MFN_PS = (DROPOUTS["gamma1"], DROPOUTS["gamma2"])
 TRAIN_LAYERS = 6
 KERNEL_BURST = 5  # back-to-back kernel calls per timed window
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 
 
 @dataclasses.dataclass
@@ -47,6 +58,16 @@ class KernelCheck:
     nan_free: bool
     ms: float           # kernel ms per call, median of warm bursts (nan: untimed)
     plain_ms: float
+    ops_ms: float = math.nan    # operations / peak rate of their type
+    bytes_ms: float = math.nan  # bytes moved / HBM rate
+
+    @property
+    def bound_ms(self) -> float:
+        return max(self.ops_ms, self.bytes_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
     @staticmethod
     def bound_of(plain_err: float) -> float:
@@ -74,7 +95,36 @@ class KernelCheck:
                 f"{len(self.parts):2d} outputs, worst {self.worst}: "
                 f"err={e:.3e} bound={self.bound_of(p):.3e} "
                 f"(plain err {p:.3e}) kernel={self.ms:.3f} ms "
-                f"plain={self.plain_ms:.3f} ms {'PASS' if self.ok else 'FAIL'}")
+                f"plain={self.plain_ms:.3f} ms bound={self.bound_ms:.4f} ms "
+                f"({self.bound_by}) {'PASS' if self.ok else 'FAIL'}")
+
+
+def bound_times(ops: Dict[str, float], tensors) -> Tuple[float, float]:
+    """(ops_ms, bytes_ms): ops maps a product type ("bf16" or "fp32") to its
+    operation count; tensors are the inputs and outputs, each moved once.
+    bf16 products run on the tensor cores and float32 ones on the FMA pipes,
+    units that work at the same time, so ops_ms is the slower unit's time."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return (1e3 * max(n / PEAK_OPS_PER_S[k] for k, n in ops.items()),
+            1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def _ops_type(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+def encoder_layer_ops(B: int, T: int, D: int, F: int) -> float:
+    """One encoder layer's forward: the q/k/v/out projections, the FFN and
+    the two attention products over every key."""
+    return 2.0 * B * T * (4 * D * D + 2 * D * F) + 4.0 * B * T * T * D
+
+
+def mfn_step_ops(whhs, gates) -> float:
+    """One video-step of the MFN recurrence: the LSTM hidden products and
+    the eight gate-MLP layers."""
+    macs = sum(w.shape[0] * w.shape[1] for w in whhs)
+    macs += sum(g.shape[0] * g.shape[1] for g in gates[0::2])
+    return 2.0 * macs
 
 
 def time_ms(fn, reps: int = 7, warmup: int = 2, burst: int = 1) -> float:
@@ -176,7 +226,10 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
         time_ms(lambda: enc_k.encoder_stack_fused(enc, x, mask, h=h), reps,
                 burst=KERNEL_BURST),
         time_ms(lambda: enc_k.encoder_stack_fused_plain(enc, x, mask, h=h),
-                reps))
+                reps),
+        *bound_times({_ops_type(dtype): n_layers * encoder_layer_ops(B, T, D,
+                                                                     F)},
+                     [x, mask, kern, *enc.parameters()]))
 
 
 @torch.no_grad()
@@ -204,7 +257,9 @@ def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
         time_ms(lambda: mfn_k.mfn_scan_fused(xps, whhs, gates), reps,
                 burst=KERNEL_BURST),
         time_ms(lambda: mfn_k.mfn_scan_fused_plain(xps, whhs, gates), reps,
-                warmup=1))
+                warmup=1),
+        *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
+                     [*xps, *whhs, *gates, *kern]))
 
 
 def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
@@ -243,7 +298,10 @@ def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
         time_ms(lambda: enct_k.encoder_stack_train_fwd(params, x, *args),
                 reps, burst=KERNEL_BURST),
         time_ms(lambda: enct_k.encoder_stack_train_fwd_plain(params, x,
-                                                             *args), reps))
+                                                             *args), reps),
+        *bound_times({_ops_type(dtype): n_layers * encoder_layer_ops(B, T, D,
+                                                                     F)},
+                     [x, kmask, *params, kern[0], kern[1][1:]]))
 
 
 GRAD_NAMES = ("ln1.a", "ln1.b", "q.w", "q.b", "k.w", "k.b", "v.w", "v.b",
@@ -279,7 +337,11 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
         time_ms(lambda: enct_k.encoder_layer_bwd(lp, x, dy, *args), reps,
                 burst=KERNEL_BURST),
         time_ms(lambda: enct_k.encoder_layer_bwd_plain(lp, x, dy, *args),
-                reps))
+                reps),
+        # the layer's forward (recomputed: only its input is saved) and the
+        # two products of the backward per forward product
+        *bound_times({_ops_type(dtype): 3 * encoder_layer_ops(B, T, D, F)},
+                     [x, dy, kmask, *lp, *flat(kern)]))
 
 
 def _mfn_train_case(B, T, dtype, device, seed, mods):
@@ -318,7 +380,9 @@ def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
         time_ms(lambda: mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS),
                 reps, burst=KERNEL_BURST),
         time_ms(lambda: mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds,
-                                                   MFN_PS), reps, warmup=1))
+                                                   MFN_PS), reps, warmup=1),
+        *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
+                     [*xps, *whhs, *gates, *kern]))
 
 
 def check_mfn_train_bwd(B: int, T: int, dtype: torch.dtype, *, device,
@@ -352,4 +416,116 @@ def check_mfn_train_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                                              *saved), reps, burst=KERNEL_BURST),
         time_ms(lambda: mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds,
                                                    MFN_PS, *saved),
-                min(reps, 1), warmup=0))
+                min(reps, 1), warmup=0),
+        # each step's forward recomputed from the saved states, and the two
+        # products of the backward per forward product
+        *bound_times({"fp32": 3 * B * T * mfn_step_ops(whhs, gates)},
+                     [*xps, *whhs, *gates, *saved, *flat(kern)]))
+
+
+def _window_embed_case(B, W, Fr, D, E, dtype, device, seed):
+    """Front-end weights with PyTorch's default init bounds and [B, W, Fr, D]
+    windows, every tensor in dtype on device."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(bound, *shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * bound).to(
+            device=device, dtype=dtype)
+
+    params = [u((2 * D) ** -0.5, E, D, 2), u((2 * D) ** -0.5, E)]
+    params += [u(E ** -0.5, E, E), u(E ** -0.5, E), u(E ** -0.5, E, E),
+               u(E ** -0.5, E)]
+    x = torch.randn(B, W, Fr, D, generator=gen).to(device=device, dtype=dtype)
+    return x, params
+
+
+def window_embed_ops(N: int, Fr: int, D: int, E: int, dtype) -> Dict[str, float]:
+    """The conv's pair products in x's dtype, the two highway products in
+    float32 (the rounding points keep the pooled rows in float32)."""
+    ops = {"fp32": 4.0 * N * E * E}
+    conv = _ops_type(dtype)
+    ops[conv] = ops.get(conv, 0.0) + 2.0 * N * (Fr - 1) * 2 * D * E
+    return ops
+
+
+@torch.no_grad()
+def check_window_embed(B: int, W: int, Fr: int, D: int, E: int,
+                       dtype: torch.dtype, *, device, seed: int = 0,
+                       reps: int = 7) -> KernelCheck:
+    """Kernel 10 on [B, W, Fr, D] windows into E channels."""
+    x, params = _window_embed_case(B, W, Fr, D, E, dtype, device, seed)
+    ref = we_k.window_embed_highway_plain(x.double(), *_double(params))
+    plain = we_k.window_embed_highway_plain(x, *params)
+    kern = we_k.window_embed_highway(x, *params)
+    torch.cuda.synchronize()
+    return KernelCheck(
+        "window_embed_highway", f"B={B} T={W} F={Fr} D={D} E={E}",
+        _dtype_name(dtype), _parts(["out"], [kern], [plain], [ref], [None]),
+        _finite([kern], [None]),
+        time_ms(lambda: we_k.window_embed_highway(x, *params), reps,
+                burst=KERNEL_BURST),
+        time_ms(lambda: we_k.window_embed_highway_plain(x, *params), reps),
+        *bound_times(window_embed_ops(B * W, Fr, D, E, dtype),
+                     [x, *params, kern]))
+
+
+WE_GRAD_NAMES = ("x", "conv.w", "conv.b", "proj.w", "proj.b", "gate.w",
+                 "gate.b")
+
+
+def check_window_embed_grad(B: int, W: int, Fr: int, D: int, E: int,
+                            dtype: torch.dtype, *, device,
+                            seed: int = 0) -> KernelCheck:
+    """`WindowEmbedHighway` (kernel forward, plain VJP backward): its output
+    and the gradients of x and the six parameters under a random cotangent,
+    against autograd through the plain front end (conv1d_window_embed +
+    highway) in float64 and in dtype."""
+    x, params = _window_embed_case(B, W, Fr, D, E, dtype, device, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(B, W, E, generator=gen).to(device=device, dtype=dtype)
+
+    def run(fn, ts):
+        leaves = [t.detach().clone().requires_grad_() for t in ts]
+        y = fn(*leaves)
+        return [y.detach(), *torch.autograd.grad(y, leaves, g.to(y.dtype))]
+
+    def plain_fn(*ts):
+        return highway_fn(conv1d_window_embed(*ts[:3]), *ts[3:])
+
+    ref = run(plain_fn, [x.double(), *_double(params)])
+    plain = run(plain_fn, [x, *params])
+    kern = run(we_k.WindowEmbedHighway.apply, [x, *params])
+    torch.cuda.synchronize()
+    names = ("out",) + WE_GRAD_NAMES
+    valids = [None] * len(names)
+    return KernelCheck(
+        "WindowEmbedHighway grad", f"B={B} T={W} F={Fr} D={D} E={E}",
+        _dtype_name(dtype), _parts(names, kern, plain, ref, valids),
+        _finite(kern, valids), math.nan, math.nan)
+
+
+def unported_bounds(B: int = 32, T: int = 160, D: int = 256, h: int = 8,
+                    F: int = 128, n_layers: int = 6, long_T: int = 544,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, float]:
+    """Bounds (ms, H100 SXM) of the TPU kernels without a port yet, from the
+    same rule as the checks, at the shapes their JAX dispatch gives them:
+    the whole-stack encoder backward (kernel 4's work for every layer), the
+    packed and lane-padded MFN recurrences (kernel B's function), and flash
+    attention at the first bucket where the JAX package dispatches it
+    (T = 544 >= 512)."""
+    s = torch.empty(0, dtype=dtype).element_size()
+    peak = PEAK_OPS_PER_S[_ops_type(dtype)]
+    # x and dy in, dx out; the weights and their gradients are small
+    stack_bwd = max(1e3 * 3 * n_layers * encoder_layer_ops(B, T, D, F) / peak,
+                    1e3 * 3 * B * T * D * s / HBM_BYTES_PER_S)
+    mfn = MFN(AVL, MFT_EMBED_DIM, output_dim=1)
+    whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in AVL]
+    mfn_ms = 1e3 * B * T * mfn_step_ops(whhs, mfn.gate_tensors()) / \
+        PEAK_OPS_PER_S["fp32"]
+    attn_ops = 4.0 * B * long_T * long_T * D  # scores and p @ v
+    attn_bytes = 4 * B * long_T * D * s       # q, k, v in; out
+    flash = max(1e3 * attn_ops / peak, 1e3 * attn_bytes / HBM_BYTES_PER_S)
+    return {"_stack_bwd_call": stack_bwd,
+            "mfn_scan_pallas_packed": mfn_ms,
+            "mfn_scan_pallas_aligned": mfn_ms,
+            "flash_attention_masked": flash}

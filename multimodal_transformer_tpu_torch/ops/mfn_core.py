@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..utils.init import init_linear, init_lstm_cell
+from ..utils.init import init_linear, init_lstm
 from .basic import dropout_with_idx
 from .cuda.mfn import mfn_scan_fused, mfn_scan_fused_plain
 from .cuda.mfn_train import mfn_states_train, mfn_train_fwd_plain
@@ -56,7 +56,7 @@ class MFN(nn.Module):
         for m in self.mods:
             cell = nn.LSTMCell(dims[m], HIDDEN_DIM[m])
             if gen is not None:
-                init_lstm_cell(cell, gen)
+                init_lstm(cell, gen)
             setattr(self, f"lstm_{m}", cell)
         shapes = [("att1_fc1", att_in, H_ATT1), ("att1_fc2", H_ATT1, att_in),
                   ("att2_fc1", att_in, H_ATT2), ("att2_fc2", H_ATT2, MEM_DIM),

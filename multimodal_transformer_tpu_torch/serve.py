@@ -1,13 +1,13 @@
 """Serving API: windowed inputs -> per-video valence traces.
 
-Counterpart of `multimodal_transformer_tpu/serve.py` `ValencePredictor`:
-videos are grouped into fixed-shape length buckets (padding-invariant
-"key_query" masking is forced), run through the model on an explicit device
-(optionally in bf16), and each trace is returned in float32, cut to its
-true length.
+Counterpart of `multimodal_transformer_tpu/serve.py` `ValencePredictor`, for
+any of the five families: videos are grouped into fixed-shape length
+buckets (padding-invariant "key_query" masking is forced), run through the
+model on the card unless the caller names another device (optionally in
+bf16), and each trace is returned in float32, cut to its true length.
 
     module = build_model(cfg, generator=torch.Generator().manual_seed(0))
-    predictor = ValencePredictor(cfg, module, device="cuda")
+    predictor = ValencePredictor(cfg, module)
     traces = predictor.predict_padded(data, seq_lens)
 
 Loading checkpoints (`from_checkpoint`) and the SENDv1 reader
@@ -30,7 +30,7 @@ from .models.config import ModelConfig
 
 class ValencePredictor:
     def __init__(self, cfg: ModelConfig, module: nn.Module, *,
-                 device: torch.device | str, batch_size: int = 32,
+                 device: torch.device | str = "cuda", batch_size: int = 32,
                  time_multiple: int = 32, bf16: bool = True):
         if cfg.mask_mode != "key_query":
             cfg = dataclasses.replace(cfg, mask_mode="key_query")

@@ -108,10 +108,34 @@ def test_kernel_plain_version_length_one_row_is_finite(case):
 
 
 def test_cuda_query_mode_raises_without_a_kernel(case, monkeypatch):
-    """On CUDA, "query" mode has no kernel: the dispatch raises instead of
-    falling back (checked by routing a CPU tensor as if it were on CUDA)."""
-    _, enc, x, mask = case
+    """On CUDA, "query" mode has no kernel, as in the JAX package: the
+    dispatch sends it to the plain encoder by mode (eval and training), and
+    only "key_query" reaches the kernels.  Checked by routing a CPU tensor
+    as if it were on CUDA, with the kernel wrappers replaced by stand-ins
+    that record their calls."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder_train
+
+    params, enc, x, mask = case
+    called = []
     monkeypatch.setattr(attention, "use_kernel", lambda t: True)
-    with pytest.raises(NotImplementedError):
-        attention.encoder_stack(enc, torch.from_numpy(x),
-                                torch.from_numpy(mask), h=H, mask_mode="query")
+    monkeypatch.setattr(enc_k, "encoder_stack_fused",
+                        lambda *a, **k: called.append("eval") or a[1])
+    monkeypatch.setattr(encoder_train, "encoder_stack_train",
+                        lambda *a, **k: called.append("train") or a[1])
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    want = jattn.encoder_stack(params, jnp.asarray(x), jnp.asarray(mask), h=H,
+                               rng=None, mask_mode="query")
+    seeds = torch.arange(N_LAYERS * 4, dtype=torch.int64).view(N_LAYERS, 4)
+    with torch.no_grad():
+        got = attention.encoder_stack(enc, xt, mt, h=H, mask_mode="query")
+        train = attention.encoder_stack(enc, xt, mt, h=H, mask_mode="query",
+                                        seeds=seeds)
+        plain_train = attention.encoder_stack_plain(
+            enc, xt, mt, h=H, mask_mode="query", seeds=seeds)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert torch.equal(train, plain_train)
+    assert called == []
+    attention.encoder_stack(enc, xt, mt, h=H, mask_mode="key_query")
+    attention.encoder_stack(enc, xt, mt, h=H, mask_mode="key_query",
+                            seeds=seeds)
+    assert called == ["eval", "train"]

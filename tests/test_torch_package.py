@@ -47,10 +47,14 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def _mods(comb):
+    return tuple(m for m, c in (("acoustic", "A"), ("image", "V"),
+                                ("linguistic", "L")) if c in comb)
+
+
 @pytest.mark.parametrize("comb", ["AVL", "AL", "VL", "AV"])
 def test_state_dict_keys_equal_jax_tree(comb):
-    mods = tuple(m for m, c in (("acoustic", "A"), ("image", "V"),
-                                ("linguistic", "L")) if c in comb)
+    mods = _mods(comb)
     jinit, _ = jbuild_model(jdefault_config("MFT", mods))
     shapes = jax.eval_shape(jinit, jax.random.PRNGKey(0))
     want = {k: tuple(v.shape) for k, v in flatten_tree(shapes).items()}
@@ -59,12 +63,37 @@ def test_state_dict_keys_equal_jax_tree(comb):
     assert got == want
 
 
+@pytest.mark.parametrize("family,comb,variant", [
+    ("MFT", "L", "default"), ("SFT", "AVL", "default"),
+    ("SFT", "V", "default"), ("B1-LSTM", "AVL", "default"),
+    ("B1-LSTM", "L", "legacy"), ("B2-Trans", "AVL", "default"),
+    ("B3-MFN", "AVL", "default"), ("B3-MFN", "A", "default")])
+def test_family_state_dict_keys_equal_jax_tree(family, comb, variant):
+    """Every family at its full default widths (the chip_smoke.py serving
+    configurations among them)."""
+    mods = _mods(comb)
+    jinit, _ = jbuild_model(jdefault_config(family, mods, variant=variant))
+    shapes = jax.eval_shape(jinit, jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in flatten_tree(shapes).items()}
+    got = {k: tuple(v.shape) for k, v in build_model(default_config(
+        family, mods, variant=variant)).state_dict().items()}
+    assert got == want
+
+
 def test_other_families_raise_not_implemented():
+    """Every family serves; training (a forward with dropout seeds) is
+    ported for the multi-modality MFT only, and the others raise."""
+    from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+
     for family, mods in (("SFT", ("image", "linguistic")),
                          ("B3-MFN", ("acoustic", "linguistic")),
                          ("MFT", ("linguistic",))):
+        cfg = default_config(family, mods)
+        module = build_model(cfg)
+        inputs = {m: torch.zeros(1, 3, 4, cfg.mod_dimension[m]) for m in mods}
+        seeds = DropoutSeeds.draw(mods, 6, 3, torch.Generator())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(default_config(family, mods))
+            module(inputs, torch.ones(1, 3, 1), seeds=seeds)
 
 
 @pytest.mark.parametrize("batch_size,time_multiple", [(4, 8), (32, 32), (3, 5)])
@@ -102,7 +131,8 @@ def test_library_name_follows_the_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libmmtx_")
     assert {s.name for s in _build.sources()} == {
-        "encoder.cu", "mfn.cu", "encoder_train.cu", "mfn_train.cu"}
+        "encoder.cu", "mfn.cu", "encoder_train.cu", "mfn_train.cu",
+        "window_embed.cu"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

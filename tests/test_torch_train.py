@@ -162,7 +162,7 @@ def test_engine_three_steps_match_jax_engine(monkeypatch):
         return jax_dropout_seeds(jax.random.fold_in(jax.random.PRNGKey(1),
                                                     step), AVL, T)
 
-    eng = Engine(cfg, seed=2, seed_fn=seed_fn,
+    eng = Engine(cfg, seed=2, seed_fn=seed_fn, device="cpu",
                  logger=logging.getLogger("test_torch_train.port"))
     tree = export_params(eng.module)
     _, apply = jbuild_model(jcfg)
