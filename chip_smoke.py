@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Eight phases, any
+Run from the repository root: `python3 chip_smoke.py`.  Ten phases, any
 failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -10,8 +10,10 @@ failure exits nonzero:
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
-   the encoder stack, the MFN recurrence, and the window embed at the front
-   end's four shapes plus the gradients of its autograd Function;
+   the encoder stack, the MFN recurrence, the window embed at the front
+   end's four shapes plus the gradients of its autograd Function, and flash
+   attention (kernel 11) at the long-video buckets' shapes, a ragged case
+   with d_k = 2 and videos with no key, and its Function's gradients;
 4. slice: ValencePredictor at full MFT A+V+L widths (random weights from a
    seed) answers 3 requests of 20 videos; traces are checked for length,
    finiteness, determinism and against the plain fp32 forward; the launch
@@ -21,11 +23,23 @@ failure exits nonzero:
    SFT, B2-Trans, B3-MFN and B1-LSTM (A+V+L), B1-LSTM legacy (L) and MFT
    (L), with the same checks, each family's launch counts and tolerance,
    and timed B=32, T=160 bf16 forwards on both paths;
-6. train kernels: the four training kernels (encoder stack forward and layer
+6. long videos: one request of 16 videos of 520-1,100 windows (buckets
+   544-1,120) for MFT A+V+L, SFT A+V+L, B2-Trans A+V+L and MFT L in bf16,
+   with the same checks: every encoder takes the flash route (kernel 11 six
+   times per encoder and batch, kernel A never); the MFT A+V+L request is
+   profiled; then the B=32 encoder stack through kernel A and through the
+   flash route at T = 544, 640 and 1,024, bf16 and fp32, alternated;
+7. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
+   A+V+L widths over 24 videos of 20-1,100 windows, fp32 and (batched)
+   eval_dtype=bf16: exact launch counts, the per-video CCCs of both paths
+   within their tolerance and equal to `ccc` on the returned predictions,
+   the `Evaluation` line printed; a "query"-mode per-video evaluation
+   launches no encoder kernel;
+8. train kernels: the four training kernels (encoder stack forward and layer
    backward, MFN forward and reverse recurrence) against their plain
    versions at B=32, T=160 and T=400, fp32 and bf16, the bound applied to
    every output tensor (dx and each gradient included);
-7. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
+9. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite); one fp32 step
    of the kernel path against the plain path from the same parameters,
@@ -34,14 +48,16 @@ failure exits nonzero:
    and with kernel 10's autograd Function on the plain forward; the same
    step twice gives bit-identical gradients; B=32, T=160 mixed steps are
    timed on both paths and profiled;
-8. query mode: an MFT A+V+L forward and one training step in the
+10. query mode: an MFT A+V+L forward and one training step in the
    reference's default "query" mask mode, which no encoder kernel takes:
    the encoder kernels' counters stay at 0 while the MFN and window-embed
    kernels launch.
 
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (the least time an H100 SXM could take, from the
-check's shapes); the last line is {"ok": true, "device": {...}}.
+error, times, bound (the least time an H100 SXM could take, from the
+check's shapes) and, for kernel 11, the time of PyTorch's
+scaled_dot_product_attention on the same inputs; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -105,6 +121,37 @@ FAMILIES = (
     ("MFT L", "MFT", ("linguistic",), "default",
      {"window_embed_highway": 1, "encoder_stack_fused": 1}, 5e-3),
 )
+# kernel 11's checks, (B, h, T, d_k, videos with no key): the long-video
+# buckets at D = 256 (d_k = 32), and a ragged T with d_k = 2 (the emotient
+# encoder, D = 16); its Function's gradients at (B, h, T, d_k)
+FLASH_SHAPES = ((32, 8, 544, 32, 0), (32, 8, 640, 32, 0),
+                (32, 8, 1024, 32, 0), (5, 8, 601, 2, 2))
+FLASH_GRAD = (4, 8, 544, 32)
+# long videos: one request of LONG_VIDEOS videos of LONG_MIN..LONG_MAX
+# windows, every bucket past 512; (name, family, modalities, kernel
+# launches per batch, tolerance against the plain fp32 forward as in the
+# families phase).  Each encoder runs kernel 11 once per layer.
+LONG_VIDEOS, LONG_MIN, LONG_MAX = 16, 520, 1100
+LONG_FAMILIES = (
+    ("MFT A+V+L", "MFT", AVL, {"window_embed_highway": 3, "mfn_scan_fused": 1,
+                               "flash_attention_masked": 3 * 6}, SLICE_TOL),
+    ("SFT A+V+L", "SFT", AVL, {"window_embed_highway": 3,
+                               "flash_attention_masked": 6}, 5e-3),
+    ("B2-Trans A+V+L", "B2-Trans", AVL, {"window_embed_highway": 3,
+                                         "flash_attention_masked": 6}, 1e-2),
+    ("MFT L", "MFT", ("linguistic",), {"window_embed_highway": 1,
+                                       "flash_attention_masked": 6}, 5e-3),
+)
+CROSSOVER_T = (544, 640, 1024)
+# evaluation: EVAL_VIDEOS videos of MIN_WINDOWS..LONG_MAX windows with
+# unit-normal targets.  The batched CCCs against the per-video ones,
+# absolute: fp32 differs only in the order of float32 sums, 1e-4.  In bf16
+# the predictions move by at most SLICE_TOL (the slice's bf16 serving
+# tolerance); moving a prediction by d moves the covariance with the target
+# by at most std(target) * rms(d), and the denominator of the CCC is at least
+# var(target), so a CCC moves by at most ~2 * SLICE_TOL / std(target).
+EVAL_VIDEOS = 24
+EVAL_FP32_TOL = 1e-4
 SOURCES = {
     "encoder_stack_fused": ("multimodal_transformer_tpu_torch/csrc/encoder.cu",
                             "multimodal_transformer_tpu/ops/pallas/encoder.py:313"),
@@ -123,6 +170,9 @@ SOURCES = {
     "window_embed_highway": (
         "multimodal_transformer_tpu_torch/csrc/window_embed.cu",
         "multimodal_transformer_tpu/ops/pallas/window_embed.py:63"),
+    "flash_attention_masked": (
+        "multimodal_transformer_tpu_torch/csrc/flash_attention.cu",
+        "multimodal_transformer_tpu/ops/pallas/attention.py:58"),
 }
 
 
@@ -155,12 +205,14 @@ def kernel_counters():
     """name -> (module, counter attribute) of every kernel's launch count."""
     from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
     from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as enct
+    from multimodal_transformer_tpu_torch.ops.cuda import flash_attention as fa_k
     from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
     from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
     from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we_k
     return {"encoder_stack_fused": (enc_k, "launches"),
             "mfn_scan_fused": (mfn_k, "launches"),
             "window_embed_highway": (we_k, "launches"),
+            "flash_attention_masked": (fa_k, "launches"),
             "encoder_stack_train_fwd": (enct, "fwd_launches"),
             "encoder_layer_bwd": (enct, "bwd_launches"),
             "mfn_train_fwd": (mfnt, "fwd_launches"),
@@ -196,6 +248,13 @@ def run_kernel_checks(torch, device):
         print(checks[-1].line(), flush=True)
         checks.append(verify.check_window_embed_grad(4, 20, 32, 300, 300,
                                                      dtype, device=device))
+        print(checks[-1].line(), flush=True)
+        for B, h, T, d_k, all_masked in FLASH_SHAPES:
+            checks.append(verify.check_flash_attention(
+                B, h, T, d_k, dtype, device=device, all_masked=all_masked))
+            print(checks[-1].line(), flush=True)
+        checks.append(verify.check_flash_attention_grad(*FLASH_GRAD, dtype,
+                                                        device=device))
         print(checks[-1].line(), flush=True)
     bad = [c for c in checks if not c.ok]
     if bad:
@@ -544,7 +603,8 @@ def _fp32_errors(torch, np, module, data, lens, answers, device):
     ref = copy.deepcopy(module).to(device=device, dtype=torch.float32).eval()
     low = copy.deepcopy(module).to(device=device, dtype=torch.bfloat16).eval()
     worst, worst_plain = 0.0, 0.0
-    for vi in sorted({int(np.argmin(lens)), int(np.argmax(lens)), VIDEOS // 2}):
+    for vi in sorted({int(np.argmin(lens)), int(np.argmax(lens)),
+                      len(lens) // 2}):
         n = int(lens[vi])
         x = {m: torch.from_numpy(v[vi:vi + 1, :n]).to(device)
              for m, v in data.items()}
@@ -648,10 +708,213 @@ def run_query_mode(torch, np, device):
         raise SmokeFailure("query mode: a value is not finite")
 
 
+def run_long_videos(torch, np, device):
+    """Serve one request of long videos through each of LONG_FAMILIES; every
+    bucket is past 512 windows, so every encoder takes the flash route.
+    Returns the MFT A+V+L run's launch counts."""
+    from multimodal_transformer_tpu_torch import (ValencePredictor, build_model,
+                                                  default_config)
+
+    rng = np.random.default_rng(11)
+    lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=LONG_VIDEOS)
+    W = int(lens.max())
+    data = {m: rng.standard_normal((LONG_VIDEOS, W, FRAMES[m], dim),
+                                   dtype=np.float32)
+            for m, dim in default_config("MFT", AVL).mod_dimension.items()
+            if m in AVL}
+    mft_counts = None
+    for name, family, mods, per_batch, tol in LONG_FAMILIES:
+        cfg = default_config(family, mods, mask_mode="key_query")
+        module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        predictor = ValencePredictor(cfg, module, device=device, bf16=True)
+        request = {m: data[m] for m in mods}
+        batches = n_batches(lens, predictor.batch_size,
+                            predictor.time_multiple)
+        reset_counters()
+        t0 = time.perf_counter()
+        traces = predictor.predict_padded(request, lens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in read_counters().items() if v}
+        want = {k: n * batches for k, n in per_batch.items()}
+        if got != want:
+            raise SmokeFailure(f"{name}, long videos: launches {got}, "
+                               f"expected {want}")
+        if mft_counts is None:
+            mft_counts = got
+            print(f"profile of the {name} long-video request:", flush=True)
+            try:
+                _profile(torch, lambda: predictor.predict_padded(request,
+                                                                 lens), 1)
+            except Exception as e:  # the profiler is a reading, not a check
+                print(f"profile: not available ({type(e).__name__}: {e})",
+                      flush=True)
+        for tr, n in zip(traces, lens):
+            if tr.shape != (int(n),) or not np.isfinite(tr).all():
+                raise SmokeFailure(f"{name}: trace of length {tr.shape} for a "
+                                   f"{n}-window video, or not finite")
+        t0 = time.perf_counter()
+        again = predictor.predict_padded(request, lens)
+        warm = time.perf_counter() - t0
+        if any(not np.array_equal(a, b) for a, b in zip(traces, again)):
+            raise SmokeFailure(f"{name}: two calls on the same request differ")
+        err, err_plain = _fp32_errors(torch, np, module, request, lens,
+                                      traces, device)
+        print(f"{name}, long videos: {LONG_VIDEOS} videos of {int(lens.min())}"
+              f"-{W} windows in {batches} batches, {wall:.3f} s first use, "
+              f"{warm:.3f} s again; launches {got}; |bf16 kernel path - fp32 "
+              f"plain| = {err:.3e} (tol {tol:.0e}; bf16 plain path "
+              f"{err_plain:.3e})", flush=True)
+        if err > tol:
+            raise SmokeFailure(f"{name}: bf16 long-video serving outside the "
+                               "tolerance")
+    return mft_counts
+
+
+def run_crossover(torch, device):
+    """The B=32 encoder stack (D=256, 6 layers) through kernel A and through
+    the flash route, alternated (A, flash, flash, A), bf16 and fp32."""
+    from multimodal_transformer_tpu_torch.ops.attention import \
+        encoder_stack_flash
+    from multimodal_transformer_tpu_torch.ops.cuda.encoder import \
+        encoder_stack_fused
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import (
+        random_encoder, time_ms)
+
+    gen = torch.Generator().manual_seed(7)
+    enc32 = random_encoder(gen).to(device)
+    for dtype in (torch.bfloat16, torch.float32):
+        enc = copy.deepcopy(enc32).to(dtype)
+        for T in CROSSOVER_T:
+            x = torch.randn(BENCH_B, T, 256, generator=gen).to(device, dtype)
+            mask = torch.ones(BENCH_B, T, 1, device=device, dtype=dtype)
+            route = {"kernel A": lambda: encoder_stack_fused(enc, x, mask),
+                     "flash route": lambda: encoder_stack_flash(enc, x, mask)}
+            ms = {k: [] for k in route}
+            with torch.inference_mode():
+                for k in ("kernel A", "flash route", "flash route",
+                          "kernel A"):
+                    ms[k].append(time_ms(route[k], reps=5))
+            print(f"crossover B={BENCH_B} T={T} D=256 6 layers "
+                  f"{str(dtype).split('.')[-1]}: kernel A "
+                  f"{[round(v, 3) for v in ms['kernel A']]} ms, flash route "
+                  f"{[round(v, 3) for v in ms['flash route']]} ms "
+                  "(median of 5, CUDA events)", flush=True)
+
+
+def _eval_set(np, cfg, rng, n: int):
+    """n videos of MIN_WINDOWS..LONG_MAX windows, targets zero past each
+    video's length (as the SENDv1 reader pads them)."""
+    lens = rng.integers(MIN_WINDOWS, LONG_MAX + 1, size=n)
+    W = int(lens.max())
+    data = {m: rng.standard_normal((n, W, FRAMES[m], cfg.mod_dimension[m]),
+                                   dtype=np.float32) for m in cfg.modalities}
+    target = rng.standard_normal((n, W), dtype=np.float32) * (
+        np.arange(W)[None, :] < lens[:, None])
+    return data, target.astype(np.float32), [int(v) for v in lens]
+
+
+def run_evaluation(torch, np, device):
+    """Engine.evaluate_per_video and evaluate_batched at full MFT A+V+L
+    widths; a "query"-mode per-video evaluation."""
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.metrics import ccc
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    log = logging.getLogger("chip_smoke.eval")
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    log.addHandler(handler)
+    engine = Engine(cfg, seed=0, device=device, logger=log)
+    data, target, lens = _eval_set(np, cfg, np.random.default_rng(9),
+                                   EVAL_VIDEOS)
+    V = len(lens)
+    n_long = sum(n > 512 for n in lens)
+    if not 0 < n_long < V:
+        raise SmokeFailure("the evaluation set needs short and long videos")
+
+    def counted(fn):
+        reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, {k: v for k, v in read_counters().items() if v}, wall
+
+    per, got, wall = counted(lambda: engine.evaluate_per_video(data, target,
+                                                               lens))
+    cccs, preds, actuals, loss, stats, best = per
+    want = {"flash_attention_masked": 18 * n_long,
+            "encoder_stack_fused": 3 * (V - n_long), "mfn_scan_fused": V,
+            "window_embed_highway": 3 * V}
+    print(f"evaluate_per_video: {V} videos of {min(lens)}-{max(lens)} "
+          f"windows ({n_long} past 512), fp32, {wall:.3f} s (first use); "
+          f"launches {got}; loss {loss:.6f}, CCC {stats['ccc']:.6f} "
+          f"(std {stats['ccc_std']:.6f}, max {stats['max_ccc']:.6f})",
+          flush=True)
+    if got != want:
+        raise SmokeFailure(f"evaluate_per_video: launches {got}, expected "
+                           f"{want}")
+    again = [ccc(a, p) for a, p in zip(actuals, preds)]
+    if len(cccs) != V or any(len(p) != n for p, n in zip(preds, lens)) or \
+            max(abs(a - b) for a, b in zip(again, cccs)) > 1e-12 or \
+            not all(math.isfinite(c) for c in cccs + [loss]):
+        raise SmokeFailure("evaluate_per_video: CCCs do not follow from the "
+                           "returned predictions, or a value is not finite")
+
+    bounds = sorted({-(-n // 32) * 32 for n in lens})
+    long_batches = sum(b > 512 for b in bounds)
+    tols = {"float32": EVAL_FP32_TOL, "bfloat16": 2 * SLICE_TOL / min(
+        float(np.std(target[i, :n])) for i, n in enumerate(lens))}
+    for dtype in (None, torch.bfloat16):
+        engine.eval_dtype = dtype
+        name = "float32" if dtype is None else "bfloat16"
+        (b_cccs, b_loss, b_stats), got, wall = counted(
+            lambda: engine.evaluate_batched(data, target, lens))
+        want = {"flash_attention_masked": 18 * long_batches,
+                "encoder_stack_fused": 3 * (len(bounds) - long_batches),
+                "mfn_scan_fused": len(bounds),
+                "window_embed_highway": 3 * len(bounds)}
+        diff = max(abs(a - b) for a, b in zip(b_cccs, cccs))
+        print(f"evaluate_batched {name}: {len(bounds)} buckets of 32 videos "
+              f"({long_batches} past 512), {wall:.3f} s (first use); launches "
+              f"{got}; loss {b_loss:.6f} (per video {loss:.6f}), CCC "
+              f"{b_stats['ccc']:.6f}; max |CCC - per-video CCC| = "
+              f"{diff:.3e} (tol {tols[name]:.1e})", flush=True)
+        if got != want:
+            raise SmokeFailure(f"evaluate_batched {name}: launches {got}, "
+                               f"expected {want}")
+        if diff > tols[name] or not math.isfinite(b_loss):
+            raise SmokeFailure(f"evaluate_batched {name}: CCCs outside the "
+                               "tolerance of the per-video ones")
+    engine.eval_dtype = None
+
+    qcfg = default_config("MFT", AVL)  # "query", the reference's mode
+    query = Engine(qcfg, seed=0, device=device)
+    q_idx = [int(i) for i in np.argsort(lens)[[0, 1, -2, -1]]]
+    q_lens = [lens[i] for i in q_idx]
+    (q_cccs, *_), got, _ = counted(lambda: query.evaluate_per_video(
+        {m: v[q_idx] for m, v in data.items()}, target[q_idx], q_lens))
+    print(f"query-mode evaluate_per_video: 4 videos of {q_lens} windows; "
+          f"launches {got}; CCCs {[round(float(c), 6) for c in q_cccs]}",
+          flush=True)
+    if got != {"mfn_scan_fused": 4, "window_embed_highway": 12} or \
+            not all(math.isfinite(c) for c in q_cccs):
+        raise SmokeFailure("query-mode evaluation: unexpected launches or a "
+                           "value that is not finite")
+
+
 def _json_entry(name, checks, launches):
-    """The kernel's line: its bf16 main-path check, and for the window embed
-    the sum over the three front ends of one MFT A+V+L forward."""
-    if name == "window_embed_highway":
+    """The kernel's line: its bf16 main-path check (kernel 11's at the first
+    long-video bucket, T = 544), and for the window embed the sum over the
+    three front ends of one MFT A+V+L forward."""
+    if name == "flash_attention_masked":
+        cs = [c for c in checks if c.name == name and c.dtype == "bfloat16"
+              and c.shape == f"B={BENCH_B} h=8 T={CROSSOVER_T[0]} dk=32"]
+    elif name == "window_embed_highway":
         cs = [c for c in checks if c.name == name and c.dtype == "bfloat16"
               and any(c.shape == f"B={BENCH_B} T={BENCH_T} F={f} D={d} E={e}"
                       for f, d, e in MFT_WINDOW_EMBED)]
@@ -669,7 +932,8 @@ def _json_entry(name, checks, launches):
             "ms": sum(c.ms for c in cs), "plain_ms": sum(c.plain_ms for c in cs),
             "bound_ms": ops_ms + bytes_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None}
+            "library_ms": (None if any(math.isnan(c.library_ms) for c in cs)
+                           else sum(c.library_ms for c in cs))}
 
 
 def main() -> int:
@@ -710,6 +974,15 @@ def main() -> int:
 
     phase("families")
     run_families(torch, np, device)
+
+    phase("long videos")
+    long_counts = run_long_videos(torch, np, device)
+    launches["flash_attention_masked"] = long_counts[
+        "flash_attention_masked"]
+    run_crossover(torch, device)
+
+    phase("evaluation")
+    run_evaluation(torch, np, device)
 
     phase("train kernels against their plain versions")
     checks += run_train_kernel_checks(torch, device)

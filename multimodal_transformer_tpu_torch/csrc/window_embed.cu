@@ -95,19 +95,6 @@ struct Tile {
 };
 constexpr size_t kMaxSmem = 232448;
 
-// Asynchronous global -> shared copy of BYTES (4, 8 or 16) bytes, aligned
-// to BYTES on both sides; zero-fills when !pred.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-               :: "r"(d), "l"(src), "n"(BYTES), "r"(pred ? BYTES : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 // The k loop of a conv tile over `steps` stages of shared memory: the
 // copies of the next kStages - 1 stages are in flight while stage s is
 // multiplied.  load(buf, step) issues the copies of k step `step` into
@@ -130,14 +117,6 @@ __device__ __forceinline__ void pipelined(int steps, Load load, Compute compute)
   }
   cp_async_wait<0>();
   __syncthreads();
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The block's pair rows: row p of the block is [x[n0 + p / (F-1), p % (F-1)],

@@ -1,11 +1,18 @@
-"""Training engine: one Adam step per batch, epoch loops, reference logs.
+"""Train/eval engine: one Adam step per batch, epoch loops, per-video CCC
+evaluation, reference logs.
 
-Counterpart of the training part of `multimodal_transformer_tpu/engine/
-train_engine.py` `Engine` (reference MFT/train.py:110-160):
+Counterpart of `multimodal_transformer_tpu/engine/train_engine.py` `Engine`
+(reference MFT/train.py:110-257):
   * loss = MSE(sum) over the masked batch, divided by sum(lengths) for the
     gradient step;
   * one Adam step per batch with the scheduler's current learning rate;
-  * `Batch:` / `Epoch:` log lines byte-identical to the reference's.
+  * `evaluate_per_video`: the reference's evaluation, one video at a time
+    at its own length, CCC and Pearson r per video on the host, in float32;
+  * `evaluate_batched`: fixed-shape length buckets with the per-video CCC
+    computed on the device, in `eval_dtype` when one is set (exact only in
+    "key_query" mode, which it requires);
+  * `Batch:` / `Epoch:` / `Evaluation` log lines byte-identical to the
+    reference's.
 
 Mixed precision (train_dtype=torch.bfloat16) casts the float32 master
 parameters and the inputs to bf16 INSIDE the autograd graph, so the
@@ -15,20 +22,24 @@ the loss is summed in float32.
 Every step draws its dropout seeds with `seed_fn(step, T)` -> DropoutSeeds
 (ops/seeds.py), where step counts the engine's steps from 0 and T is the
 batch's length; the default draws them from the engine's torch.Generator.
-Evaluation, checkpoints, resume, guards and prefetching are not ported yet.
+Evaluation runs without seeds (eval mode) under `torch.inference_mode()`;
+videos longer than 512 windows take the encoders' flash route (kernel 11),
+shorter ones kernel A.  Checkpoints, resume, guards and prefetching are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..data.batching import Batch, make_batches
+from ..data.batching import Batch, bucketed_eval_batches, make_batches
 from ..models import ModelConfig, build_model
 from ..models.families import ENCODER_LAYERS
+from ..ops.metrics import ccc, ccc_masked, masked_mse_sum, pearson
 from ..ops.seeds import DropoutSeeds
 from .optim import ReduceLROnPlateau, make_adam
 
@@ -41,11 +52,16 @@ class Engine:
                  weight_decay: float = 1e-4, seed: int = 1,
                  train_dtype: Optional[torch.dtype] = None,
                  device: torch.device | str = "cuda", *, logger=None,
-                 seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None):
+                 seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None,
+                 eval_dtype: Optional[torch.dtype] = None):
+        """train_dtype: bf16 mixed training when set; eval_dtype: the dtype
+        of `evaluate_batched`'s forward (None: float32), as in the JAX
+        Engine, whose per-video evaluation stays float32."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.logger = logger
         self.train_dtype = train_dtype
+        self.eval_dtype = eval_dtype
         self.module = build_model(
             cfg, generator=torch.Generator().manual_seed(seed)).to(self.device)
         self.module.train()
@@ -65,23 +81,26 @@ class Engine:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(device=self.device, dtype=dtype or torch.float32)
 
+    def _predict(self, batch: Batch, dtype: Optional[torch.dtype],
+                 **kwargs) -> torch.Tensor:
+        """The module's float32 predictions [B, T, 1] for a batch, with the
+        parameters and inputs cast to dtype inside the graph (None: the
+        float32 masters as they are)."""
+        data = {m: self._tensor(v, dtype) for m, v in batch.data.items()}
+        mask = self._tensor(batch.mask, dtype)
+        if dtype is None:
+            return self.module(data, mask, **kwargs).float()
+        params = {k: v.to(dtype) for k, v in self.module.named_parameters()}
+        return functional_call(self.module, params, (data, mask),
+                               kwargs).float()
+
     def batch_loss(self, batch: Batch, seeds: DropoutSeeds, *,
                    plain: bool = False) -> torch.Tensor:
         """Sum of squared errors of one batch (float32, differentiable in
         the module's parameters).  The batch's arrays may be numpy arrays
         or tensors already on the device."""
-        dt = self.train_dtype
-        data = {m: self._tensor(v, dt) for m, v in batch.data.items()}
-        mask = self._tensor(batch.mask, dt)
-        target = self._tensor(batch.target)
-        kwargs = {"seeds": seeds, "plain": plain}
-        if dt is None:
-            pred = self.module(data, mask, **kwargs)
-        else:
-            params = {k: v.to(dt) for k, v in self.module.named_parameters()}
-            pred = functional_call(self.module, params, (data, mask), kwargs)
-        d = pred.float() - target
-        return (d * d).sum()
+        pred = self._predict(batch, self.train_dtype, seeds=seeds, plain=plain)
+        return masked_mse_sum(pred, self._tensor(batch.target))
 
     def train_step(self, batch: Batch, *, plain: bool = False) -> float:
         """One Adam step on a batch; returns its summed squared error."""
@@ -117,6 +136,80 @@ class Engine:
             self.logger.info('Epoch: {}\tLoss: {:2.5f}'.format(
                 self._epoch, epoch_loss))
         return epoch_loss
+
+    @torch.inference_mode()
+    def evaluate_per_video(self, data: Dict[str, np.ndarray],
+                           target: np.ndarray, seq_lens: List[int], *,
+                           shuffle_rng=None) -> Tuple:
+        """The reference's evaluation: one video at a time at its own
+        length, float32, no padding.  Returns (cccs, predictions, actuals,
+        loss, stats, (best_pred, best_actual, best_index)) as the JAX Engine
+        does; loss is the summed squared error per timepoint.
+
+        shuffle_rng (a np.random.RandomState): visit the videos in a
+        shuffled order, as the reference MFT evaluate() does; the metrics do
+        not depend on the order, only the best video's tie-break does."""
+        cccs, corrs, preds, actuals = [], [], [], []
+        loss_sum, data_num = 0.0, 0
+        best = (-1.0, None, None, 0)
+        batches = make_batches(data, target, seq_lens, batch_size=1,
+                               shuffle=shuffle_rng is not None,
+                               rng=shuffle_rng)
+        for index, batch in enumerate(batches, 1):
+            out = self._predict(batch, None).cpu().numpy()
+            d = out - batch.target
+            loss_sum += float((d * d).sum())
+            data_num += sum(batch.lengths)
+            o = out.reshape(-1)
+            t = batch.target.reshape(-1)
+            preds.append(o.tolist())
+            actuals.append(t.tolist())
+            cur = ccc(t, o)
+            cccs.append(cur)
+            corrs.append(pearson(t, o))
+            if cur > best[0]:
+                best = (cur, o, t, index)
+        loss = loss_sum / max(data_num, 1)
+        stats = {"corr": float(np.mean(corrs)),
+                 "corr_std": float(np.std(corrs)),
+                 "ccc": float(np.mean(cccs)), "ccc_std": float(np.std(cccs)),
+                 "max_ccc": best[0]}
+        if self.logger:
+            self.logger.info(
+                'Evaluation\tLoss: {:2.5f}\tCorr: {:0.3f}\tCCC: {:0.9f}'.format(
+                    loss, stats['corr'], stats['ccc']))
+        return cccs, preds, actuals, loss, stats, (best[1], best[2], best[3])
+
+    @torch.inference_mode()
+    def evaluate_batched(self, data: Dict[str, np.ndarray], target: np.ndarray,
+                         seq_lens: List[int], *, batch_size: int = 32,
+                         time_multiple: int = 32) -> Tuple:
+        """Evaluation over fixed-shape length buckets, the per-video CCC on
+        the device, the forward in `eval_dtype`.  Exact only when padded
+        keys are masked, so "key_query" mode is required.  Returns (cccs in
+        video order, loss, stats)."""
+        if self.cfg.mask_mode != "key_query":
+            raise ValueError(
+                "evaluate_batched pads the time axis to bucket bounds, "
+                "which is only metric-preserving with mask_mode='key_query' "
+                f"(got {self.cfg.mask_mode!r}); use evaluate_per_video")
+        cccs = np.zeros(target.shape[0])
+        loss_sum, data_num = 0.0, 0
+        for batch in bucketed_eval_batches(data, target, seq_lens,
+                                           batch_size=batch_size,
+                                           time_multiple=time_multiple):
+            pred = self._predict(batch, self.eval_dtype)
+            tgt = self._tensor(batch.target)
+            loss_sum += float(masked_mse_sum(pred, tgt))
+            data_num += sum(batch.lengths)
+            c = ccc_masked(tgt[..., 0], pred[..., 0],
+                           self._tensor(batch.mask)[..., 0])
+            # buckets reorder the videos; put each CCC back at its index
+            cccs[batch.indices] = c[:len(batch.lengths)].cpu().numpy()
+        cccs = cccs.tolist()
+        stats = {"ccc": float(np.mean(cccs)), "ccc_std": float(np.std(cccs)),
+                 "max_ccc": float(np.max(cccs))}
+        return cccs, loss_sum / max(data_num, 1), stats
 
     def scheduler_step(self, metric: float) -> float:
         """Feed the plateau controller an evaluation loss; returns the

@@ -12,15 +12,19 @@ seeds the stack runs in eval mode.  Two mask modes, as in the JAX package:
   * "key_query": padded keys are masked as well, which makes the valid rows
     independent of how much padding a batch carries.
 
-`encoder_stack` dispatches: a CUDA tensor in "key_query" mode goes to the
-fused encoder kernel (ops/cuda/encoder.py), or with seeds to the training
-kernels (ops/cuda/encoder_train.py, whose output takes the final norm here
-so that autograd owns its parameters); a CPU tensor takes the plain path
-below.  "query" mode (and a stack without a mask) takes the plain path on
-any device: that is dispatch by mode, as in the JAX package, whose encoder
-kernels take key_query only and which runs query mode through its jnp
-encoder on the TPU too (`ops/attention.py` there); it is not a fallback on
-failure.
+`encoder_stack` dispatches by `dispatch.encoder_route`: a CUDA tensor in
+"key_query" mode goes to the fused encoder kernel A (ops/cuda/encoder.py) up
+to T = 512, past it layer by layer with attention through kernel 11
+(ops/cuda/flash_attention.py; the JAX package's long-T route, its fused
+kernel declining and its flash kernel serving each layer), and with seeds
+to the training kernels (ops/cuda/encoder_train.py, whose output takes the
+final norm here so that autograd owns its parameters) at every T; a CPU
+tensor takes the plain path below.  "query" mode (and a stack without a
+mask) takes the plain path on any device: that is dispatch by mode, as in
+the JAX package, whose encoder kernels take key_query only and which runs
+query mode through its jnp encoder on the TPU too (`ops/attention.py`
+there); it is not a fallback on failure.  `encoder_stack_plain` launches
+nothing on any device.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from torch import nn
 
 from ..utils.init import init_linear
 from .basic import dropout
-from .dispatch import use_kernel
+from .dispatch import encoder_route, use_kernel
 from .norm import LayerNorm
 
 NEG_INF = -1e9
@@ -90,15 +94,30 @@ class Encoder(nn.Module):
 
 def multi_head_attention(attn: MultiHeadAttention, query, key, value,
                          mask=None, *, h: int, mask_mode: str = "query",
-                         seed=None, dropout_p: float = DROPOUT):
+                         seed=None, dropout_p: float = DROPOUT,
+                         flash: bool = False):
     """query/key/value [B, T, D]; mask [B, T, 1] or None; seed: the dropout
-    seed of the [B, h, T, T] probabilities (None in eval).  Returns
+    seed of the [B, h, T, T] probabilities (None in eval).  flash=True (eval
+    in "key_query" mode): the attention runs through kernel 11 on the heads
+    flattened to [B*h, T, d_k], the JAX package's flash branch.  Returns
     [B, T, D]."""
     B, _, D = query.shape
     d_k = D // h
 
     def proj(lin, x):
         return lin(x).view(B, -1, h, d_k).transpose(1, 2)
+
+    if flash:
+        from .cuda.flash_attention import FlashAttention
+
+        def flat(lin, x):  # a view when B = 1: the kernel takes it packed
+            return proj(lin, x).reshape(B * h, -1, d_k).contiguous()
+
+        o = FlashAttention.apply(flat(attn.linears[0], query),
+                                 flat(attn.linears[1], key),
+                                 flat(attn.linears[2], value), mask[..., 0], h)
+        return attn.linears[3](o.view(B, h, -1, d_k).transpose(1, 2)
+                               .reshape(B, -1, D))
 
     q = proj(attn.linears[0], query)     # [B, h, Tq, d_k]
     k = proj(attn.linears[1], key)
@@ -117,14 +136,15 @@ def multi_head_attention(attn: MultiHeadAttention, query, key, value,
 
 
 def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str,
-                  seeds=None, dropout_p: float = DROPOUT):
-    """seeds: the layer's 4 site seeds, or None in eval."""
+                  seeds=None, dropout_p: float = DROPOUT, flash: bool = False):
+    """seeds: the layer's 4 site seeds, or None in eval; flash: attention
+    through kernel 11 (see multi_head_attention)."""
     s = [None] * 4 if seeds is None else [int(v) for v in seeds]
     normed = layer.sublayer[0].norm(x)
     x = x + dropout(multi_head_attention(layer.self_attn, normed, normed,
                                          normed, mask, h=h,
                                          mask_mode=mask_mode, seed=s[0],
-                                         dropout_p=dropout_p),
+                                         dropout_p=dropout_p, flash=flash),
                     s[1], dropout_p)
     normed = layer.sublayer[1].norm(x)
     ff = layer.feed_forward
@@ -143,15 +163,28 @@ def encoder_stack_plain(enc: Encoder, x, mask=None, *, h: int = 8,
     return enc.norm(x)
 
 
+def encoder_stack_flash(enc: Encoder, x, mask, *, h: int = 8):
+    """The long-video route, eval in "key_query" mode: every layer as
+    `encoder_layer`, its attention through kernel 11.  x: [B, T, D]."""
+    for layer in enc.layers:
+        x = encoder_layer(layer, x, mask, h=h, mask_mode="key_query",
+                          flash=True)
+    return enc.norm(x)
+
+
 def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
                   mask_mode: str = "query", seeds=None,
                   dropout_p: float = DROPOUT):
     """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
     seeds: the [N, 4] dropout seed table in training, None in eval."""
-    if use_kernel(x) and mask is not None and mask_mode == "key_query":
-        if seeds is None:
-            from .cuda.encoder import encoder_stack_fused
-            return encoder_stack_fused(enc, x, mask, h=h)
+    route = encoder_route(use_kernel(x) and mask is not None, x.shape[1],
+                          mask_mode, seeds is not None)
+    if route == "fused":
+        from .cuda.encoder import encoder_stack_fused
+        return encoder_stack_fused(enc, x, mask, h=h)
+    if route == "flash":
+        return encoder_stack_flash(enc, x, mask, h=h)
+    if route == "train":
         from .cuda.encoder_train import encoder_stack_train
         y = encoder_stack_train(enc, x, mask, h=h, p=dropout_p, seeds=seeds)
         return enc.norm(y.to(x.dtype))

@@ -50,6 +50,8 @@ _SIGNATURES = {
                            _I, _P],
     "mmtx_window_embed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P],
+    "mmtx_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P],
 }
 
 _lock = threading.Lock()

@@ -35,6 +35,7 @@ from ..basic import conv1d_window_embed, highway_fn
 from ..mfn_core import DROPOUTS, MFN, hoisted_inputs
 from . import encoder as enc_k
 from . import encoder_train as enct_k
+from . import flash_attention as fa_k
 from . import mfn as mfn_k
 from . import mfn_train as mfnt_k
 from . import window_embed as we_k
@@ -60,6 +61,7 @@ class KernelCheck:
     plain_ms: float
     ops_ms: float = math.nan    # operations / peak rate of their type
     bytes_ms: float = math.nan  # bytes moved / HBM rate
+    library_ms: float = math.nan  # one PyTorch call of the same function
 
     @property
     def bound_ms(self) -> float:
@@ -91,11 +93,14 @@ class KernelCheck:
 
     def line(self) -> str:
         e, p = self.parts[self.worst]
+        library = ("" if math.isnan(self.library_ms)
+                   else f"library={self.library_ms:.3f} ms ")
         return (f"{self.name:24s} {self.shape:18s} {self.dtype:9s} "
                 f"{len(self.parts):2d} outputs, worst {self.worst}: "
                 f"err={e:.3e} bound={self.bound_of(p):.3e} "
                 f"(plain err {p:.3e}) kernel={self.ms:.3f} ms "
-                f"plain={self.plain_ms:.3f} ms bound={self.bound_ms:.4f} ms "
+                f"plain={self.plain_ms:.3f} ms {library}"
+                f"bound={self.bound_ms:.4f} ms "
                 f"({self.bound_by}) {'PASS' if self.ok else 'FAIL'}")
 
 
@@ -504,15 +509,98 @@ def check_window_embed_grad(B: int, W: int, Fr: int, D: int, E: int,
         _finite(kern, valids), math.nan, math.nan)
 
 
+def _flash_case(B, h, T, d_k, dtype, device, seed, all_masked):
+    """q, k, v [B*h, T, d_k] in dtype and a key mask [B, T] of varied
+    lengths (lengths_for; the first `all_masked` videos have no key)."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B * h, T, d_k, generator=gen).to(device=device,
+                                                            dtype=dtype)
+               for _ in range(3))
+    lens = torch.as_tensor(lengths_for(B, T, seed))
+    lens[:all_masked] = 0
+    kmask = (torch.arange(T)[None, :] < lens[:, None]).float().to(device)
+    return q, k, v, kmask
+
+
+def flash_ops(BH: int, Tq: int, Tk: int, d_k: int) -> float:
+    """The scores and p @ v over every key."""
+    return 4.0 * BH * Tq * Tk * d_k
+
+
+@torch.no_grad()
+def check_flash_attention(B: int, h: int, T: int, d_k: int,
+                          dtype: torch.dtype, *, device, seed: int = 0,
+                          all_masked: int = 0, reps: int = 7) -> KernelCheck:
+    """Kernel 11 on [B*h, T, d_k] heads with a [B, T] key mask, every query
+    row compared (query rows are not masked).  library_ms: PyTorch's
+    scaled_dot_product_attention with the same boolean key mask, timed as a
+    yardstick (it gives NaN on a row whose keys are all masked, so it is
+    only timed)."""
+    q, k, v, kmask = _flash_case(B, h, T, d_k, dtype, device, seed,
+                                 all_masked)
+    ref = fa_k.flash_attention_masked_plain(q.double(), k.double(),
+                                            v.double(), kmask, h)
+    plain = fa_k.flash_attention_masked_plain(q, k, v, kmask, h)
+    kern = fa_k.flash_attention_masked(q, k, v, kmask, h)
+    torch.cuda.synchronize()
+    heads = lambda t: t.view(B, h, T, d_k)
+    attend = kmask.bool()[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    c = KernelCheck(
+        "flash_attention_masked", f"B={B} h={h} T={T} dk={d_k}",
+        _dtype_name(dtype), _parts(["out"], [kern], [plain], [ref], [None]),
+        _finite([kern], [None]),
+        time_ms(lambda: fa_k.flash_attention_masked(q, k, v, kmask, h), reps,
+                burst=KERNEL_BURST),
+        time_ms(lambda: fa_k.flash_attention_masked_plain(q, k, v, kmask, h),
+                reps),
+        *bound_times({_ops_type(dtype): flash_ops(B * h, T, T, d_k)},
+                     [q, k, v, kmask, kern]))
+    c.library_ms = time_ms(lambda: sdpa(heads(q), heads(k), heads(v),
+                                        attn_mask=attend), reps,
+                           burst=KERNEL_BURST)
+    return c
+
+
+FA_GRAD_NAMES = ("q", "k", "v")
+
+
+def check_flash_attention_grad(B: int, h: int, T: int, d_k: int,
+                               dtype: torch.dtype, *, device, seed: int = 0,
+                               all_masked: int = 1) -> KernelCheck:
+    """`FlashAttention` (kernel forward, plain VJP backward): its output and
+    the gradients of q, k and v under a random cotangent, against autograd
+    through the plain version in float64 and in dtype."""
+    q, k, v, kmask = _flash_case(B, h, T, d_k, dtype, device, seed,
+                                 all_masked)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(B * h, T, d_k, generator=gen).to(device=device,
+                                                     dtype=dtype)
+
+    def run(fn, ts):
+        leaves = [t.detach().clone().requires_grad_() for t in ts]
+        y = fn(*leaves, kmask, h)
+        return [y.detach(), *torch.autograd.grad(y, leaves, g.to(y.dtype))]
+
+    ref = run(fa_k.flash_attention_masked_plain, _double([q, k, v]))
+    plain = run(fa_k.flash_attention_masked_plain, [q, k, v])
+    kern = run(fa_k.FlashAttention.apply, [q, k, v])
+    torch.cuda.synchronize()
+    names = ("out",) + FA_GRAD_NAMES
+    valids = [None] * len(names)
+    return KernelCheck(
+        "FlashAttention grad", f"B={B} h={h} T={T} dk={d_k}",
+        _dtype_name(dtype), _parts(names, kern, plain, ref, valids),
+        _finite(kern, valids), math.nan, math.nan)
+
+
 def unported_bounds(B: int = 32, T: int = 160, D: int = 256, h: int = 8,
-                    F: int = 128, n_layers: int = 6, long_T: int = 544,
+                    F: int = 128, n_layers: int = 6,
                     dtype: torch.dtype = torch.bfloat16) -> Dict[str, float]:
     """Bounds (ms, H100 SXM) of the TPU kernels without a port yet, from the
     same rule as the checks, at the shapes their JAX dispatch gives them:
-    the whole-stack encoder backward (kernel 4's work for every layer), the
-    packed and lane-padded MFN recurrences (kernel B's function), and flash
-    attention at the first bucket where the JAX package dispatches it
-    (T = 544 >= 512)."""
+    the whole-stack encoder backward (kernel 4's work for every layer) and
+    the packed and lane-padded MFN recurrences (kernel B's function)."""
     s = torch.empty(0, dtype=dtype).element_size()
     peak = PEAK_OPS_PER_S[_ops_type(dtype)]
     # x and dy in, dx out; the weights and their gradients are small
@@ -522,10 +610,6 @@ def unported_bounds(B: int = 32, T: int = 160, D: int = 256, h: int = 8,
     whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in AVL]
     mfn_ms = 1e3 * B * T * mfn_step_ops(whhs, mfn.gate_tensors()) / \
         PEAK_OPS_PER_S["fp32"]
-    attn_ops = 4.0 * B * long_T * long_T * D  # scores and p @ v
-    attn_bytes = 4 * B * long_T * D * s       # q, k, v in; out
-    flash = max(1e3 * attn_ops / peak, 1e3 * attn_bytes / HBM_BYTES_PER_S)
     return {"_stack_bwd_call": stack_bwd,
             "mfn_scan_pallas_packed": mfn_ms,
-            "mfn_scan_pallas_aligned": mfn_ms,
-            "flash_attention_masked": flash}
+            "mfn_scan_pallas_aligned": mfn_ms}

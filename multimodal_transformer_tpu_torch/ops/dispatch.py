@@ -1,17 +1,49 @@
-"""Kernel dispatch: one rule, no knobs.
+"""Kernel dispatch: one rule for the device, one shape rule for the encoder,
+no knobs.
 
 A tensor on a CUDA device goes to the hand-written kernel; a tensor on the
 CPU goes to the kernel's plain PyTorch version.  The wrappers apply it, and a
 CUDA call that the kernel cannot take raises instead of falling back.
+
+The encoder stack takes one of four routes (`encoder_route`), as the JAX
+package's `ops/attention.py` routes it on the TPU:
+  * "fused": kernel A (ops/cuda/encoder.py), eval in "key_query" mode at
+    T <= FLASH_ATTN_MIN_T;
+  * "flash": layer by layer with attention through kernel 11
+    (ops/cuda/flash_attention.py), eval in "key_query" mode at longer T;
+  * "train": kernels 3 and 4 (ops/cuda/encoder_train.py), training with
+    dropout seeds in "key_query" mode, at every T;
+  * "plain": the plain encoder, for a CPU tensor, "query" mode or no mask.
 """
 
 from __future__ import annotations
 
 import torch
 
+# The JAX package's flash gate (`FLASH_ATTN_MIN_T`, ops/dispatch.py there):
+# flash attention serves T >= 512 once its fused encoder kernel declines,
+# and that kernel's eval fit (`fused_encoder_fits`, which pads T to a
+# multiple of 8) admits T <= 512 at D = 256.  At T = 512 the fused kernel
+# goes first, so the flash route starts past it.
+FLASH_ATTN_MIN_T = 512
+
 
 def use_kernel(x: torch.Tensor) -> bool:
     return x.is_cuda
+
+
+def encoder_route(on_card: bool, T: int, mask_mode: str,
+                  training: bool) -> str:
+    """The route of an encoder stack over T steps: on_card is whether its
+    input is on a CUDA device and masked; training whether it carries
+    dropout seeds.  Training keeps kernels 3 and 4 at every T: the JAX
+    package trains past T = 256 through jnp instead, with the same dropout
+    masks, so only the route differs (ROADMAP Queue 3)."""
+    if not on_card or mask_mode != "key_query":
+        return "plain"
+    if training:
+        return "train"
+    return "flash" if T > FLASH_ATTN_MIN_T else "fused"
 
 
 def check_kernel_dtype(x: torch.Tensor, what: str) -> int:

@@ -10,6 +10,11 @@ bf16), and each trace is returned in float32, cut to its true length.
     predictor = ValencePredictor(cfg, module)
     traces = predictor.predict_padded(data, seq_lens)
 
+On the card, a family's encoders take kernel A on buckets of up to 512
+windows and, on the buckets past it (544, 576, ... with the default
+time_multiple of 32), the flash route: layer by layer with attention
+through kernel 11 (ops/dispatch.py `encoder_route`).
+
 Loading checkpoints (`from_checkpoint`) and the SENDv1 reader
 (`predict_dataset`) are not ported yet.
 """

@@ -1,15 +1,19 @@
 """The CUDA kernels against their plain versions on the card (the kernel
 phases of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
 B=32, T=160 A+V+L, kernel 10 (window embed) at the front end's four shapes
-and its autograd Function's gradients, and the four training kernels
-(encoder stack forward and layer backward, MFN forward and reverse
-recurrence) at B=32, T in {160, 400}, fp32 and bf16, within the competitive
-bound
+and its autograd Function's gradients, kernel 11 (flash attention) at the
+long-video buckets' shapes (B*h = 32*8, T in {544, 640, 1024}, d_k = 32) and
+a ragged case (T = 601, d_k = 2, videos with no key) and its Function's
+gradients, and the four training kernels (encoder stack forward and layer
+backward, MFN forward and reverse recurrence) at B=32, T in {160, 400},
+fp32 and bf16, within the competitive bound
 err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
-output tensor.
+output tensor; and the encoder's routes: kernel A up to T = 512, kernel 11
+layer by layer past it, the plain encoder in "query" mode.
 
-Needs an NVIDIA GPU and nvcc; skips without them.  On the card:
-    python -m pytest tests/test_torch_kernels_cuda.py -q
+Needs an NVIDIA GPU and nvcc; skips without them.  On the card, where JAX
+(which tests/conftest.py sets up) is not installed:
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
 import pytest
@@ -49,10 +53,15 @@ def test_mfn_kernel_within_bound(device, dtype):
     assert c.ok, c.line()
 
 
-TRAIN_KERNELS = {"encoder_stack_train_fwd": ("encoder_train", "fwd_launches"),
-                 "encoder_layer_bwd": ("encoder_train", "bwd_launches"),
-                 "mfn_train_fwd": ("mfn_train", "fwd_launches"),
-                 "mfn_train_bwd": ("mfn_train", "bwd_launches")}
+# kernel -> (wrapper module, launch counter, verify check)
+TRAIN_KERNELS = {"encoder_stack_train_fwd": ("encoder_train", "fwd_launches",
+                                             "check_encoder_train_fwd"),
+                 "encoder_layer_bwd": ("encoder_train", "bwd_launches",
+                                       "check_encoder_layer_bwd"),
+                 "mfn_train_fwd": ("mfn_train", "fwd_launches",
+                                   "check_mfn_train_fwd"),
+                 "mfn_train_bwd": ("mfn_train", "bwd_launches",
+                                   "check_mfn_train_bwd")}
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -62,12 +71,11 @@ def test_train_kernel_within_bound(device, kernel, T, dtype):
     import importlib
 
     from multimodal_transformer_tpu_torch.ops.cuda import verify
-    module, counter = TRAIN_KERNELS[kernel]
+    module, counter, check = TRAIN_KERNELS[kernel]
     mod = importlib.import_module(
         f"multimodal_transformer_tpu_torch.ops.cuda.{module}")
     before = getattr(mod, counter)
-    c = getattr(verify, f"check_{kernel}")(32, T, DTYPES[dtype],
-                                           device=device, reps=0)
+    c = getattr(verify, check)(32, T, DTYPES[dtype], device=device, reps=0)
     assert getattr(mod, counter) > before
     assert c.ok, c.line()
 
@@ -99,6 +107,69 @@ def test_window_embed_function_grads_within_bound(device, dtype):
     c = verify.check_window_embed_grad(4, 20, 32, 300, 300, DTYPES[dtype],
                                        device=device)
     assert c.ok, c.line()
+
+
+# (B, h, T, d_k, videos with every key masked) of kernel 11: the long-video
+# buckets at D = 256, and a ragged T with d_k = 2 (the emotient encoder)
+FLASH_SHAPES = {"T544": (32, 8, 544, 32, 0), "T640": (32, 8, 640, 32, 0),
+                "T1024": (32, 8, 1024, 32, 0), "ragged_dk2": (5, 8, 601, 2, 2)}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_attention_kernel_within_bound(device, shape, dtype):
+    from multimodal_transformer_tpu_torch.ops.cuda import (flash_attention,
+                                                           verify)
+    B, h, T, d_k, all_masked = FLASH_SHAPES[shape]
+    before = flash_attention.launches
+    c = verify.check_flash_attention(B, h, T, d_k, DTYPES[dtype],
+                                     device=device, all_masked=all_masked,
+                                     reps=0)
+    assert flash_attention.launches > before
+    assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_function_grads_within_bound(device, dtype):
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    c = verify.check_flash_attention_grad(4, 8, 544, 32, DTYPES[dtype],
+                                          device=device)
+    assert c.ok, c.line()
+
+
+def test_flash_attention_raises_on_what_it_does_not_take(device):
+    from multimodal_transformer_tpu_torch.ops.cuda import flash_attention
+    q = torch.randn(8, 520, 12, device=device)  # d_k 12: no kernel
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_masked(q, q, q,
+                                               torch.ones(1, 520,
+                                                          device=device), 8)
+    q = torch.randn(8, 520, 32, device=device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_masked(q, q, q,
+                                               torch.ones(1, 520,
+                                                          device=device), 8)
+
+
+def test_long_videos_take_the_flash_route_on_cuda(device):
+    from multimodal_transformer_tpu_torch.ops.attention import (
+        encoder_stack, encoder_stack_plain)
+    from multimodal_transformer_tpu_torch.ops.cuda import (encoder,
+                                                           flash_attention,
+                                                           verify)
+    enc = verify.random_encoder(torch.Generator().manual_seed(0)).to(device)
+    for T, flash, fused in ((512, 0, 1), (513, 6, 0)):
+        x = torch.randn(2, T, 256, device=device)
+        mask = torch.ones(2, T, 1, device=device)
+        mask[1, T // 2:] = 0
+        f0, e0 = flash_attention.launches, encoder.launches
+        with torch.inference_mode():
+            got = encoder_stack(enc, x, mask, mask_mode="key_query")
+            want = encoder_stack_plain(enc, x, mask, mask_mode="key_query")
+        assert (flash_attention.launches - f0, encoder.launches - e0) == \
+            (flash, fused)
+        valid = mask[..., 0].bool()
+        assert (got - want)[valid].abs().max().item() < 1e-4
 
 
 def test_query_mode_takes_the_plain_encoder_on_cuda(device):
