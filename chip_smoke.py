@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Ten phases, any
+Run from the repository root: `python3 chip_smoke.py`.  Twelve phases, any
 failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -35,13 +35,17 @@ failure exits nonzero:
    within their tolerance and equal to `ccc` on the returned predictions,
    the `Evaluation` line printed; a "query"-mode per-video evaluation
    launches no encoder kernel;
-8. train kernels: the four training kernels (encoder stack forward and layer
-   backward, MFN forward and reverse recurrence) against their plain
-   versions at B=32, T=160 and T=400, fp32 and bf16, the bound applied to
-   every output tensor (dx and each gradient included);
+8. train kernels: the five training kernels (encoder stack forward, layer
+   backward and whole-stack backward, MFN forward and reverse recurrence)
+   against their plain versions at B=32, T=160 and T=400, fp32 and bf16,
+   the bound applied to every output tensor (dx and each gradient
+   included), the whole-stack backward (kernel 5) also bit-identical to six
+   calls of the layer backward (kernel 4);
 9. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
-   batch size 25 (launch counters exact, every loss finite); one fp32 step
+   batch size 25 (launch counters exact, every loss finite), then the same
+   epoch with encoder_backward="stack" (kernel 5 in place of kernel 4,
+   counted the same way); one fp32 step
    of the kernel path against the plain path from the same parameters,
    batch and seeds (loss within 1e-4 relative, every gradient within 1e-3
    relative L2), read again with the plain front end in place of kernel 10
@@ -51,7 +55,17 @@ failure exits nonzero:
 10. query mode: an MFT A+V+L forward and one training step in the
    reference's default "query" mask mode, which no encoder kernel takes:
    the encoder kernels' counters stay at 0 while the MFN and window-embed
-   kernels launch.
+   kernels launch;
+11. families train: Engine steps of SFT (A+V+L and A), B2-Trans A+V+L,
+   B3-MFN (A+V+L and A), B1-LSTM A+V+L, B1-LSTM legacy L and MFT L at full
+   widths, B=32, T=160: the fp32 kernel-path step against the plain path
+   (the train phase's limits), a repeated step bit-identical, the same step
+   on the "stack" encoder backward bit-identical to "perlayer", exact
+   launch counts per step on both routes; bf16 mixed ms/step from a batch
+   on the card and from a host batch; one "query"-mode step;
+12. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
+   and "stack", alternated, ms/step and launches (kernel 5 three times per
+   step on "stack", kernel 4 never).
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, bound (the least time an H100 SXM could take, from the
@@ -88,6 +102,21 @@ TRAIN_T = (160, 400)
 # floor covers the k-projection biases, whose gradients are mathematically
 # zero (softmax row gradients sum to zero) and so are pure rounding noise.
 LOSS_RTOL, GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-6
+# The families-train phase's configurations: (name, family, modalities,
+# variant).  Their kernels per step follow from the module: kernel 3 and
+# kernel 4 (x6) or 5 once per encoder, kernels 6 and 7 for B3-MFN's MFN,
+# kernel 10 once per modality but for B1's ReLU Highway.
+TRAIN_FAMILIES = (
+    ("SFT A+V+L", "SFT", AVL, "default"),
+    ("SFT A", "SFT", ("acoustic",), "default"),
+    ("B2-Trans A+V+L", "B2-Trans", AVL, "default"),
+    ("B3-MFN A+V+L", "B3-MFN", AVL, "default"),
+    ("B3-MFN A", "B3-MFN", ("acoustic",), "default"),
+    ("B1-LSTM A+V+L", "B1-LSTM", AVL, "default"),
+    ("B1-LSTM L legacy", "B1-LSTM", ("linguistic",), "legacy"),
+    ("MFT L", "MFT", ("linguistic",), "default"),
+)
+AB_ROUNDS = 4
 # the front end's (frames, mod dim, window embed) at full widths: MFT's
 # acoustic, the SFT/B2/B3 acoustic, image and linguistic
 WINDOW_EMBED_SHAPES = ((4, 88, 88), (4, 88, 256), (4, 1000, 256),
@@ -163,6 +192,9 @@ SOURCES = {
     "encoder_layer_bwd": (
         "multimodal_transformer_tpu_torch/csrc/encoder_train.cu",
         "multimodal_transformer_tpu/ops/pallas/encoder.py:1284"),
+    "encoder_stack_bwd": (
+        "multimodal_transformer_tpu_torch/csrc/encoder_train.cu",
+        "multimodal_transformer_tpu/ops/pallas/encoder.py:1469"),
     "mfn_train_fwd": ("multimodal_transformer_tpu_torch/csrc/mfn_train.cu",
                       "multimodal_transformer_tpu/ops/pallas/mfn_train.py:147"),
     "mfn_train_bwd": ("multimodal_transformer_tpu_torch/csrc/mfn_train.cu",
@@ -215,6 +247,7 @@ def kernel_counters():
             "flash_attention_masked": (fa_k, "launches"),
             "encoder_stack_train_fwd": (enct, "fwd_launches"),
             "encoder_layer_bwd": (enct, "bwd_launches"),
+            "encoder_stack_bwd": (enct, "stack_bwd_launches"),
             "mfn_train_fwd": (mfnt, "fwd_launches"),
             "mfn_train_bwd": (mfnt, "bwd_launches")}
 
@@ -374,7 +407,8 @@ def run_train_kernel_checks(torch, device):
     from multimodal_transformer_tpu_torch.ops.cuda import verify
 
     fns = (verify.check_encoder_train_fwd, verify.check_encoder_layer_bwd,
-           verify.check_mfn_train_fwd, verify.check_mfn_train_bwd)
+           verify.check_encoder_stack_bwd, verify.check_mfn_train_fwd,
+           verify.check_mfn_train_bwd)
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for T in TRAIN_T:
@@ -411,7 +445,7 @@ def _bench_batch(np, Batch, cfg, B, T, seed):
     """bench.py's training batch: lengths T - (i % 5), random targets."""
     rs = np.random.RandomState(seed)
     data = {m: rs.randn(B, T, FRAMES[m], cfg.mod_dimension[m]).astype(
-        np.float32) for m in AVL}
+        np.float32) for m in cfg.modalities}
     target = rs.randn(B, T, 1).astype(np.float32)
     lens = [T - (i % 5) for i in range(B)]
     mask = np.zeros((B, T, 1), np.float32)
@@ -423,8 +457,39 @@ def _bench_batch(np, Batch, cfg, B, T, seed):
 def _grads(torch, engine, batch, seeds, plain):
     params = [p for _, p in engine.module.named_parameters()]
     loss = engine.batch_loss(batch, seeds, plain=plain)
-    grads = torch.autograd.grad(loss / float(sum(batch.lengths)), params)
-    return float(loss.detach()), grads
+    # the single-modality SFT creates its fusion layer and never uses it
+    grads = torch.autograd.grad(loss / float(sum(batch.lengths)), params,
+                                allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                  for p, g in zip(params, grads)]
+
+
+def _grad_norm(torch, grads) -> float:
+    return torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item()
+
+
+def _worst_grad(names, grads, want, total):
+    """(text, worst): the gradient furthest into its limit, GRAD_RTOL of its
+    own norm plus GRAD_FLOOR of the whole gradient's norm `total`."""
+    worst, at = 0.0, ("", 0.0, 0.0)
+    for name, a, b in zip(names, grads, want):
+        diff = (a.double() - b.double()).norm().item()
+        norm = b.double().norm().item()
+        if diff / (GRAD_RTOL * norm + GRAD_FLOOR * total) > worst:
+            worst = diff / (GRAD_RTOL * norm + GRAD_FLOOR * total)
+            at = (name, diff, norm)
+    return (f"worst gradient {at[0]}: {worst:.3f} of its limit (|diff| "
+            f"{at[1]:.3e}, |grad| {at[2]:.3e})"), worst
+
+
+def _on_card(torch, Batch, batch, device):
+    """The batch's arrays on the card, inputs and mask in bf16 (the mixed
+    recipe casts them so itself)."""
+    return Batch({m: torch.from_numpy(v).to(device, torch.bfloat16)
+                  for m, v in batch.data.items()},
+                 torch.from_numpy(batch.target).to(device),
+                 torch.from_numpy(batch.mask).to(device, torch.bfloat16),
+                 batch.lengths)
 
 
 def _profile(torch, step, n: int):
@@ -509,13 +574,38 @@ def run_train(torch, np, device):
             math.isfinite(v) for v in losses.values + [epoch_loss]):
         raise SmokeFailure("a training loss is not finite")
 
+    # the same epoch on the "stack" encoder backward: kernel 5 once per
+    # encoder and step in place of kernel 4 once per layer
+    engine.encoder_backward = "stack"
+    losses.values.clear()
+    reset_counters()
+    t0 = time.perf_counter()
+    stack_loss = engine.train_epoch(data, target, list(lens),
+                                    batch_size=TRAIN_BATCH,
+                                    rng=np.random.RandomState(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stack_got = {k: v for k, v in read_counters().items() if v}
+    want = {**{k: v for k, v in want.items() if k != "encoder_layer_bwd"},
+            "encoder_stack_bwd": 3 * steps}
+    print(f"the same epoch with encoder_backward=\"stack\" in {wall:.3f} s; "
+          f"running losses {losses.values}, epoch loss {stack_loss:.5f}; "
+          f"launches {stack_got}", flush=True)
+    if stack_got != want:
+        raise SmokeFailure(f"expected launches {want} on the \"stack\" "
+                           "training path")
+    if not all(math.isfinite(v) for v in losses.values + [stack_loss]):
+        raise SmokeFailure("a training loss is not finite")
+    got["encoder_stack_bwd"] = stack_got["encoder_stack_bwd"]
+
     # one fp32 step, kernel path against plain path
     from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
 
     B, T = BENCH_B, BENCH_T
     batch = _bench_batch(np, Batch, cfg, B, T, seed=3)
     f32 = Engine(cfg, seed=1, device=device)
-    seeds = DropoutSeeds.draw(AVL, 6, T, torch.Generator().manual_seed(4))
+    seeds = DropoutSeeds.draw(f32.module.dropout_sites(), T,
+                              torch.Generator().manual_seed(4))
     loss_k, g_k = _grads(torch, f32, batch, seeds, plain=False)
     loss_p, g_p = _grads(torch, f32, batch, seeds, plain=True)
     _, g_k2 = _grads(torch, f32, batch, seeds, plain=False)
@@ -533,18 +623,8 @@ def run_train(torch, np, device):
     finally:
         we_k.window_embed_highway = kernel_fwd
     names = [n for n, _ in f32.module.named_parameters()]
-    total = torch.sqrt(sum((g.double() ** 2).sum() for g in g_p)).item()
-
-    def worst_of(grads):
-        worst, at = 0.0, ("", 0.0, 0.0)
-        for name, a, b in zip(names, grads, g_p):
-            diff = (a.double() - b.double()).norm().item()
-            norm = b.double().norm().item()
-            if diff / (GRAD_RTOL * norm + GRAD_FLOOR * total) > worst:
-                worst = diff / (GRAD_RTOL * norm + GRAD_FLOOR * total)
-                at = (name, diff, norm)
-        return (f"worst gradient {at[0]}: {worst:.3f} of its limit (|diff| "
-                f"{at[1]:.3e}, |grad| {at[2]:.3e})"), worst
+    total = _grad_norm(torch, g_p)
+    worst_of = lambda grads: _worst_grad(names, grads, g_p, total)
 
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
@@ -563,11 +643,7 @@ def run_train(torch, np, device):
         raise SmokeFailure("the same step twice gave different gradients")
 
     mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device)
-    on_card = Batch({m: torch.from_numpy(v).to(device, torch.bfloat16)
-                     for m, v in batch.data.items()},
-                    torch.from_numpy(batch.target).to(device),
-                    torch.from_numpy(batch.mask).to(device, torch.bfloat16),
-                    batch.lengths)
+    on_card = _on_card(torch, Batch, batch, device)
     ms = time_ms(lambda: mixed.train_step(batch), reps=9)
     card_ms = time_ms(lambda: mixed.train_step(on_card), reps=9)
     plain_ms = time_ms(lambda: mixed.train_step(on_card, plain=True),
@@ -584,6 +660,130 @@ def run_train(torch, np, device):
             print(f"profile: not available ({type(e).__name__}: {e})",
                   flush=True)
     return got
+
+
+def _train_launches(module, backward: str) -> dict:
+    """The kernel launches of one training step of `module` on the card in
+    "key_query" mode."""
+    sites = module.dropout_sites()
+    cfg = module.cfg
+    n_enc, mfn = len(sites.encoders), int(sites.mfn)
+    fronts = 0 if module.relu_proj else len(cfg.modalities)
+    want = {"encoder_stack_train_fwd": n_enc,
+            "encoder_layer_bwd": 6 * n_enc if backward == "perlayer" else 0,
+            "encoder_stack_bwd": n_enc if backward == "stack" else 0,
+            "mfn_train_fwd": mfn, "mfn_train_bwd": mfn,
+            "window_embed_highway": fronts}
+    return {k: v for k, v in want.items() if v}
+
+
+def run_families_train(torch, np, device):
+    """Train each configuration of TRAIN_FAMILIES through Engine on the
+    card.  Returns {name: (ms/step from a card batch, from a host batch)}."""
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
+    from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+
+    B, T = BENCH_B, BENCH_T
+    times = {}
+    for i, (name, family, mods, variant) in enumerate(TRAIN_FAMILIES):
+        cfg = default_config(family, mods, mask_mode="key_query",
+                             variant=variant)
+        batch = _bench_batch(np, Batch, cfg, B, T, seed=10 + i)
+        f32 = Engine(cfg, seed=1, device=device)
+        seeds = DropoutSeeds.draw(f32.module.dropout_sites(), T,
+                                  torch.Generator().manual_seed(4))
+        counts, grads, losses = {}, {}, {}
+        for route in ("perlayer", "stack"):
+            f32.encoder_backward = route
+            reset_counters()
+            losses[route], grads[route] = _grads(torch, f32, batch, seeds,
+                                                 plain=False)
+            torch.cuda.synchronize()
+            counts[route] = {k: v for k, v in read_counters().items() if v}
+            want = _train_launches(f32.module, route)
+            if counts[route] != want:
+                raise SmokeFailure(f"{name}: launches {counts[route]} on the "
+                                   f"{route!r} route, expected {want}")
+        f32.encoder_backward = "perlayer"
+        _, g_k2 = _grads(torch, f32, batch, seeds, plain=False)
+        loss_p, g_p = _grads(torch, f32, batch, seeds, plain=True)
+        names = [n for n, _ in f32.module.named_parameters()]
+        loss_k, g_k = losses["perlayer"], grads["perlayer"]
+        text, worst = _worst_grad(names, g_k, g_p, _grad_norm(torch, g_p))
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+        stack_same = all(torch.equal(a, b)
+                         for a, b in zip(g_k, grads["stack"]))
+
+        mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device)
+        on_card = _on_card(torch, Batch, batch, device)
+        card_ms = time_ms(lambda: mixed.train_step(on_card), reps=9)
+        host_ms = time_ms(lambda: mixed.train_step(batch), reps=9)
+        times[name] = (card_ms, host_ms)
+
+        query = Engine(default_config(family, mods, variant=variant), seed=0,
+                       train_dtype=torch.bfloat16, device=device)
+        reset_counters()
+        q_loss = query.train_step(_bench_batch(np, Batch, cfg, 8, 64, seed=6))
+        torch.cuda.synchronize()
+        q_counts = {k: v for k, v in read_counters().items() if v}
+        q_want = {k: v for k, v in _train_launches(query.module,
+                                                   "perlayer").items()
+                  if not k.startswith("encoder_")}
+        print(f"{name} train B={B} T={T}: launches per step {counts}; fp32 "
+              f"loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel "
+              f"{loss_rel:.2e}, tol {LOSS_RTOL:.0e}); {text}; repeated step "
+              f"bit-identical: {same}; \"stack\" bit-identical to "
+              f"\"perlayer\": {stack_same}; bf16 mixed {card_ms:.3f} ms/step "
+              f"from a batch on the card, {host_ms:.3f} from a host batch "
+              f"(median of 9, CUDA events); query-mode step B=8 T=64 loss "
+              f"{q_loss:.5f}, launches {q_counts}", flush=True)
+        if loss_rel > LOSS_RTOL or worst > 1.0:
+            raise SmokeFailure(f"{name}: the fp32 kernel-path step disagrees "
+                               "with the plain path")
+        if not (same and stack_same):
+            raise SmokeFailure(f"{name}: a repeated step, or the \"stack\" "
+                               "route, changed the gradients' bits")
+        if q_counts != q_want or not math.isfinite(q_loss):
+            raise SmokeFailure(f"{name}: query-mode step launches {q_counts} "
+                               f"(expected {q_want}) or a loss not finite")
+    return times
+
+
+def run_train_ab(torch, np, device) -> None:
+    """The MFT A+V+L mixed step on each encoder backward, alternated."""
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    engine = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device)
+    batch = _on_card(torch, Batch, _bench_batch(np, Batch, cfg, BENCH_B,
+                                                BENCH_T, seed=3), device)
+    counts = {}
+    for route in ("stack", "perlayer"):
+        engine.encoder_backward = route
+        reset_counters()
+        engine.train_step(batch)
+        torch.cuda.synchronize()
+        counts[route] = {k: v for k, v in read_counters().items() if v}
+        if counts[route] != _train_launches(engine.module, route):
+            raise SmokeFailure(f"train A/B: launches {counts[route]} on the "
+                               f"{route!r} route")
+    ms = {"perlayer": [], "stack": []}
+    for _ in range(AB_ROUNDS // 2):
+        for route in ("perlayer", "stack", "stack", "perlayer"):
+            engine.encoder_backward = route
+            ms[route].append(time_ms(lambda: engine.train_step(batch), reps=9))
+    print(f"train A/B, MFT A+V+L B={BENCH_B} T={BENCH_T} bf16 mixed, batch on "
+          f"the card, ms/step (median of 9, CUDA events), alternated: "
+          f"perlayer {[round(v, 3) for v in ms['perlayer']]}, stack "
+          f"{[round(v, 3) for v in ms['stack']]}; launches per step "
+          f"{counts}", flush=True)
 
 
 def _request(np, cfg, rng):
@@ -994,6 +1194,15 @@ def main() -> int:
 
     phase("query mode")
     run_query_mode(torch, np, device)
+
+    phase("families train")
+    train_ms = run_families_train(torch, np, device)
+    print("families train, bf16 mixed ms/step (card batch, host batch): "
+          + "; ".join(f"{k} {a:.3f}, {b:.3f}" for k, (a, b) in
+                      train_ms.items()), flush=True)
+
+    phase("train A/B")
+    run_train_ab(torch, np, device)
 
     print(json.dumps({"kernels": [_json_entry(name, checks, launches)
                                   for name in SOURCES]}))

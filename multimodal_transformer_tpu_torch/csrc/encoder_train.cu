@@ -23,7 +23,8 @@
 // probabilities and (b*T + t)*width + c for the three row sites, so the masks
 // equal the JAX package's bit for bit.
 //
-// Backward (one layer, kernel 4): recomputes the layer from its saved input
+// Backward (one layer, kernel 4; the whole stack, kernel 5): recomputes the
+// layer from its saved input
 // (the probabilities are rebuilt tile by tile from a per-row log-sum-exp, so
 // no [T, T] block is ever stored and every T works), regenerates the keep
 // bits from the hash, and emits dx and the 16 parameter gradients.  The
@@ -32,6 +33,16 @@
 // Where the TPU kernel rounds ds to the storage dtype before the dq/dk
 // products, this kernel keeps it in fp32; dq, dk, dv themselves are stored
 // in the storage dtype as there.
+//
+// Kernel 5 (mmtx_encoder_stack_bwd, replaces _stack_bwd_call) runs kernel 4's
+// sequence for every layer, last first, in one host call: the workspace is
+// carved once, dy is carried between layers in two fp32 [B, T, D] buffers,
+// every gradient lands in its stacked [N, ...] output, and the layer boundary
+// is fused: the last LayerNorm backward of layer l also writes layer l-1's
+// dropout-masked FFN-output gradient, the first thing layer l-1 needs.  The
+// arithmetic is kernel 4's, in the same order (the same split-K partials and
+// column sums, the same LayerNorm-backward kernel), so kernel 5's outputs are
+// bit-identical to N kernel-4 calls.
 //
 // What bounds it on the H100: at MFT shapes (B=32, T=160, D=256, h=8,
 // F=128) one layer is ~3.4 GFLOP forward and ~7 GFLOP for the backward with
@@ -94,11 +105,16 @@ void ln_rows(const Tin* x, const Tw* a, const Tw* b, Tout* y, float* x32, int ro
 // dx = base + (dd - mean(dd)) with dd = g*a/denom + d * 2*dvar/(D-1), and
 // dvar = 0 on rows with var == 0.  Also writes g * (x - mean) / denom, whose
 // column sums are the gradient of a.
+//
+// With `drop` set (kernel 5's layer boundary) it also writes drop[i] =
+// dropout'(dx[i]) at flat position i with `site`: the dropout-masked
+// FFN-output gradient of the layer below, from the value just computed.
 template <typename Tw>
 __global__ void __launch_bounds__(kLnThreads)
 ln_bwd_kernel(const float* __restrict__ x, const Tw* __restrict__ a,
               const float* __restrict__ g, const float* __restrict__ base,
-              float* __restrict__ dx, float* __restrict__ gdn, int rows, int D) {
+              float* __restrict__ dx, float* __restrict__ gdn, int rows, int D,
+              float* __restrict__ drop, DropSite site) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -128,17 +144,20 @@ ln_bwd_kernel(const float* __restrict__ x, const Tw* __restrict__ a,
   for (int i = lane; i < D; i += 32) {
     const float d = x[o + i] - mean;
     const float dd = g[o + i] * to_f(a[i]) / denom + d * coef;
-    dx[o + i] = base[o + i] + dd - mdd;
+    const float dxv = base[o + i] + dd - mdd;
+    dx[o + i] = dxv;
     gdn[o + i] = g[o + i] * (d / denom);
+    if (drop != nullptr) drop[o + i] = site.apply(dxv, (uint32_t)(o + i));
   }
 }
 
 template <typename Tw>
 void ln_bwd(const float* x, const Tw* a, const float* g, const float* base, float* dx,
-            float* gdn, int rows, int D, cudaStream_t st) {
+            float* gdn, int rows, int D, cudaStream_t st, float* drop = nullptr,
+            DropSite site = DropSite{0u, 0u, 1.f}) {
   const int per_block = kLnThreads / 32;
   ln_bwd_kernel<Tw><<<(rows + per_block - 1) / per_block, kLnThreads, 0, st>>>(
-      x, a, g, base, dx, gdn, rows, D);
+      x, a, g, base, dx, gdn, rows, D, drop, site);
 }
 
 // out[i] = dropout'(g[i]) at flat position i: the backward of a row site.
@@ -341,10 +360,15 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv, const float* __restri
 }
 
 // Backward pass 1: one block per (64-query tile, head, video).  For each
-// query row, D_i = sum_k P_ik dP_ik over every key (first sweep), then
-// dq_i = sum_k P_ik (dP_ik - D_i) / sqrt(d_k) k_k (second sweep), with
-// P_ik = exp(s_ik - lse_i) rebuilt tile by tile and dP the dropout-masked
-// do_i . v_k.  Writes dq (storage dtype) into dqkv and D_i for pass 2.
+// query row, D_i = sum_k P_ik dP_ik / sum_k P_ik over every key (first
+// sweep), then dq_i = sum_k P_ik (dP_ik - D_i) / sqrt(d_k) k_k (second
+// sweep), with P_ik = exp(s_ik - lse_i) rebuilt tile by tile and dP the
+// dropout-masked do_i . v_k.  Writes dq (storage dtype) into dqkv and D_i
+// for pass 2.  The rebuilt probabilities sum to 1 only up to the rounding of
+// lse (~1 ulp of the largest score, ~1e-6 relative in fp32); dividing D_i by
+// their sum keeps sum_k P_ik (dP_ik - D_i) = 0 to rounding, as the softmax
+// gradient is, so the k-projection bias gradient (whose exact value is 0)
+// stays at rounding level over a long stack.
 template <typename T, int DK>
 __global__ void attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
                                    const float* __restrict__ kmask,
@@ -375,7 +399,7 @@ __global__ void attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restric
     dov[d] = qok ? to_f(dO[((size_t)b * Tlen + qi) * D + hd * DK + d]) : 0.f;
   }
   const float lse_i = qok ? lse[((size_t)b * H + hd) * Tlen + qi] : 0.f;
-  float Di = 0.f;
+  float Di = 0.f, Psum = 0.f;
   float dq[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) dq[i] = 0.f;
@@ -391,7 +415,7 @@ __global__ void attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restric
       }
       __syncthreads();
       const int nk = min(KT, Tlen - k0);
-      float part = 0.f;
+      float part = 0.f, ppart = 0.f;
 #pragma unroll
       for (int jj = 0; jj < KPT; ++jj) {
         const int j = jj * TPQ + sub;
@@ -405,12 +429,17 @@ __global__ void attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restric
           if (km[k0 + j] == 0.f) dot = kMaskedScore;
           const float P = expf(dot - lse_i);
           const float dp = site.apply(dpd, prob_index(b, H, hd, Tlen, qi, k0 + j));
-          if (sweep == 0) part += P * dp;
-          else Ss[ql][j] = P * (dp - Di) * inv_sqrt_dk;
+          if (sweep == 0) {
+            part += P * dp;
+            ppart += P;
+          } else {
+            Ss[ql][j] = P * (dp - Di) * inv_sqrt_dk;
+          }
         }
       }
       if (sweep == 0) {
         Di += part;
+        Psum += ppart;
       } else {
         __syncthreads();
         for (int j = 0; j < nk; ++j) {
@@ -422,7 +451,11 @@ __global__ void attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restric
     }
     if (sweep == 0) {
 #pragma unroll
-      for (int off = 1; off < TPQ; off <<= 1) Di += __shfl_xor_sync(0xffffffffu, Di, off);
+      for (int off = 1; off < TPQ; off <<= 1) {
+        Di += __shfl_xor_sync(0xffffffffu, Di, off);
+        Psum += __shfl_xor_sync(0xffffffffu, Psum, off);
+      }
+      Di = Psum > 0.f ? Di / Psum : 0.f;
     }
   }
   if (qok) {
@@ -614,6 +647,20 @@ struct Bwd {
   }
 };
 
+// Kernel 5's workspace: kernel 4's, once, and the two fp32 [B, T, D] buffers
+// that carry dy from layer to layer.
+template <typename T>
+struct StackBwd {
+  Bwd<T> w;
+  float* carry[2];
+  static StackBwd carve(Carver& c, int B, int Tlen, int D, int H, int F) {
+    StackBwd s;
+    s.w = Bwd<T>::carve(c, B, Tlen, D, H, F);
+    for (int i = 0; i < 2; ++i) s.carry[i] = c.take<float>((size_t)B * Tlen * D);
+    return s;
+  }
+};
+
 inline DropSite site_of(const uint32_t* seeds, int k, uint32_t thr, float kp) {
   return DropSite{seeds[k], thr, kp};
 }
@@ -668,21 +715,20 @@ int train_fwd(const T* x, const float* kmask, float* out, float* saved,
   return (int)cudaGetLastError();
 }
 
+// One layer's backward in workspace w: dx and the 16 gradients g of the layer
+// with parameters p, saved input x and output gradient dy.  dff_ready: w.dff
+// already holds dropout'(dy) at site 3 (kernel 5 wrote it at the boundary
+// above).  below: the 4 seeds of the layer under this one, whose site-3
+// dropout gradient of dx the last LayerNorm backward writes into w.dff
+// (nullptr: none).
 template <typename T>
-int layer_bwd(const float* x, const float* dy, const float* kmask, const void* const* lp,
-              const uint32_t* seeds, uint32_t thr, float kp, float* dx, void* const* gp,
-              void* ws, int B, int Tlen, int D, int H, int F, cudaStream_t st) {
+int layer_bwd_core(const float* x, const float* dy, const float* kmask, const T* const* p,
+                   float* const* g, const uint32_t* seeds, const uint32_t* below,
+                   bool dff_ready, uint32_t thr, float kp, float* dx, const Bwd<T>& w,
+                   int B, int Tlen, int D, int H, int F, cudaStream_t st) {
   const int M = B * Tlen, dk = D / H;
   const float inv_sqrt_dk = 1.0f / sqrtf((float)dk);
   const long long MD = (long long)M * D, MF = (long long)M * F;
-  Carver c{static_cast<char*>(ws)};
-  Bwd<T> w = Bwd<T>::carve(c, B, Tlen, D, H, F);
-  const T* p[16];
-  float* g[16];
-  for (int i = 0; i < 16; ++i) {
-    p[i] = static_cast<const T*>(lp[i]);
-    g[i] = static_cast<float*>(gp[i]);
-  }
 
   // ---- recompute the layer from its saved input
   cudaMemcpyAsync(w.x1, x, (size_t)MD * sizeof(float), cudaMemcpyDeviceToDevice, st);
@@ -693,7 +739,8 @@ int layer_bwd(const float* x, const float* dy, const float* kmask, const void* c
   linear<T>(w.xn2, D, p[W1], M, F, D, EpiBiasStoreF32<T>{p[B1], w.midp, F}, st);
 
   // ---- feed-forward sublayer
-  drop_grad_kernel<<<blocks_for(MD), 256, 0, st>>>(dy, site_of(seeds, 3, thr, kp), MD, w.dff);
+  if (!dff_ready)
+    drop_grad_kernel<<<blocks_for(MD), 256, 0, st>>>(dy, site_of(seeds, 3, thr, kp), MD, w.dff);
   relu_drop_kernel<T><<<blocks_for(MF), 256, 0, st>>>(w.midp, site_of(seeds, 2, thr, kp), MF,
                                                       w.midd);
   weight_grad<float, T>(w.dff, D, w.midd, F, M, D, F, g[W2], w.part, st);
@@ -725,9 +772,71 @@ int layer_bwd(const float* x, const float* dy, const float* kmask, const void* c
     linear_grad_input<T, T>(dpart, 3 * D, p[wi[j]], M, D, D,
                             EpiStoreF32{w.dxn, D, j > 0}, st);
   }
-  ln_bwd<T>(x, p[LN1A], w.dxn, w.dx1, dx, w.gdn, M, D, st);
+  if (below != nullptr)
+    ln_bwd<T>(x, p[LN1A], w.dxn, w.dx1, dx, w.gdn, M, D, st, w.dff,
+              site_of(below, 3, thr, kp));
+  else
+    ln_bwd<T>(x, p[LN1A], w.dxn, w.dx1, dx, w.gdn, M, D, st);
   colsum<float>(w.gdn, D, M, D, g[LN1A], st);
   colsum<float>(w.dxn, D, M, D, g[LN1B], st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int layer_bwd(const float* x, const float* dy, const float* kmask, const void* const* lp,
+              const uint32_t* seeds, uint32_t thr, float kp, float* dx, void* const* gp,
+              void* ws, int B, int Tlen, int D, int H, int F, cudaStream_t st) {
+  Carver c{static_cast<char*>(ws)};
+  const Bwd<T> w = Bwd<T>::carve(c, B, Tlen, D, H, F);
+  const T* p[16];
+  float* g[16];
+  for (int i = 0; i < 16; ++i) {
+    p[i] = static_cast<const T*>(lp[i]);
+    g[i] = static_cast<float*>(gp[i]);
+  }
+  return layer_bwd_core<T>(x, dy, kmask, p, g, seeds, nullptr, false, thr, kp, dx, w, B, Tlen,
+                           D, H, F, st);
+}
+
+// Elements of each of a layer's 16 parameters, in P order.
+inline void param_sizes(int D, int F, size_t* n) {
+  const size_t d = D, f = F;
+  const size_t sizes[16] = {d, d, d * d, d, d * d, d, d * d, d, d * d, d, d, d, f * d, f,
+                            d * f, d};
+  for (int i = 0; i < 16; ++i) n[i] = sizes[i];
+}
+
+// Kernel 5: the stack's backward, last layer first.  saved [N, B, T, D]: each
+// layer's input; dy: the gradient of the last layer's output; gp: the 16
+// stacked fp32 [N, ...] gradient outputs.
+template <typename T>
+int stack_bwd(const float* saved, const float* dy, const float* kmask, const void* const* lp,
+              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, float* dx,
+              void* const* gp, void* ws, int B, int Tlen, int D, int H, int F,
+              cudaStream_t st) {
+  const long long MD = (long long)B * Tlen * D;
+  Carver c{static_cast<char*>(ws)};
+  const StackBwd<T> sw = StackBwd<T>::carve(c, B, Tlen, D, H, F);
+  size_t n[16];
+  param_sizes(D, F, n);
+  const int top = n_layers - 1;
+  drop_grad_kernel<<<blocks_for(MD), 256, 0, st>>>(dy, site_of(seeds + 4 * top, 3, thr, kp),
+                                                   MD, sw.w.dff);
+  const float* g_out = dy;
+  for (int l = top; l >= 0; --l) {
+    const T* p[16];
+    float* g[16];
+    for (int i = 0; i < 16; ++i) {
+      p[i] = static_cast<const T*>(lp[16 * l + i]);
+      g[i] = static_cast<float*>(gp[i]) + (size_t)l * n[i];
+    }
+    float* d_in = l == 0 ? dx : sw.carry[l & 1];
+    const int rc = layer_bwd_core<T>(saved + (size_t)l * MD, g_out, kmask, p, g, seeds + 4 * l,
+                                     l > 0 ? seeds + 4 * (l - 1) : nullptr, true, thr, kp,
+                                     d_in, sw.w, B, Tlen, D, H, F, st);
+    if (rc != (int)cudaSuccess) return rc;
+    g_out = d_in;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -740,17 +849,20 @@ inline bool shape_ok(int B, int Tlen, int D, int H, int F) {
 }  // namespace enct
 }  // namespace mmtx
 
-// Workspace bytes of kernel 3 (backward = 0) or kernel 4 (backward = 1).
+// Workspace bytes of kernel 3 (backward = 0), kernel 4 (backward = 1) or
+// kernel 5 (backward = 2).
 extern "C" long long mmtx_encoder_train_workspace(int dtype, int B, int T, int D, int H,
                                                   int F, int backward) {
   using namespace mmtx;
   Carver c{nullptr};
   const int M = B * T;
   if (dtype == kBF16) {
-    if (backward) enct::Bwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
+    if (backward == 2) enct::StackBwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
+    else if (backward) enct::Bwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
     else enct::Fwd<__nv_bfloat16>::carve(c, M, D, F);
   } else {
-    if (backward) enct::Bwd<float>::carve(c, B, T, D, H, F);
+    if (backward == 2) enct::StackBwd<float>::carve(c, B, T, D, H, F);
+    else if (backward) enct::Bwd<float>::carve(c, B, T, D, H, F);
     else enct::Fwd<float>::carve(c, M, D, F);
   }
   return (long long)c.used + 256;
@@ -808,5 +920,36 @@ extern "C" int mmtx_encoder_layer_bwd(int dtype, const void* x, const void* dy,
   if (dtype == kBF16)
     return enct::layer_bwd<__nv_bfloat16>(xx, g, km, lp, sd, threshold, keep_p, d, gp,
                                           workspace, B, T, D, H, F, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 5.  saved fp32 [N, B, T, D] (kernel 3's, each layer's input); dy fp32
+// [B, T, D] (the gradient of the last layer's output); layer_ptrs: 16 device
+// pointers per layer in the storage dtype; seeds: host array of 4 uint32 per
+// layer; dx fp32 [B, T, D]; grad_ptrs: 16 fp32 device buffers, each the
+// parameter's gradient stacked over the layers [N, ...].  Every output is
+// written whole.
+extern "C" int mmtx_encoder_stack_bwd(int dtype, const void* saved, const void* dy,
+                                      const void* kmask, const void* layer_ptrs,
+                                      int n_layers, const void* seeds, unsigned threshold,
+                                      float keep_p, void* dx, const void* grad_ptrs,
+                                      void* workspace, int B, int T, int D, int H, int F,
+                                      void* stream) {
+  using namespace mmtx;
+  if (!enct::shape_ok(B, T, D, H, F) || n_layers < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* const* lp = static_cast<const void* const*>(layer_ptrs);
+  void* const* gp = static_cast<void* const*>(const_cast<void*>(grad_ptrs));
+  const uint32_t* sd = static_cast<const uint32_t*>(seeds);
+  const float* sv = static_cast<const float*>(saved);
+  const float* g = static_cast<const float*>(dy);
+  const float* km = static_cast<const float*>(kmask);
+  float* d = static_cast<float*>(dx);
+  if (dtype == kF32)
+    return enct::stack_bwd<float>(sv, g, km, lp, n_layers, sd, threshold, keep_p, d, gp,
+                                  workspace, B, T, D, H, F, st);
+  if (dtype == kBF16)
+    return enct::stack_bwd<__nv_bfloat16>(sv, g, km, lp, n_layers, sd, threshold, keep_p, d,
+                                          gp, workspace, B, T, D, H, F, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,9 +19,14 @@ parameters and the inputs to bf16 INSIDE the autograd graph, so the
 gradients flow back through the casts and arrive in float32 at the masters;
 the loss is summed in float32.
 
-Every step draws its dropout seeds with `seed_fn(step, T)` -> DropoutSeeds
+Every family trains (the JAX `build_model`'s configurations).  Every step
+draws its dropout seeds with `seed_fn(step, T)` -> DropoutSeeds
 (ops/seeds.py), where step counts the engine's steps from 0 and T is the
-batch's length; the default draws them from the engine's torch.Generator.
+batch's length; the default draws the sites of the configuration's module
+(`dropout_sites()`) from the engine's torch.Generator.  `encoder_backward`
+picks the encoders' training backward on the card: "perlayer" (kernel 4 per
+layer, the JAX package's default) or "stack" (kernel 5 per stack, the JAX
+package's opt-in MMTX_ENC_BWD=stack); both give the same bits.
 Evaluation runs without seeds (eval mode) under `torch.inference_mode()`;
 videos longer than 512 windows take the encoders' flash route (kernel 11),
 shorter ones kernel A.  Checkpoints, resume, guards and prefetching are not
@@ -38,7 +43,7 @@ from torch.func import functional_call
 
 from ..data.batching import Batch, bucketed_eval_batches, make_batches
 from ..models import ModelConfig, build_model
-from ..models.families import ENCODER_LAYERS
+from ..ops.dispatch import check_encoder_backward
 from ..ops.metrics import ccc, ccc_masked, masked_mse_sum, pearson
 from ..ops.seeds import DropoutSeeds
 from .optim import ReduceLROnPlateau, make_adam
@@ -53,11 +58,14 @@ class Engine:
                  train_dtype: Optional[torch.dtype] = None,
                  device: torch.device | str = "cuda", *, logger=None,
                  seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None,
-                 eval_dtype: Optional[torch.dtype] = None):
+                 eval_dtype: Optional[torch.dtype] = None,
+                 encoder_backward: str = "perlayer"):
         """train_dtype: bf16 mixed training when set; eval_dtype: the dtype
         of `evaluate_batched`'s forward (None: float32), as in the JAX
-        Engine, whose per-video evaluation stays float32."""
+        Engine, whose per-video evaluation stays float32; encoder_backward:
+        "perlayer" or "stack" (anything else raises)."""
         self.cfg = cfg
+        self.encoder_backward = check_encoder_backward(encoder_backward)
         self.device = torch.device(device)
         self.logger = logger
         self.train_dtype = train_dtype
@@ -73,7 +81,7 @@ class Engine:
         self._epoch = 0
 
     def _draw_seeds(self, step: int, T: int) -> DropoutSeeds:
-        return DropoutSeeds.draw(self.cfg.modalities, ENCODER_LAYERS, T,
+        return DropoutSeeds.draw(self.module.dropout_sites(), T,
                                  self.generator)
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -99,7 +107,8 @@ class Engine:
         """Sum of squared errors of one batch (float32, differentiable in
         the module's parameters).  The batch's arrays may be numpy arrays
         or tensors already on the device."""
-        pred = self._predict(batch, self.train_dtype, seeds=seeds, plain=plain)
+        pred = self._predict(batch, self.train_dtype, seeds=seeds, plain=plain,
+                             encoder_backward=self.encoder_backward)
         return masked_mse_sum(pred, self._tensor(batch.target))
 
     def train_step(self, batch: Batch, *, plain: bool = False) -> float:

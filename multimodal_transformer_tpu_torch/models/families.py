@@ -4,13 +4,17 @@ Counterpart of `multimodal_transformer_tpu/models/families.py`.  Every family
 is an nn.Module whose parameter names flatten to the JAX package's tree, and
 whose forward is
 
-    forward(inputs, mask, *, mask_mode=None, seeds=None, plain=False)
+    forward(inputs, mask, *, mask_mode=None, seeds=None, plain=False,
+            encoder_backward="perlayer")
 
 with inputs mod -> [B, W, F, D] windows and mask [B, W, 1]; it returns
 [B, W, 1].  mask_mode defaults to the config's; plain=True runs the plain
 PyTorch front end, encoders and MFN recurrence on any device (the reference
-that the CUDA path is checked against).  seeds (ops/seeds.py) selects a
-training forward, which only the multi-modality MFT has so far.
+that the CUDA path is checked against).  seeds (ops/seeds.py) selects the
+training forward, with hash dropout at every site of the family's JAX
+apply; `dropout_sites()` lists those sites, so that a trainer draws seeds
+for exactly them.  encoder_backward picks the encoders' training backward
+on the card: "perlayer" (kernel 4 per layer) or "stack" (kernel 5).
 
   MFT      per modality CNN+Highway -> Linear embed -> 6-layer encoder ->
            MFN -> head; one modality: UniTransformer.
@@ -26,17 +30,20 @@ training forward, which only the multi-modality MFT has so far.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
-from ..ops.attention import Encoder, encoder_stack, encoder_stack_plain
+from ..ops.attention import Encoder
 from ..ops.mfn_core import MFN, mfn_scan
+from ..ops.seeds import DropoutSites
 from ..utils.init import make_linear
 from .config import FAMILIES, MFT_EMBED_DIM, ModelConfig
 from .frontend import add_frontend, frontend_apply
-from .heads import MultiLSTM, UniFullTransformer, UniTransformer
+from .heads import MultiLSTM, UniFullTransformer, UniTransformer, encode
 
-ENCODER_HEADS, ENCODER_FF, ENCODER_LAYERS = 8, 128, 6
+ENCODER_FF, ENCODER_LAYERS = 128, 6
 SFT_FUSE_EMBED = 512
 
 
@@ -52,17 +59,15 @@ class _Family(nn.Module):
                      cfg.window_embed_size, gen)
 
     def front(self, inputs, seeds, plain: bool) -> dict:
-        if seeds is not None and not self.trains:
-            raise NotImplementedError(
-                f"training of {self.cfg.family} with modalities "
-                f"{self.cfg.modalities} is not ported yet (ROADMAP Queue 1)")
         return frontend_apply(self, inputs, self.cfg.modalities,
                               None if seeds is None else seeds.front,
                               relu_proj=self.relu_proj, plain=plain)
 
-    @property
-    def trains(self) -> bool:
-        return False
+    def dropout_sites(self) -> DropoutSites:
+        """The head's sites: one encoder, as every single-modality head and
+        the SFT/B2 heads have."""
+        return DropoutSites(self.cfg.modalities, encoders=("encoder",),
+                            n_layers=ENCODER_LAYERS)
 
     def fused(self, outs) -> torch.Tensor:
         return torch.cat([outs[m] for m in self.cfg.modalities], dim=-1)
@@ -84,6 +89,11 @@ class MFTHead(nn.Module):
         self.mfn = MFN(cfg.modalities, MFT_EMBED_DIM, output_dim=1, gen=gen)
 
 
+def _mfn_pred(head: MFTHead, mfn_in, mask, seeds, plain: bool):
+    gammas, out = (None, None) if seeds is None else (seeds.mfn, seeds.out)
+    return mfn_scan(head.mfn, mfn_in, gammas, out, plain=plain) * mask
+
+
 class MFT(_Family):
     """The MFT; with one modality its head is the UniTransformer."""
 
@@ -92,30 +102,32 @@ class MFT(_Family):
         self.Transformer = (MFTHead(cfg, gen) if len(cfg.modalities) > 1
                             else UniTransformer(cfg.total_embed_size, gen=gen))
 
-    @property
-    def trains(self) -> bool:
-        return len(self.cfg.modalities) > 1
+    def dropout_sites(self) -> DropoutSites:
+        mods = self.cfg.modalities
+        if len(mods) == 1:
+            return super().dropout_sites()
+        return DropoutSites(mods, tuple(f"transformer_{m}" for m in mods),
+                            ENCODER_LAYERS, mfn=True)
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
-                seeds=None, plain: bool = False):
+                seeds=None, plain: bool = False,
+                encoder_backward: str = "perlayer"):
         mods = self.cfg.modalities
         mask_mode = mask_mode or self.cfg.mask_mode
         outs = self.front(inputs, seeds, plain)
         head = self.Transformer
         if len(mods) == 1:
-            return head(outs[mods[0]], mask, mask_mode=mask_mode, plain=plain)
-        enc_fn = encoder_stack_plain if plain else encoder_stack
+            return head(outs[mods[0]], mask, mask_mode=mask_mode, plain=plain,
+                        seeds=seeds, encoder_backward=encoder_backward)
         mfn_in = {}
         for m in mods:
-            e = getattr(head, f"embed_{m}")(outs[m])
-            mfn_in[m] = enc_fn(getattr(head, f"transformer_{m}"), e, mask,
-                               h=ENCODER_HEADS, mask_mode=mask_mode,
-                               seeds=None if seeds is None else seeds.encoder[m])
-        if seeds is None:
-            pred = mfn_scan(head.mfn, mfn_in, plain=plain)
-        else:
-            pred = mfn_scan(head.mfn, mfn_in, seeds.mfn, seeds.out, plain=plain)
-        return pred * mask
+            name = f"transformer_{m}"
+            mfn_in[m] = encode(getattr(head, name),
+                               getattr(head, f"embed_{m}")(outs[m]), mask,
+                               mask_mode, plain,
+                               None if seeds is None else seeds.encoder[name],
+                               encoder_backward)
+        return _mfn_pred(head, mfn_in, mask, seeds, plain)
 
 
 class SFT(_Family):
@@ -128,35 +140,50 @@ class SFT(_Family):
             SFT_FUSE_EMBED if len(cfg.modalities) > 1
             else cfg.total_embed_size, gen=gen)
 
+    def dropout_sites(self) -> DropoutSites:
+        sites = super().dropout_sites()
+        if len(self.cfg.modalities) == 1:
+            return sites
+        return dataclasses.replace(sites, embed=True)
+
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
-                seeds=None, plain: bool = False):
+                seeds=None, plain: bool = False,
+                encoder_backward: str = "perlayer"):
         mask_mode = mask_mode or self.cfg.mask_mode
         outs = self.front(inputs, seeds, plain)
+        kw = dict(mask_mode=mask_mode, plain=plain, seeds=seeds,
+                  encoder_backward=encoder_backward)
         if len(self.cfg.modalities) == 1:
-            return self.Transformer(outs[self.cfg.modalities[0]], mask,
-                                    mask_mode=mask_mode, plain=plain)
+            return self.Transformer(outs[self.cfg.modalities[0]], mask, **kw)
         fused = torch.tanh(self.fusionLayer(self.fused(outs)))
-        return self.Transformer(fused, mask, mask_mode=mask_mode, plain=plain,
-                                embed_is_mlp=True)
+        return self.Transformer(fused, mask, embed_is_mlp=True, **kw)
 
 
 class B1LSTM(_Family):
     """variant "default": the B1 Highway (ReLU on the projection) and the
-    MultiLSTM at embed 512; "legacy": the plain Highway and embed 128."""
+    MultiLSTM at embed 512, embed and decoder dropout 0.4; "legacy": the
+    plain Highway, embed 128, embed dropout 0.1 and no decoder dropout."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
         super().__init__(cfg, gen)
         legacy = cfg.variant == "legacy"
         self.relu_proj = not legacy
+        self.dropouts = (0.1, 0.0) if legacy else (0.4, 0.4)
         self.LSTM = MultiLSTM(cfg.total_embed_size,
                               embed_dim=128 if legacy else 512, h_dim=256,
                               gen=gen)
 
+    def dropout_sites(self) -> DropoutSites:
+        return DropoutSites(self.cfg.modalities, embed=True, decoder=True)
+
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
-                seeds=None, plain: bool = False):
+                seeds=None, plain: bool = False,
+                encoder_backward: str = "perlayer"):
         outs = self.front(inputs, seeds, plain)
         return self.LSTM(self.fused(outs), mask,
-                         mask_mode=mask_mode or self.cfg.mask_mode)
+                         mask_mode=mask_mode or self.cfg.mask_mode,
+                         seeds=seeds, embed_dropout=self.dropouts[0],
+                         decoder_dropout=self.dropouts[1])
 
 
 class B2Trans(_Family):
@@ -165,30 +192,42 @@ class B2Trans(_Family):
         self.Transformer = UniFullTransformer(cfg.total_embed_size, gen=gen)
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
-                seeds=None, plain: bool = False):
+                seeds=None, plain: bool = False,
+                encoder_backward: str = "perlayer"):
         outs = self.front(inputs, seeds, plain)
         return self.Transformer(self.fused(outs), mask,
                                 mask_mode=mask_mode or self.cfg.mask_mode,
-                                plain=plain)
+                                plain=plain, seeds=seeds,
+                                encoder_backward=encoder_backward)
 
 
 class B3MFN(_Family):
+    """B3's MFN takes the head's seeds itself (the JAX apply passes it
+    r_head, where the MFT passes the last key of a split)."""
+
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
         super().__init__(cfg, gen)
         self.Transformer = (MFTHead(cfg, gen, with_encoders=False)
                             if len(cfg.modalities) > 1
                             else UniTransformer(cfg.total_embed_size, gen=gen))
 
+    def dropout_sites(self) -> DropoutSites:
+        if len(self.cfg.modalities) == 1:
+            return super().dropout_sites()
+        return DropoutSites(self.cfg.modalities, mfn=True)
+
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
-                seeds=None, plain: bool = False):
+                seeds=None, plain: bool = False,
+                encoder_backward: str = "perlayer"):
         mods = self.cfg.modalities
         outs = self.front(inputs, seeds, plain)
         head = self.Transformer
         if len(mods) == 1:
             return head(outs[mods[0]], mask,
-                        mask_mode=mask_mode or self.cfg.mask_mode, plain=plain)
+                        mask_mode=mask_mode or self.cfg.mask_mode, plain=plain,
+                        seeds=seeds, encoder_backward=encoder_backward)
         mfn_in = {m: getattr(head, f"embed_{m}")(outs[m]) for m in mods}
-        return mfn_scan(head.mfn, mfn_in, plain=plain) * mask
+        return _mfn_pred(head, mfn_in, mask, seeds, plain)
 
 
 FAMILY_MODULES = {"MFT": MFT, "SFT": SFT, "B1-LSTM": B1LSTM,

@@ -1,6 +1,7 @@
 """Output heads of the families other than the multi-modality MFT.
 
-Counterparts of `multimodal_transformer_tpu/models/heads.py`, eval mode:
+Counterparts of `multimodal_transformer_tpu/models/heads.py`, in eval mode and
+in training (with `seeds`, ops/seeds.py):
 
   * `UniTransformer`: Linear embed (or, as the NLPTransformer of the SFT,
     Dropout -> Linear -> ReLU) -> encoder -> stepwise LSTM decoder over
@@ -15,7 +16,14 @@ Parameter names follow the JAX trees: `embed`, `encoder`, `decoder`,
 `dec_h0`, `dec_c0`, `out_fc1`, `out_fc2`; `embed`, `attn_fc1`, `attn_fc2`,
 `lstm`, `decoder_fc1`, `decoder_fc2`.  The encoders dispatch as
 `ops.attention.encoder_stack` does (plain=True takes the plain encoder on
-any device); the LSTM recurrences are plain PyTorch, as in the JAX package.
+any device; `encoder_backward` picks the training backward on the card);
+the LSTM recurrences are plain PyTorch with autograd, as in the JAX package.
+
+Dropout sites in training (the JAX package's rates): the encoder's four per
+layer at 0.1 (`seeds.encoder["encoder"]`); the NLPTransformer's input
+dropout at 0.1 on the [B, T, 512] fused input (`seeds.embed`); the
+MultiLSTM's embed and decoder dropout, at rates its family gives
+(`seeds.embed`, `seeds.decoder`).
 """
 
 from __future__ import annotations
@@ -24,16 +32,37 @@ import torch
 from torch import nn
 
 from ..ops.attention import Encoder, encoder_stack, encoder_stack_plain
+from ..ops.basic import dropout
 from ..ops.recurrent import convolve_local_attn, lstm_cell_update, lstm_scan
 from ..utils.init import make_linear, make_lstm
 
 HEADS = 8
 NEG_INF = -1e9
+EMBED_DROPOUT = 0.1   # the NLPTransformer's input dropout (heads.py:91-93)
 
 
-def _encode(enc: Encoder, e, mask, mask_mode: str, plain: bool):
-    fn = encoder_stack_plain if plain else encoder_stack
-    return fn(enc, e, mask, h=HEADS, mask_mode=mask_mode)
+def _site(seeds, name: str):
+    return None if seeds is None else getattr(seeds, name)
+
+
+def encode(enc: Encoder, e, mask, mask_mode: str, plain: bool, table=None,
+           encoder_backward: str = "perlayer"):
+    """An encoder of a family, h = 8 heads: the plain encoder when plain,
+    else as `encoder_stack` routes it; table: its [N, 4] dropout seeds in
+    training, None in eval."""
+    if plain:
+        return encoder_stack_plain(enc, e, mask, h=HEADS, mask_mode=mask_mode,
+                                   seeds=table)
+    return encoder_stack(enc, e, mask, h=HEADS, mask_mode=mask_mode,
+                         seeds=table, backward=encoder_backward)
+
+
+def _encode(head: nn.Module, e, mask, mask_mode: str, plain: bool, seeds,
+            encoder_backward: str):
+    """The head's own encoder, whose seeds are `seeds.encoder["encoder"]`."""
+    table = None if seeds is None else seeds.encoder["encoder"]
+    return encode(head.encoder, e, mask, mask_mode, plain, table,
+                  encoder_backward)
 
 
 def _mlp_out(head: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -54,14 +83,17 @@ class UniTransformer(nn.Module):
         self.out_fc2 = make_linear(h_dim, 1, gen)
 
     def forward(self, x, mask, *, mask_mode: str, plain: bool = False,
-                embed_is_mlp: bool = False) -> torch.Tensor:
+                embed_is_mlp: bool = False, seeds=None,
+                encoder_backward: str = "perlayer") -> torch.Tensor:
         """x [B, T, window_embed]; mask [B, T, 1].  Returns [B, T, 1].
-        embed_is_mlp: the NLPTransformer embed, ReLU after the Linear (its
-        Dropout is off in eval)."""
-        e = self.embed(x)
+        embed_is_mlp: the NLPTransformer embed, Dropout -> Linear -> ReLU;
+        seeds: the step's DropoutSeeds in training, None in eval."""
         if embed_is_mlp:
-            e = torch.relu(e)
-        enc = _encode(self.encoder, e, mask, mask_mode, plain)
+            x = dropout(x, _site(seeds, "embed"), EMBED_DROPOUT)
+            e = torch.relu(self.embed(x))
+        else:
+            e = self.embed(x)
+        enc = _encode(self, e, mask, mask_mode, plain, seeds, encoder_backward)
         return _mlp_out(self, lstm_decoder_scan(self, enc)) * mask
 
 
@@ -96,9 +128,10 @@ class UniFullTransformer(nn.Module):
         self.out_fc1 = make_linear(embed_dim, h_dim, gen)
         self.out_fc2 = make_linear(h_dim, 1, gen)
 
-    def forward(self, x, mask, *, mask_mode: str,
-                plain: bool = False) -> torch.Tensor:
-        enc = _encode(self.encoder, self.embed(x), mask, mask_mode, plain)
+    def forward(self, x, mask, *, mask_mode: str, plain: bool = False,
+                seeds=None, encoder_backward: str = "perlayer") -> torch.Tensor:
+        enc = _encode(self, self.embed(x), mask, mask_mode, plain, seeds,
+                      encoder_backward)
         return _mlp_out(self, enc) * mask
 
 
@@ -127,12 +160,19 @@ class MultiLSTM(nn.Module):
         self.decoder_fc1 = make_linear(h_dim, embed_dim, gen)
         self.decoder_fc2 = make_linear(embed_dim, 1, gen)
 
-    def forward(self, x, mask, *, mask_mode: str) -> torch.Tensor:
+    def forward(self, x, mask, *, mask_mode: str, seeds=None,
+                embed_dropout: float = 0.4,
+                decoder_dropout: float = 0.4) -> torch.Tensor:
         """mask_mode "query" keeps the reference's unmasked time softmax;
-        "key_query" masks padded steps out of it.  Returns [B, T, 1]."""
+        "key_query" masks padded steps out of it.  seeds: the step's
+        DropoutSeeds in training (dropout on x [B, T, window_embed] and on
+        the decoder's [B, T, embed] hidden at the given rates), None in
+        eval.  Returns [B, T, 1]."""
+        x = dropout(x, _site(seeds, "embed"), embed_dropout)
         e = torch.relu(self.embed(x))
         a = time_softmax_attn_weights(
             self, e, mask if mask_mode == "key_query" else None)
         h, _ = lstm_scan(self.lstm, e)
         d = torch.relu(self.decoder_fc1(convolve_local_attn(h, a)))
+        d = dropout(d, _site(seeds, "decoder"), decoder_dropout)
         return self.decoder_fc2(d) * mask

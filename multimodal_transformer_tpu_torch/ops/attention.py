@@ -17,8 +17,9 @@ seeds the stack runs in eval mode.  Two mask modes, as in the JAX package:
 to T = 512, past it layer by layer with attention through kernel 11
 (ops/cuda/flash_attention.py; the JAX package's long-T route, its fused
 kernel declining and its flash kernel serving each layer), and with seeds
-to the training kernels (ops/cuda/encoder_train.py, whose output takes the
-final norm here so that autograd owns its parameters) at every T; a CPU
+to the training kernels (ops/cuda/encoder_train.py: kernel 3, then kernel 4
+per layer or kernel 5 per stack in the backward; its output takes the final
+norm here so that autograd owns its parameters) at every T; a CPU
 tensor takes the plain path below.  "query" mode (and a stack without a
 mask) takes the plain path on any device: that is dispatch by mode, as in
 the JAX package, whose encoder kernels take key_query only and which runs
@@ -174,19 +175,22 @@ def encoder_stack_flash(enc: Encoder, x, mask, *, h: int = 8):
 
 def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
                   mask_mode: str = "query", seeds=None,
-                  dropout_p: float = DROPOUT):
+                  dropout_p: float = DROPOUT, backward: str = "perlayer"):
     """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
-    seeds: the [N, 4] dropout seed table in training, None in eval."""
+    seeds: the [N, 4] dropout seed table in training, None in eval;
+    backward: the training backward on the card, "perlayer" (kernel 4) or
+    "stack" (kernel 5)."""
     route = encoder_route(use_kernel(x) and mask is not None, x.shape[1],
-                          mask_mode, seeds is not None)
+                          mask_mode, seeds is not None, backward)
     if route == "fused":
         from .cuda.encoder import encoder_stack_fused
         return encoder_stack_fused(enc, x, mask, h=h)
     if route == "flash":
         return encoder_stack_flash(enc, x, mask, h=h)
-    if route == "train":
+    if route in ("train", "train_stack"):
         from .cuda.encoder_train import encoder_stack_train
-        y = encoder_stack_train(enc, x, mask, h=h, p=dropout_p, seeds=seeds)
+        y = encoder_stack_train(enc, x, mask, h=h, p=dropout_p, seeds=seeds,
+                                backward=backward)
         return enc.norm(y.to(x.dtype))
     return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode,
                                seeds=seeds, dropout_p=dropout_p)

@@ -1,13 +1,17 @@
-"""Kernels 3 and 4: the encoder stack's training forward and one layer's
-backward, with in-kernel hash dropout (csrc/encoder_train.cu).
+"""Kernels 3, 4 and 5: the encoder stack's training forward, one layer's
+backward and the whole stack's backward, with in-kernel hash dropout
+(csrc/encoder_train.cu).
 
 Counterpart of `multimodal_transformer_tpu/ops/pallas/encoder.py`
-`encoder_stack_fused_train` (custom VJP: `_train_fwd_impl`, then
-`_layer_bwd_call` once per layer, last layer first).  `EncoderStackTrain` is
-the autograd Function: its forward runs `encoder_stack_train_fwd` (kernel 3)
-and its backward runs `encoder_layer_bwd` (kernel 4) per layer.  Both
-wrappers launch the CUDA kernel for a CUDA tensor and run their plain version
-for a CPU tensor.
+`encoder_stack_fused_train` (custom VJP: `_train_fwd_impl`, then either
+`_layer_bwd_call` once per layer, last layer first, or `_stack_bwd_call`
+once for the stack).  `EncoderStackTrain` is the autograd Function: its
+forward runs `encoder_stack_train_fwd` (kernel 3); its backward runs
+`encoder_layer_bwd` (kernel 4) per layer on the "perlayer" route, or
+`encoder_stack_bwd` (kernel 5) once on the "stack" route.  Kernel 5 computes
+the same function as kernel 4 over every layer, in the same order of float
+operations, so both routes give the same bits.  Every wrapper launches the
+CUDA kernel for a CUDA tensor and runs its plain version for a CPU tensor.
 
 The plain forward keeps the kernel's rounding points: matmul inputs in the
 storage dtype with float32 accumulation; LayerNorm, softmax, dropout and the
@@ -31,22 +35,24 @@ import ctypes
 import torch
 
 from ..basic import dropout, dropout_with_idx, keep_threshold
-from ..dispatch import acc_dtype, check_kernel_dtype, use_kernel
+from ..dispatch import (acc_dtype, check_encoder_backward, check_kernel_dtype,
+                        use_kernel)
 from ..norm import layer_norm
 from . import _build
 from .encoder import NEG_INF, SUPPORTED_DK, _layer_tensors
 
 N_PARAMS = 16   # per layer, in _layer_tensors order
 
-# Launches since the last reset: kernel 3 (one per stack) and kernel 4 (one
-# per layer backward).
+# Launches since the last reset: kernel 3 (one per stack), kernel 4 (one per
+# layer backward) and kernel 5 (one per stack backward).
 fwd_launches = 0
 bwd_launches = 0
+stack_bwd_launches = 0
 
 
 def reset_launches() -> None:
-    global fwd_launches, bwd_launches
-    fwd_launches = bwd_launches = 0
+    global fwd_launches, bwd_launches, stack_bwd_launches
+    fwd_launches = bwd_launches = stack_bwd_launches = 0
 
 
 def layer_train_plain(lp, x: torch.Tensor, kmask: torch.Tensor, seeds,
@@ -113,6 +119,19 @@ def encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p: float, h: int):
         y = layer_train_plain(ps_in, x, kmask, seeds, p, h)
         grads = torch.autograd.grad(y, [x] + ps, dy)
     return grads[0], list(grads[1:])
+
+
+def encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p: float, h: int):
+    """Kernel 5's plain version: `encoder_layer_bwd_plain` for every layer,
+    last layer first.  Returns (dx, [16 gradients, each stacked over the
+    layers as [N, ...]]) in the accumulation dtype."""
+    n_layers = saved.shape[0]
+    per_layer = [None] * n_layers
+    for l in reversed(range(n_layers)):
+        dy, per_layer[l] = encoder_layer_bwd_plain(
+            params[N_PARAMS * l:N_PARAMS * (l + 1)], saved[l], dy, kmask,
+            seeds[l], p, h)
+    return dy, [torch.stack(gs) for gs in zip(*per_layer)]
 
 
 def _kernel_args(x: torch.Tensor, params, what: str):
@@ -230,15 +249,82 @@ def encoder_layer_bwd(lp, x_l, dy, kmask, seeds, p: float, h: int):
     return dx, grads
 
 
+def _stack_bwd_args(params, saved, dy, kmask, seeds, h: int, what: str):
+    """Raises on what kernel 5 cannot take; returns (dtype code, N, B, T, D,
+    F, kmask as contiguous float32 on the card)."""
+    if saved.dtype != torch.float32 or dy.dtype != torch.float32:
+        raise TypeError(f"{what}: saved and dy must be float32")
+    if saved.dim() != 4 or not (saved.is_contiguous() and dy.is_contiguous()):
+        raise ValueError(f"{what}: saved must be a contiguous [N, B, T, D] and "
+                         "dy a contiguous [B, T, D]")
+    n_layers, B, T, D = saved.shape
+    if tuple(dy.shape) != (B, T, D) or dy.device != saved.device:
+        raise ValueError(f"{what}: dy must be [{B}, {T}, {D}] on {saved.device}")
+    _check_heads(D, h, what)
+    if len(params) != N_PARAMS * n_layers:
+        raise ValueError(f"{what}: {len(params)} parameters for {n_layers} "
+                         "layers is not 16 per layer")
+    dtype = params[2].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: parameters must be float32 or bfloat16")
+    if params[2].shape != (D, D):
+        raise ValueError(f"{what}: q weight {tuple(params[2].shape)} does not "
+                         f"match D={D}")
+    for t in params:
+        if t.device != saved.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: parameters must be contiguous, on "
+                             f"{saved.device}, in one dtype")
+    if tuple(torch.as_tensor(seeds).shape) != (n_layers, 4):
+        raise ValueError(f"{what}: seeds must be [{n_layers}, 4]")
+    km = kmask.to(device=saved.device, dtype=torch.float32).contiguous()
+    if tuple(km.shape) != (B, T):
+        raise ValueError(f"{what}: kmask must be [{B}, {T}]")
+    return (0 if dtype == torch.float32 else 1, n_layers, B, T, D,
+            params[12].shape[0], km)
+
+
+def encoder_stack_bwd(params, saved, dy, kmask, seeds, p: float, h: int):
+    """Kernel 5: the backward of every layer of the stack in one call.
+    params: the stack's 16*N parameters (as for kernel 3); saved: kernel 3's
+    [N, B, T, D] layer inputs and dy the gradient of the stack's output
+    [B, T, D], float32; seeds [N, 4].  Returns (dx, [16 gradients, each
+    stacked over the layers as [N, ...]]) in float32, bit-identical to
+    `encoder_layer_bwd` called for every layer."""
+    if not use_kernel(saved):
+        return encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p, h)
+    global stack_bwd_launches
+    what = "encoder_stack_bwd"
+    dtype_code, n_layers, B, T, D, F, km = _stack_bwd_args(
+        params, saved, dy, kmask, seeds, h, what)
+    lib = _build.load()
+    dx = torch.empty_like(dy)
+    grads = [torch.empty((n_layers,) + tuple(t.shape), dtype=torch.float32,
+                         device=saved.device) for t in params[:N_PARAMS]]
+    n = lib.mmtx_encoder_train_workspace(dtype_code, B, T, D, h, F, 2)
+    ws = torch.empty(n, dtype=torch.uint8, device=saved.device)
+    ptrs = _build.pointer_array([t.data_ptr() for t in params])
+    gptrs = _build.pointer_array([g.data_ptr() for g in grads])
+    with torch.cuda.device(saved.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mmtx_encoder_stack_bwd(
+            dtype_code, saved.data_ptr(), dy.data_ptr(), km.data_ptr(), ptrs,
+            n_layers, _seed_array(seeds), keep_threshold(p), 1.0 - p,
+            dx.data_ptr(), gptrs, ws.data_ptr(), B, T, D, h, F, stream)
+    _build.check(rc, what)
+    stack_bwd_launches += 1
+    return dx, grads
+
+
 class EncoderStackTrain(torch.autograd.Function):
-    """Training-path encoder stack without the final norm: forward kernel 3,
-    backward kernel 4 once per layer, last layer first."""
+    """Training-path encoder stack without the final norm: forward kernel 3;
+    backward kernel 4 once per layer, last layer first ("perlayer"), or
+    kernel 5 once ("stack")."""
 
     @staticmethod
-    def forward(ctx, x, kmask, seeds, p, h, *params):
+    def forward(ctx, x, kmask, seeds, p, h, backward, *params):
         out, saved = encoder_stack_train_fwd(params, x, kmask, seeds, p, h)
         ctx.save_for_backward(kmask, saved, *params)
-        ctx.seeds, ctx.p, ctx.h = seeds, p, h
+        ctx.seeds, ctx.p, ctx.h, ctx.backward = seeds, p, h, backward
         return out
 
     @staticmethod
@@ -246,19 +332,28 @@ class EncoderStackTrain(torch.autograd.Function):
         kmask, saved, *params = ctx.saved_tensors
         dy = g.to(saved.dtype).contiguous()
         grads = [None] * len(params)
-        for l in reversed(range(saved.shape[0])):
-            lp = params[N_PARAMS * l:N_PARAMS * (l + 1)]
-            dy, gl = encoder_layer_bwd(lp, saved[l], dy, kmask, ctx.seeds[l],
-                                       ctx.p, ctx.h)
-            grads[N_PARAMS * l:N_PARAMS * (l + 1)] = gl
-        return (dy, None, None, None, None, *grads)
+        if ctx.backward == "stack":
+            dy, stacked = encoder_stack_bwd(params, saved, dy, kmask,
+                                            ctx.seeds, ctx.p, ctx.h)
+            for l in range(saved.shape[0]):
+                grads[N_PARAMS * l:N_PARAMS * (l + 1)] = [s[l] for s in stacked]
+        else:
+            for l in reversed(range(saved.shape[0])):
+                lp = params[N_PARAMS * l:N_PARAMS * (l + 1)]
+                dy, gl = encoder_layer_bwd(lp, saved[l], dy, kmask,
+                                           ctx.seeds[l], ctx.p, ctx.h)
+                grads[N_PARAMS * l:N_PARAMS * (l + 1)] = gl
+        return (dy, None, None, None, None, None, *grads)
 
 
 def encoder_stack_train(enc, x: torch.Tensor, mask: torch.Tensor, *, h: int,
-                        p: float, seeds: torch.Tensor) -> torch.Tensor:
+                        p: float, seeds: torch.Tensor,
+                        backward: str = "perlayer") -> torch.Tensor:
     """The N training layers of `enc` (no final norm) on x [B, T, D] with key
-    mask [B, T, 1] and seeds [N, 4].  Returns float32 [B, T, D] (float64 for
+    mask [B, T, 1] and seeds [N, 4]; backward: "perlayer" (kernel 4 per
+    layer) or "stack" (kernel 5).  Returns float32 [B, T, D] (float64 for
     float64 inputs); differentiable in x and every layer parameter."""
+    check_encoder_backward(backward)
     params = [t for layer in enc.layers for t in _layer_tensors(layer)]
     kmask = mask[..., 0].to(acc_dtype(x.dtype))
-    return EncoderStackTrain.apply(x, kmask, seeds, p, h, *params)
+    return EncoderStackTrain.apply(x, kmask, seeds, p, h, backward, *params)

@@ -5,7 +5,7 @@ A tensor on a CUDA device goes to the hand-written kernel; a tensor on the
 CPU goes to the kernel's plain PyTorch version.  The wrappers apply it, and a
 CUDA call that the kernel cannot take raises instead of falling back.
 
-The encoder stack takes one of four routes (`encoder_route`), as the JAX
+The encoder stack takes one of five routes (`encoder_route`), as the JAX
 package's `ops/attention.py` routes it on the TPU:
   * "fused": kernel A (ops/cuda/encoder.py), eval in "key_query" mode at
     T <= FLASH_ATTN_MIN_T;
@@ -13,6 +13,9 @@ package's `ops/attention.py` routes it on the TPU:
     (ops/cuda/flash_attention.py), eval in "key_query" mode at longer T;
   * "train": kernels 3 and 4 (ops/cuda/encoder_train.py), training with
     dropout seeds in "key_query" mode, at every T;
+  * "train_stack": the same with kernel 5 for the backward, one call per
+    stack; the caller asks for it with backward="stack" (the JAX package's
+    opt-in MMTX_ENC_BWD=stack, an argument here rather than a variable);
   * "plain": the plain encoder, for a CPU tensor, "query" mode or no mask.
 """
 
@@ -32,17 +35,30 @@ def use_kernel(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def encoder_route(on_card: bool, T: int, mask_mode: str,
-                  training: bool) -> str:
+ENCODER_BACKWARDS = ("perlayer", "stack")
+
+
+def check_encoder_backward(backward: str) -> str:
+    if backward not in ENCODER_BACKWARDS:
+        raise ValueError(f"encoder_backward must be one of "
+                         f"{ENCODER_BACKWARDS}, got {backward!r}")
+    return backward
+
+
+def encoder_route(on_card: bool, T: int, mask_mode: str, training: bool,
+                  backward: str = "perlayer") -> str:
     """The route of an encoder stack over T steps: on_card is whether its
     input is on a CUDA device and masked; training whether it carries
-    dropout seeds.  Training keeps kernels 3 and 4 at every T: the JAX
-    package trains past T = 256 through jnp instead, with the same dropout
-    masks, so only the route differs (ROADMAP Queue 3)."""
+    dropout seeds; backward the training backward, "perlayer" (kernel 4 per
+    layer, the JAX package's default) or "stack" (kernel 5).  Training keeps
+    the kernels at every T: the JAX package trains past T = 256 through jnp
+    instead, with the same dropout masks, so only the route differs (ROADMAP
+    Queue 3)."""
+    check_encoder_backward(backward)
     if not on_card or mask_mode != "key_query":
         return "plain"
     if training:
-        return "train"
+        return "train_stack" if backward == "stack" else "train"
     return "flash" if T > FLASH_ATTN_MIN_T else "fused"
 
 

@@ -9,9 +9,12 @@ positions, as test_torch_slice.py holds the MFT A+V+L:
   * `export_params` -> JAX tree -> `load_jax_params` round trips, key for key;
   * the port's `ValencePredictor` against the JAX one on a request of mixed
     lengths over two buckets;
-  * a training forward (seeds given) raises for every family but the
-    multi-modality MFT.
+  * every configuration's training forward (seeds from the JAX apply's key
+    tree) against the JAX apply with that key; tests/test_torch_train_
+    families.py holds the training gradients.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -19,13 +22,14 @@ import numpy as np
 import pytest
 import torch
 from make_goldens import CASES, GOLDEN_DIR, SMALL_DIMS
+from test_torch_train import jax_family_seeds
 
 from multimodal_transformer_tpu.models import build_model as jbuild_model
 from multimodal_transformer_tpu.models import default_config as jdefault_config
+from multimodal_transformer_tpu.ops import basic as jbasic
 from multimodal_transformer_tpu.serve import ValencePredictor as JPredictor
 from multimodal_transformer_tpu_torch import (ValencePredictor, build_model,
                                               default_config)
-from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree,
                                                            load_jax_params)
@@ -64,6 +68,16 @@ def _configs(family, mods, variant, mask_mode="query"):
         object.__setattr__(cfg, "mod_dimension", dict(SMALL_DIMS))
         out.append(cfg)
     return out
+
+
+@contextlib.contextmanager
+def jbasic_hash_dropout():
+    """The JAX package's "hash" dropout, the stream the port reproduces."""
+    jbasic.set_dropout_impl("hash")
+    try:
+        yield
+    finally:
+        jbasic.set_dropout_impl(None)
 
 
 def _jax_params(jcfg, seed):
@@ -163,11 +177,23 @@ def test_predictor_matches_jax_predictor(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_training_forward_raises_until_ported(name):
+    """Training is ported for every family: the forward with dropout seeds
+    (those of `apply(rng=key)`, built by the family's key tree) runs, no
+    longer raises, and equals the JAX apply with that key."""
     family, mods, variant = CONFIGS[name]
-    _, cfg = _configs(family, mods, variant, "key_query")
-    module = build_model(cfg)
+    jcfg, cfg = _configs(family, mods, variant, "key_query")
+    params = _jax_params(jcfg, 7)
     inputs, mask = _inputs(mods, 1)
-    seeds = DropoutSeeds.draw(mods, 6, 7, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        module({m: torch.from_numpy(v) for m, v in inputs.items()},
-               torch.from_numpy(mask), seeds=seeds)
+    key = jax.random.PRNGKey(13)
+    _, apply = jbuild_model(jcfg)
+    with jbasic_hash_dropout():
+        want = np.asarray(apply(params, {m: jnp.asarray(v)
+                                         for m, v in inputs.items()},
+                                jnp.asarray(mask), rng=key))
+    module = load_jax_params(build_model(cfg), params)
+    with torch.no_grad():
+        got = module({m: torch.from_numpy(v) for m, v in inputs.items()},
+                     torch.from_numpy(mask),
+                     seeds=jax_family_seeds(key, cfg, mask.shape[1])).numpy()
+    valid = mask[..., 0] > 0
+    np.testing.assert_allclose(got[valid], want[valid], atol=ATOL)

@@ -159,6 +159,21 @@ def test_encoder_route(T, mode, training, want):
     assert dispatch.encoder_route(False, T, mode, training) == "plain"
 
 
+@pytest.mark.parametrize("T,mode,training,want", [
+    (160, "key_query", True, "train_stack"),
+    (1120, "key_query", True, "train_stack"),
+    (160, "key_query", False, "fused"), (1120, "key_query", False, "flash"),
+    (160, "query", True, "plain")])
+def test_encoder_route_with_the_stack_backward(T, mode, training, want):
+    """backward="stack" changes only the training route on the card; an
+    unknown backward raises."""
+    assert dispatch.encoder_route(True, T, mode, training, "stack") == want
+    assert dispatch.encoder_route(False, T, mode, training, "stack") == \
+        "plain"
+    with pytest.raises(ValueError, match="encoder_backward"):
+        dispatch.encoder_route(True, T, mode, training, "chunked")
+
+
 # the long route against the JAX package's: D = 32, h = 4 (d_k = 8), F = 16
 D, HEADS, F, N_LAYERS = 32, 4, 16, 2
 

@@ -4,12 +4,14 @@ B=32, T=160 A+V+L, kernel 10 (window embed) at the front end's four shapes
 and its autograd Function's gradients, kernel 11 (flash attention) at the
 long-video buckets' shapes (B*h = 32*8, T in {544, 640, 1024}, d_k = 32) and
 a ragged case (T = 601, d_k = 2, videos with no key) and its Function's
-gradients, and the four training kernels (encoder stack forward and layer
-backward, MFN forward and reverse recurrence) at B=32, T in {160, 400},
-fp32 and bf16, within the competitive bound
+gradients, and the five training kernels (encoder stack forward, layer
+backward and whole-stack backward, MFN forward and reverse recurrence) at
+B=32, T in {160, 400}, fp32 and bf16, within the competitive bound
 err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
-output tensor; and the encoder's routes: kernel A up to T = 512, kernel 11
-layer by layer past it, the plain encoder in "query" mode.
+output tensor, the whole-stack backward also bit-identical to the layer
+backward called per layer; and the encoder's routes: kernel A up to
+T = 512, kernel 11 layer by layer past it, the plain encoder in "query"
+mode, kernel 5 in place of kernel 4 on the "stack" training route.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  On the card, where JAX
 (which tests/conftest.py sets up) is not installed:
@@ -58,6 +60,8 @@ TRAIN_KERNELS = {"encoder_stack_train_fwd": ("encoder_train", "fwd_launches",
                                              "check_encoder_train_fwd"),
                  "encoder_layer_bwd": ("encoder_train", "bwd_launches",
                                        "check_encoder_layer_bwd"),
+                 "encoder_stack_bwd": ("encoder_train", "stack_bwd_launches",
+                                       "check_encoder_stack_bwd"),
                  "mfn_train_fwd": ("mfn_train", "fwd_launches",
                                    "check_mfn_train_fwd"),
                  "mfn_train_bwd": ("mfn_train", "bwd_launches",
@@ -184,3 +188,33 @@ def test_query_mode_takes_the_plain_encoder_on_cuda(device):
     assert encoder.launches == before
     assert torch.equal(got, encoder_stack_plain(enc, x, mask,
                                                 mask_mode="query"))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stack_route_takes_kernel_5_bit_identical_to_kernel_4(device, dtype):
+    """One training forward and backward of an encoder on each route:
+    "stack" launches kernel 5 once and kernel 4 never, and every gradient
+    equals the "perlayer" route's bit for bit."""
+    from multimodal_transformer_tpu_torch.ops.attention import encoder_stack
+    from multimodal_transformer_tpu_torch.ops.cuda import (encoder_train,
+                                                           verify)
+    gen = torch.Generator().manual_seed(3)
+    enc = verify.random_encoder(gen).to(device=device, dtype=DTYPES[dtype])
+    x = torch.randn(4, 40, 256, generator=gen).to(device, DTYPES[dtype])
+    mask = torch.ones(4, 40, 1, device=device, dtype=DTYPES[dtype])
+    mask[1, 25:] = 0
+    seeds = verify.random_seeds(gen, 6, 4)
+    g = torch.randn(4, 40, 256, generator=gen).to(device, DTYPES[dtype])
+    grads = {}
+    for backward in ("perlayer", "stack"):
+        xx = x.clone().requires_grad_()
+        encoder_train.reset_launches()
+        y = encoder_stack(enc, xx, mask, mask_mode="key_query", seeds=seeds,
+                          backward=backward)
+        params = [xx] + list(enc.parameters())
+        grads[backward] = torch.autograd.grad(y, params, g)
+        counts = (encoder_train.fwd_launches, encoder_train.bwd_launches,
+                  encoder_train.stack_bwd_launches)
+        assert counts == ((1, 6, 0) if backward == "perlayer" else (1, 0, 1))
+    for a, b in zip(grads["perlayer"], grads["stack"]):
+        assert torch.equal(a, b)

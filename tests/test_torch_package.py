@@ -81,19 +81,38 @@ def test_family_state_dict_keys_equal_jax_tree(family, comb, variant):
 
 
 def test_other_families_raise_not_implemented():
-    """Every family serves; training (a forward with dropout seeds) is
-    ported for the multi-modality MFT only, and the others raise."""
+    """Every family trains: a training forward (dropout seeds for the
+    module's own sites) runs on the CPU and gives finite predictions of the
+    mask's shape for every configuration the JAX `build_model` accepts; a
+    configuration it refuses (an unknown family) still raises."""
+    import dataclasses
+
+    from multimodal_transformer_tpu.models.families import FAMILY_FNS
     from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
 
-    for family, mods in (("SFT", ("image", "linguistic")),
-                         ("B3-MFN", ("acoustic", "linguistic")),
-                         ("MFT", ("linguistic",))):
-        cfg = default_config(family, mods)
+    for family, mods, variant in (
+            ("SFT", ("image", "linguistic"), "default"),
+            ("SFT", ("acoustic",), "default"),
+            ("B3-MFN", ("acoustic", "linguistic"), "default"),
+            ("B3-MFN", ("image",), "default"),
+            ("B2-Trans", ("acoustic", "image", "linguistic"), "default"),
+            ("B1-LSTM", ("image", "linguistic"), "default"),
+            ("B1-LSTM", ("linguistic",), "legacy"),
+            ("MFT", ("linguistic",), "default"),
+            ("MFT", ("acoustic", "image"), "default")):
+        assert family in FAMILY_FNS
+        cfg = default_config(family, mods, variant=variant)
         module = build_model(cfg)
-        inputs = {m: torch.zeros(1, 3, 4, cfg.mod_dimension[m]) for m in mods}
-        seeds = DropoutSeeds.draw(mods, 6, 3, torch.Generator())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            module(inputs, torch.ones(1, 3, 1), seeds=seeds)
+        inputs = {m: torch.randn(1, 3, 4, cfg.mod_dimension[m]) for m in mods}
+        seeds = DropoutSeeds.draw(module.dropout_sites(), 3,
+                                  torch.Generator().manual_seed(0))
+        pred = module(inputs, torch.ones(1, 3, 1), seeds=seeds)
+        assert pred.shape == (1, 3, 1) and bool(torch.isfinite(pred).all())
+    bad = dataclasses.replace(default_config("SFT", ("linguistic",)),
+                              family="B4-GRU")
+    assert bad.family not in FAMILY_FNS
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(bad)
 
 
 @pytest.mark.parametrize("batch_size,time_multiple", [(4, 8), (32, 32), (3, 5)])

@@ -59,23 +59,51 @@ def _u32(a) -> int:
     return int(np.asarray(a).astype(np.uint32))
 
 
-def jax_dropout_seeds(key, mods, T: int) -> DropoutSeeds:
-    """The per-site seeds that `mft_apply(rng=key)` draws (families.py,
-    frontend.py, attention.py, mfn_core.py), as the port's DropoutSeeds."""
-    r_front, r_head = jax.random.split(key)
-    front = {m: _u32(jbasic.hash_seed(k))
-             for m, k in zip(mods, jax.random.split(r_front, len(mods)))}
-    rngs = jax.random.split(r_head, len(mods) + 1)
-    encoder = {m: torch.from_numpy(np.asarray(dropout_seed_table(
-        rngs[i], ENCODER_LAYERS)).view(np.uint32).astype(np.int64))
-        for i, m in enumerate(mods)}
-    steps = jax.random.split(rngs[-1], T)
+def _table(key) -> torch.Tensor:
+    """An encoder's [N, 4] seed table from its key, as uint32 in int64."""
+    return torch.from_numpy(np.asarray(dropout_seed_table(
+        key, ENCODER_LAYERS)).view(np.uint32).astype(np.int64))
+
+
+def _mfn_seeds(key, T: int):
+    """The MFN's [T, 2] gamma seeds and its head's out seed from its key."""
+    steps = jax.random.split(key, T)
     sub = jax.vmap(lambda k: jax.random.split(k, 2))(steps)
     mfn = jax.vmap(lambda ks: jnp.stack([jbasic.hash_seed(ks[0]),
                                          jbasic.hash_seed(ks[1])]))(sub)
-    out = _u32(jbasic.hash_seed(jax.random.fold_in(rngs[-1], 7)))
-    return DropoutSeeds(front, encoder,
-                        torch.from_numpy(np.asarray(mfn).astype(np.int64)), out)
+    out = _u32(jbasic.hash_seed(jax.random.fold_in(key, 7)))
+    return torch.from_numpy(np.asarray(mfn).astype(np.int64)), out
+
+
+def jax_family_seeds(key, cfg, T: int) -> DropoutSeeds:
+    """The per-site seeds that the family's JAX apply draws from `key`
+    (`_split_rng` trees of families.py; frontend.py, heads.py,
+    attention.py, mfn_core.py), as the port's DropoutSeeds."""
+    mods, family = cfg.modalities, cfg.family
+    multi = len(mods) > 1
+    r_front, r_head = jax.random.split(key)
+    front = {m: _u32(jbasic.hash_seed(k))
+             for m, k in zip(mods, jax.random.split(r_front, len(mods)))}
+    if family == "MFT" and multi:
+        rngs = jax.random.split(r_head, len(mods) + 1)
+        encoder = {f"transformer_{m}": _table(rngs[i])
+                   for i, m in enumerate(mods)}
+        return DropoutSeeds(front, encoder, *_mfn_seeds(rngs[-1], T))
+    if family == "B3-MFN" and multi:  # its MFN takes r_head itself
+        return DropoutSeeds(front, {}, *_mfn_seeds(r_head, T))
+    if family == "B1-LSTM":
+        embed, decoder = jax.random.split(r_head, 2)
+        return DropoutSeeds(front, embed=_u32(jbasic.hash_seed(embed)),
+                            decoder=_u32(jbasic.hash_seed(decoder)))
+    if family == "B2-Trans":
+        return DropoutSeeds(front, {"encoder": _table(
+            jax.random.split(r_head, 1)[0])})
+    # the UniTransformer: SFT (with the MLP embed when multi-modality), and
+    # MFT and B3-MFN with one modality; split 3 ways, the encoder takes [1]
+    rngs = jax.random.split(r_head, 3)
+    embed = (_u32(jbasic.hash_seed(rngs[0])) if family == "SFT" and multi
+             else None)
+    return DropoutSeeds(front, {"encoder": _table(rngs[1])}, embed=embed)
 
 
 def _grad_errors(got: dict, want: dict):
@@ -120,7 +148,7 @@ def test_mft_train_loss_and_grads_match_jax():
     want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
 
     pred = module({m: torch.from_numpy(v) for m, v in data.items()},
-                  torch.from_numpy(mask), seeds=jax_dropout_seeds(key, AVL, T))
+                  torch.from_numpy(mask), seeds=jax_family_seeds(key, cfg, T))
     loss = ((pred - torch.from_numpy(target)) ** 2).sum() / denom
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-5)
@@ -159,8 +187,8 @@ def test_engine_three_steps_match_jax_engine(monkeypatch):
         log.addHandler(logs[side])
 
     def seed_fn(step, T):
-        return jax_dropout_seeds(jax.random.fold_in(jax.random.PRNGKey(1),
-                                                    step), AVL, T)
+        return jax_family_seeds(jax.random.fold_in(jax.random.PRNGKey(1),
+                                                   step), cfg, T)
 
     eng = Engine(cfg, seed=2, seed_fn=seed_fn, device="cpu",
                  logger=logging.getLogger("test_torch_train.port"))

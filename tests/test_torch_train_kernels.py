@@ -7,6 +7,12 @@ interpret mode:
   * `EncoderStackTrain` (kernels 3 and 4) against `encoder_stack_fused_train`
     at p = 0.1 and p = 0: D=64, h=4, F=32, 2 layers, B=3, T=13 with lengths
     [13, 9, 1]; output on valid rows and every gradient, atol 1e-4;
+  * kernel 5's plain version (the "stack" backward of `EncoderStackTrain`)
+    against the JAX package's whole-stack backward `_stack_bwd_call`
+    (`MMTX_ENC_BWD=stack`) at p = 0.1 and p = 0, same shapes and atol, and
+    equal bit for bit to the loop of kernel 4's plain version; on the
+    routes, "stack" calls kernel 5 once per stack with its argument check
+    and "perlayer" kernel 4 once per layer, with the same gradients;
   * `MFNStatesTrain` (kernels 6 and 7) against `mfn_states_fused_train` at
     p = 0.2 and p = 0: A+V+L, B=3, T=9; states and every gradient, atol
     2e-5;
@@ -140,6 +146,138 @@ def test_encoder_stack_train_matches_pallas_interpret(enc_case, p):
         np.testing.assert_allclose(got[k], want_flat[k], atol=ENC_ATOL,
                                    err_msg=k)
     enc.zero_grad()
+
+
+def _grads_by_name(want_dl) -> dict:
+    out = {}
+    for l, lg in enumerate(want_dl):
+        for k, v in jax.tree_util.tree_leaves_with_path(lg):
+            name = ".".join(str(getattr(e, "key", getattr(e, "idx", e)))
+                            for e in k)
+            out[f"{l}.{name}"] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("p", [0.1, 0.0])
+def test_encoder_stack_bwd_plain_matches_pallas_stack_interpret(enc_case, p,
+                                                                monkeypatch):
+    """The "stack" backward (kernel 5's plain version on the CPU) against
+    the JAX package's `_stack_bwd_call` in interpret mode, which
+    MMTX_ENC_BWD=stack selects (tile pickers pinned as in the JAX package's
+    own test, so that the stack call runs)."""
+    params, enc, x, mask, g, seeds = enc_case
+    monkeypatch.setenv("MMTX_ENC_BWD", "stack")
+    monkeypatch.delenv("MMTX_ENC_BWD_CHUNKS", raising=False)
+    monkeypatch.setattr(jenc, "_pick_tile_b_bwd", lambda *a, **k: 1)
+    monkeypatch.setattr(jenc, "_pick_tile_b_stack", lambda *a, **k: 1)
+    calls = []
+    stack_call = jenc._stack_bwd_call
+
+    def counted(*a, **k):
+        calls.append(1)
+        return stack_call(*a, **k)
+
+    monkeypatch.setattr(jenc, "_stack_bwd_call", counted)
+
+    def f(layers, xx):
+        return jenc.encoder_stack_fused_train(layers, xx, jnp.asarray(mask),
+                                              H, p, seeds)
+
+    _, vjp = jax.vjp(f, params["layers"], jnp.asarray(x))
+    want_dl, want_dx = vjp(jnp.asarray(g))
+    assert calls  # the JAX package took its whole-stack backward
+
+    xt = torch.from_numpy(x).requires_grad_()
+    out = enct.encoder_stack_train(enc, xt, torch.from_numpy(mask), h=H, p=p,
+                                   seeds=torch.from_numpy(_u32_table(seeds)),
+                                   backward="stack")
+    got = torch.autograd.grad(out, [xt] + list(enc.layers.parameters()),
+                              torch.from_numpy(g))
+    valid = mask[..., 0] > 0
+    np.testing.assert_allclose(got[0].numpy()[valid],
+                               np.asarray(want_dx)[valid], atol=ENC_ATOL)
+    names = [k for k, _ in enc.layers.named_parameters()]
+    want = _grads_by_name(want_dl)
+    assert set(names) == set(want)
+    for k, v in zip(names, got[1:]):
+        np.testing.assert_allclose(v.numpy(), want[k], atol=ENC_ATOL,
+                                   err_msg=k)
+
+
+def test_encoder_stack_bwd_plain_is_the_per_layer_loop(enc_case):
+    """Kernel 5's plain version equals kernel 4's plain version called for
+    every layer, last first, bit for bit."""
+    _, enc, x, mask, g, seeds = enc_case
+    table = torch.from_numpy(_u32_table(seeds))
+    params = [t.detach() for layer in enc.layers
+              for t in enct._layer_tensors(layer)]
+    km = torch.from_numpy(mask[..., 0])
+    _, saved = enct.encoder_stack_train_fwd_plain(
+        params, torch.from_numpy(x), km, table, 0.1, H)
+    dx, stacked = enct.encoder_stack_bwd_plain(params, saved,
+                                               torch.from_numpy(g), km, table,
+                                               0.1, H)
+    dy, per_layer = torch.from_numpy(g), [None] * N_LAYERS
+    for l in reversed(range(N_LAYERS)):
+        dy, per_layer[l] = enct.encoder_layer_bwd_plain(
+            params[enct.N_PARAMS * l:enct.N_PARAMS * (l + 1)], saved[l], dy,
+            km, table[l], 0.1, H)
+    assert torch.equal(dx, dy)
+    assert len(stacked) == enct.N_PARAMS
+    for i, s in enumerate(stacked):
+        assert s.shape == (N_LAYERS,) + tuple(params[i].shape)
+        assert torch.equal(s, torch.stack([gl[i] for gl in per_layer]))
+
+
+@pytest.fixture
+def routed(monkeypatch):
+    """CPU tensors take the training routes of the card: each wrapper checks
+    its arguments as on the card (kernel 5 its own), records its call and
+    runs its plain version."""
+    calls = []
+    monkeypatch.setattr(attention, "use_kernel", lambda t: True)
+
+    def fwd(*a):
+        calls.append("fwd")
+        return enct.encoder_stack_train_fwd_plain(*a)
+
+    def layer(*a):
+        calls.append("layer")
+        return enct.encoder_layer_bwd_plain(*a)
+
+    def stack(params, saved, dy, kmask, seeds, p, h):
+        enct._stack_bwd_args(params, saved, dy, kmask, seeds, h, "kernel 5")
+        calls.append("stack")
+        return enct.encoder_stack_bwd_plain(params, saved, dy, kmask, seeds,
+                                            p, h)
+
+    monkeypatch.setattr(enct, "encoder_stack_train_fwd", fwd)
+    monkeypatch.setattr(enct, "encoder_layer_bwd", layer)
+    monkeypatch.setattr(enct, "encoder_stack_bwd", stack)
+    return calls
+
+
+def test_stack_route_calls_kernel_5_once_per_stack(enc_case, routed):
+    _, enc, x, mask, g, seeds = enc_case
+    table = torch.from_numpy(_u32_table(seeds))
+    grads = {}
+    for backward in ("perlayer", "stack"):
+        routed.clear()
+        xt = torch.from_numpy(x).requires_grad_()
+        y = attention.encoder_stack(enc, xt, torch.from_numpy(mask), h=H,
+                                    mask_mode="key_query", seeds=table,
+                                    backward=backward)
+        grads[backward] = torch.autograd.grad(
+            y, [xt] + list(enc.parameters()), torch.from_numpy(g))
+        assert routed == (["fwd", "stack"] if backward == "stack"
+                          else ["fwd"] + ["layer"] * N_LAYERS)
+    for a, b in zip(grads["perlayer"], grads["stack"]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="encoder_backward"):
+        attention.encoder_stack(enc, torch.from_numpy(x),
+                                torch.from_numpy(mask), h=H,
+                                mask_mode="key_query", seeds=table,
+                                backward="chunked")
 
 
 def test_encoder_layer_bwd_plain_is_autograd_of_the_plain_forward(enc_case):
@@ -307,6 +445,16 @@ def test_cuda_wrappers_raise_without_a_kernel(enc_case, mfn_case,
     with pytest.raises(TypeError):
         enct.encoder_layer_bwd(params[:enct.N_PARAMS], x64, x64, km, table[0],
                                0.1, H)
+    saved = torch.zeros((N_LAYERS,) + x64.shape, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        enct.encoder_stack_bwd(params, saved, x64, km, table, 0.1, H)
+    saved32, dy32 = saved.float(), x64.float()
+    with pytest.raises(ValueError):  # one layer's parameters for two
+        enct.encoder_stack_bwd([t.float() for t in params[:enct.N_PARAMS]],
+                               saved32, dy32, km, table, 0.1, H)
+    with pytest.raises(ValueError):  # d_k = 64 / 5 heads: no kernel
+        enct.encoder_stack_bwd([t.float() for t in params], saved32, dy32,
+                               km, table, 0.1, 5)
     _, mfn, xps, g_hs, g_mems, s = mfn_case
     xp64 = [v.double() for v in xps]
     whhs = [getattr(mfn, f"lstm_{m}").weight_hh.detach().double()
