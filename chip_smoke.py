@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Twelve phases, any
-failure exits nonzero:
+Run from the repository root: `python3 chip_smoke.py`.  Fourteen phases,
+any failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -10,38 +10,46 @@ failure exits nonzero:
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
-   the encoder stack, the MFN recurrence, the window embed at the front
-   end's four shapes plus the gradients of its autograd Function, and flash
-   attention (kernel 11) at the long-video buckets' shapes, a ragged case
-   with d_k = 2 and videos with no key, and its Function's gradients;
+   the encoder stack, the MFN recurrence and its packed and aligned
+   variants (the variants also at a ragged shape and with the emotient
+   modality), the window embed at the front end's four shapes plus the
+   gradients of its autograd Function, and flash attention (kernel 11) at
+   the long-video buckets' shapes, a ragged case with d_k = 2 and videos
+   with no key, and its Function's gradients;
 4. slice: ValencePredictor at full MFT A+V+L widths (random weights from a
    seed) answers 3 requests of 20 videos; traces are checked for length,
    finiteness, determinism and against the plain fp32 forward; the launch
    counters of the three kernels on that path must show the main path went
    through them; B=32, T=160 bf16 forwards are timed;
-5. families: ValencePredictor answers one request of 20 videos for each of
+5. MFN variants: bench_mfn_kernel.py's four candidates (plain recurrence,
+   kernel B, aligned, packed, each with the head) for MFT A+V+L and B3-MFN
+   A+V+L at B=32, T=160, fp32 and bf16, timed and held against the plain
+   fp32 output; one forward of each kernel candidate launches its kernel
+   once and no other, and the variants agree with kernel B;
+6. families: ValencePredictor answers one request of 20 videos for each of
    SFT, B2-Trans, B3-MFN and B1-LSTM (A+V+L), B1-LSTM legacy (L) and MFT
    (L), with the same checks, each family's launch counts and tolerance,
    and timed B=32, T=160 bf16 forwards on both paths;
-6. long videos: one request of 16 videos of 520-1,100 windows (buckets
+7. long videos: one request of 16 videos of 520-1,100 windows (buckets
    544-1,120) for MFT A+V+L, SFT A+V+L, B2-Trans A+V+L and MFT L in bf16,
    with the same checks: every encoder takes the flash route (kernel 11 six
    times per encoder and batch, kernel A never); the MFT A+V+L request is
    profiled; then the B=32 encoder stack through kernel A and through the
    flash route at T = 544, 640 and 1,024, bf16 and fp32, alternated;
-7. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
+8. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
    A+V+L widths over 24 videos of 20-1,100 windows, fp32 and (batched)
    eval_dtype=bf16: exact launch counts, the per-video CCCs of both paths
    within their tolerance and equal to `ccc` on the returned predictions,
    the `Evaluation` line printed; a "query"-mode per-video evaluation
    launches no encoder kernel;
-8. train kernels: the five training kernels (encoder stack forward, layer
+9. train kernels: the five training kernels (encoder stack forward, layer
    backward and whole-stack backward, MFN forward and reverse recurrence)
-   against their plain versions at B=32, T=160 and T=400, fp32 and bf16,
-   the bound applied to every output tensor (dx and each gradient
-   included), the whole-stack backward (kernel 5) also bit-identical to six
-   calls of the layer backward (kernel 4);
-9. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
+   against their plain versions at B=32, T=160 and T=400, and at p = 0
+   (the dropout-free route) at T=160, fp32 and bf16, the bound applied to
+   every output tensor (dx and each gradient included), the whole-stack
+   backward (kernel 5) also bit-identical to six calls of the layer
+   backward (kernel 4);
+10. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
    epoch with encoder_backward="stack" (kernel 5 in place of kernel 4,
@@ -52,22 +60,28 @@ failure exits nonzero:
    and with kernel 10's autograd Function on the plain forward; the same
    step twice gives bit-identical gradients; B=32, T=160 mixed steps are
    timed on both paths and profiled;
-10. query mode: an MFT A+V+L forward and one training step in the
+11. dropout-free training: fp32 steps without seeds for MFT A+V+L and
+   B3-MFN A+V+L at B=32, T=160: the training kernels at p = 0 and never
+   kernel A or B, exact launches, every parameter with a gradient that is
+   not all zero, loss and gradients within the train phase's limits of the
+   plain path; kernels A and B called directly under autograd raise;
+12. query mode: an MFT A+V+L forward and one training step in the
    reference's default "query" mask mode, which no encoder kernel takes:
    the encoder kernels' counters stay at 0 while the MFN and window-embed
    kernels launch;
-11. families train: Engine steps of SFT (A+V+L and A), B2-Trans A+V+L,
+13. families train: Engine steps of SFT (A+V+L and A), B2-Trans A+V+L,
    B3-MFN (A+V+L and A), B1-LSTM A+V+L, B1-LSTM legacy L and MFT L at full
    widths, B=32, T=160: the fp32 kernel-path step against the plain path
    (the train phase's limits), a repeated step bit-identical, the same step
    on the "stack" encoder backward bit-identical to "perlayer", exact
    launch counts per step on both routes; bf16 mixed ms/step from a batch
    on the card and from a host batch; one "query"-mode step;
-12. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
+14. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
    and "stack", alternated, ms/step and launches (kernel 5 three times per
    step on "stack", kernel 4 never).
 
-The line before the last is a JSON object with each kernel's launches,
+The line before the last is a JSON object with each kernel's launches
+(the variants' from phase 5),
 error, times, bound (the least time an H100 SXM could take, from the
 check's shapes) and, for kernel 11, the time of PyTorch's
 scaled_dot_product_attention on the same inputs; the last line is
@@ -205,7 +219,18 @@ SOURCES = {
     "flash_attention_masked": (
         "multimodal_transformer_tpu_torch/csrc/flash_attention.cu",
         "multimodal_transformer_tpu/ops/pallas/attention.py:58"),
+    "mfn_scan_packed": ("multimodal_transformer_tpu_torch/csrc/mfn_variants.cu",
+                        "multimodal_transformer_tpu/ops/pallas/mfn_kernel.py:372"),
+    "mfn_scan_aligned": (
+        "multimodal_transformer_tpu_torch/csrc/mfn_variants.cu",
+        "multimodal_transformer_tpu/ops/pallas/mfn_kernel.py:543"),
 }
+# the MFN variants' checks: (B, T, modalities) off the main path, a ragged
+# case and one with the emotient modality (H = 16, the narrowest pad)
+MFN_VARIANT_SHAPES = ((3, 7, ("linguistic", "acoustic")),
+                      (4, 9, ("emotient", "acoustic")))
+# the dropout-free training phase's configurations: (name, family)
+FREE_TRAIN = (("MFT A+V+L", "MFT"), ("B3-MFN A+V+L", "B3-MFN"))
 
 
 class SmokeFailure(Exception):
@@ -240,6 +265,7 @@ def kernel_counters():
     from multimodal_transformer_tpu_torch.ops.cuda import flash_attention as fa_k
     from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
     from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_variants as mfnv
     from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we_k
     return {"encoder_stack_fused": (enc_k, "launches"),
             "mfn_scan_fused": (mfn_k, "launches"),
@@ -249,7 +275,9 @@ def kernel_counters():
             "encoder_layer_bwd": (enct, "bwd_launches"),
             "encoder_stack_bwd": (enct, "stack_bwd_launches"),
             "mfn_train_fwd": (mfnt, "fwd_launches"),
-            "mfn_train_bwd": (mfnt, "bwd_launches")}
+            "mfn_train_bwd": (mfnt, "bwd_launches"),
+            "mfn_scan_packed": (mfnv, "packed_launches"),
+            "mfn_scan_aligned": (mfnv, "aligned_launches")}
 
 
 def reset_counters() -> None:
@@ -270,8 +298,16 @@ def run_kernel_checks(torch, device):
         for T in (160, 137, 544):
             checks.append(verify.check_encoder(32, T, dtype, device=device))
             print(checks[-1].line(), flush=True)
-        checks.append(verify.check_mfn(32, 160, dtype, device=device))
-        print(checks[-1].line(), flush=True)
+        for check in (verify.check_mfn, verify.check_mfn_packed,
+                      verify.check_mfn_aligned):
+            checks.append(check(BENCH_B, BENCH_T, dtype, device=device))
+            print(checks[-1].line(), flush=True)
+            if check is verify.check_mfn:
+                continue
+            for B, T, mods in MFN_VARIANT_SHAPES:
+                checks.append(check(B, T, dtype, device=device, mods=mods,
+                                    reps=0))
+                print(checks[-1].line(), flush=True)
         for Fr, D, E in WINDOW_EMBED_SHAPES:
             checks.append(verify.check_window_embed(BENCH_B, BENCH_T, Fr, D, E,
                                                     dtype, device=device))
@@ -292,9 +328,6 @@ def run_kernel_checks(torch, device):
     bad = [c for c in checks if not c.ok]
     if bad:
         raise SmokeFailure(f"{len(bad)} kernel check(s) outside the bound")
-    print("bounds of the TPU kernels still to port (ms, bf16): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in
-                      verify.unported_bounds().items()), flush=True)
     return checks
 
 
@@ -403,6 +436,49 @@ def run_slice(torch, np, device):
     return got
 
 
+def run_mfn_variants(torch, device) -> dict:
+    """bench_mfn_kernel.py's four MFN candidates on the card (B=32, T=160,
+    MFT A+V+L and B3-MFN A+V+L, fp32 and bf16); then one forward of each
+    kernel candidate with the counters at 0: exact launches, and the
+    variants' outputs against kernel B's.  Returns the variants' launches."""
+    from multimodal_transformer_tpu_torch import bench_mfn_kernel as bench
+
+    rows = bench.run(device, BENCH_B, BENCH_T, reps=5, plain_reps=2)
+    if not all(r.ok for r in rows):
+        raise SmokeFailure("an MFN candidate disagrees with the plain fp32 "
+                           "forward")
+    kernel_of = {"kernel B": "mfn_scan_fused", "aligned": "mfn_scan_aligned",
+                 "packed": "mfn_scan_packed"}
+    total: dict = {}
+    for config in bench.CONFIGS:
+        for dname, dtype in bench.DTYPES.items():
+            case, x = bench.make_case(config, BENCH_B, BENCH_T, dtype, device)
+            outs = {}
+            for name, kernel in kernel_of.items():
+                reset_counters()
+                with torch.inference_mode():
+                    outs[name] = case(x, bench.CANDIDATES[name]).float()
+                torch.cuda.synchronize()
+                got = {k: v for k, v in read_counters().items() if v}
+                if got != {kernel: 1}:
+                    raise SmokeFailure(f"MFN variants, {config} {dname} "
+                                       f"{name}: launches {got}, expected "
+                                       f"{ {kernel: 1} }")
+                total[kernel] = total.get(kernel, 0) + 1
+            diffs = {n: (outs[n] - outs["kernel B"]).abs().max().item()
+                     for n in ("aligned", "packed")}
+            ms = {r.candidate: round(r.ms, 3) for r in rows
+                  if (r.config, r.dtype) == (config, dname)}
+            print(f"MFN variants, {config} {dname}: ms/forward {ms}; |variant "
+                  f"- kernel B| {diffs} (tol {bench.TOLERANCE[dname]:.0e}); "
+                  "one launch of the variant per forward, kernel B none",
+                  flush=True)
+            if max(diffs.values()) > bench.TOLERANCE[dname]:
+                raise SmokeFailure(f"MFN variants, {config} {dname}: a "
+                                   "variant disagrees with kernel B")
+    return {k: v for k, v in total.items() if k != "mfn_scan_fused"}
+
+
 def run_train_kernel_checks(torch, device):
     from multimodal_transformer_tpu_torch.ops.cuda import verify
 
@@ -410,16 +486,18 @@ def run_train_kernel_checks(torch, device):
            verify.check_encoder_stack_bwd, verify.check_mfn_train_fwd,
            verify.check_mfn_train_bwd)
     checks = []
+    # (T, dropout rate): the model's rates at both T, timed at the main
+    # path's shape only; p = 0 at T = 160, the dropout-free training route
+    cases = [(T, None) for T in TRAIN_T] + [(BENCH_T, 0.0)]
     for dtype in (torch.float32, torch.bfloat16):
-        for T in TRAIN_T:
+        for T, p in cases:
             for fn in fns:
-                # timed at the main path's shape only
-                checks.append(fn(32, T, dtype, device=device,
-                                 reps=5 if T == BENCH_T else 0))
+                checks.append(fn(32, T, dtype, device=device, p=p,
+                                 reps=5 if (T, p) == (BENCH_T, None) else 0))
                 print(checks[-1].line(), flush=True)
                 if not checks[-1].ok:
-                    for name, (e, p) in checks[-1].parts.items():
-                        print(f"    {name}: err {e:.3e} plain err {p:.3e}",
+                    for name, (e, pe) in checks[-1].parts.items():
+                        print(f"    {name}: err {e:.3e} plain err {pe:.3e}",
                               flush=True)
     bad = [c for c in checks if not c.ok]
     if bad:
@@ -660,6 +738,85 @@ def run_train(torch, np, device):
             print(f"profile: not available ({type(e).__name__}: {e})",
                   flush=True)
     return got
+
+
+def run_dropout_free_train(torch, np, device) -> None:
+    """fp32 steps without seeds (dropout-free training, as `jax.grad` of the
+    JAX apply with rng=None) at full width, B=32, T=160: the encoders take
+    kernels 3 and 4 at p = 0 and the MFN kernels 6 and 7, never kernel A or
+    B; every parameter gets a gradient (autograd.grad without allow_unused)
+    that is not all zero, within the train phase's limits of the plain
+    path.  Then kernels A and B, called directly under autograd, raise."""
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
+    from multimodal_transformer_tpu_torch.ops.mfn_core import hoisted_inputs
+
+    B, T = BENCH_B, BENCH_T
+    heads = {}
+    for i, (name, family) in enumerate(FREE_TRAIN):
+        cfg = default_config(family, AVL, mask_mode="key_query")
+        batch = _bench_batch(np, Batch, cfg, B, T, seed=20 + i)
+        f32 = Engine(cfg, seed=1, device=device)
+        names, params = zip(*f32.module.named_parameters())
+
+        def grads(plain: bool):
+            loss = f32.batch_loss(batch, None, plain=plain)
+            try:
+                g = torch.autograd.grad(loss / float(sum(batch.lengths)),
+                                        params)
+            except RuntimeError as e:  # a parameter the loss does not reach
+                raise SmokeFailure(f"{name}, no seeds: {e}") from e
+            return float(loss.detach()), g
+
+        reset_counters()
+        loss_k, g_k = grads(False)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counters().items() if v}
+        loss_p, g_p = grads(True)
+        want = _train_launches(f32.module, "perlayer")
+        zero = [n for n, g in zip(names, g_k) if not bool(g.ne(0).any())]
+        text, worst = _worst_grad(names, g_k, g_p, _grad_norm(torch, g_p))
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"{name} dropout-free fp32 step B={B} T={T}: launches {counts}; "
+              f"loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel "
+              f"{loss_rel:.2e}, tol {LOSS_RTOL:.0e}); {text}; {len(names)} "
+              f"parameters, all-zero gradients {zero}", flush=True)
+        if counts != want:
+            raise SmokeFailure(f"{name}, no seeds: launches {counts}, "
+                               f"expected {want}")
+        if zero:
+            raise SmokeFailure(f"{name}, no seeds: all-zero gradients {zero}")
+        if loss_rel > LOSS_RTOL or worst > 1.0:
+            raise SmokeFailure(f"{name}, no seeds: the fp32 kernel-path step "
+                               "disagrees with the plain path")
+        heads[family] = f32.module.Transformer
+
+    mft = heads["MFT"]  # its encoders and MFN, called directly
+    x = torch.randn(2, 8, 256, device=device, requires_grad=True)
+    mask = torch.ones(2, 8, 1, device=device)
+    mfn = mft.mfn
+    xps = hoisted_inputs(mfn, {m: x for m in AVL})
+    whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in AVL]
+    calls = {"encoder_stack_fused": lambda: enc_k.encoder_stack_fused(
+                 mft.transformer_acoustic, x, mask),
+             "mfn_scan_fused": lambda: mfn_k.mfn_scan_fused(
+                 xps, whhs, mfn.gate_tensors())}
+    for what, call in calls.items():
+        reset_counters()
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            print(f"{what} under autograd raises: {e}", flush=True)
+        else:
+            raise SmokeFailure(f"{what} ran under autograd with inputs that "
+                               "require grad")
+        if any(read_counters().values()):
+            raise SmokeFailure(f"{what} launched under autograd")
 
 
 def _train_launches(module, backward: str) -> dict:
@@ -1172,6 +1329,9 @@ def main() -> int:
     phase("slice")
     launches = run_slice(torch, np, device)
 
+    phase("MFN variants")
+    launches.update(run_mfn_variants(torch, device))
+
     phase("families")
     run_families(torch, np, device)
 
@@ -1191,6 +1351,9 @@ def main() -> int:
     train_launches = run_train(torch, np, device)
     del train_launches["window_embed_highway"]  # counted on the serving path
     launches.update(train_launches)
+
+    phase("dropout-free training")
+    run_dropout_free_train(torch, np, device)
 
     phase("query mode")
     run_query_mode(torch, np, device)

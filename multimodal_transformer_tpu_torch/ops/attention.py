@@ -19,7 +19,10 @@ to T = 512, past it layer by layer with attention through kernel 11
 kernel declining and its flash kernel serving each layer), and with seeds
 to the training kernels (ops/cuda/encoder_train.py: kernel 3, then kernel 4
 per layer or kernel 5 per stack in the backward; its output takes the final
-norm here so that autograd owns its parameters) at every T; a CPU
+norm here so that autograd owns its parameters) at every T, as does a call
+without seeds that needs gradients, at p = 0 with an all-zero seed table
+(kernel A has no backward; eval under `torch.no_grad()` or
+`torch.inference_mode()` keeps kernel A and the flash route); a CPU
 tensor takes the plain path below.  "query" mode (and a stack without a
 mask) takes the plain path on any device: that is dispatch by mode, as in
 the JAX package, whose encoder kernels take key_query only and which runs
@@ -37,7 +40,7 @@ from torch import nn
 
 from ..utils.init import init_linear
 from .basic import dropout
-from .dispatch import encoder_route, use_kernel
+from .dispatch import encoder_route, needs_grad, use_kernel
 from .norm import LayerNorm
 
 NEG_INF = -1e9
@@ -181,7 +184,8 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
     backward: the training backward on the card, "perlayer" (kernel 4) or
     "stack" (kernel 5)."""
     route = encoder_route(use_kernel(x) and mask is not None, x.shape[1],
-                          mask_mode, seeds is not None, backward)
+                          mask_mode, seeds is not None, backward,
+                          needs_grad(x, *enc.parameters()))
     if route == "fused":
         from .cuda.encoder import encoder_stack_fused
         return encoder_stack_fused(enc, x, mask, h=h)
@@ -189,6 +193,9 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
         return encoder_stack_flash(enc, x, mask, h=h)
     if route in ("train", "train_stack"):
         from .cuda.encoder_train import encoder_stack_train
+        if seeds is None:  # differentiable eval: the training kernels at p = 0
+            seeds = torch.zeros(len(enc.layers), 4, dtype=torch.int64)
+            dropout_p = 0.0
         y = encoder_stack_train(enc, x, mask, h=h, p=dropout_p, seeds=seeds,
                                 backward=backward)
         return enc.norm(y.to(x.dtype))

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..dispatch import check_kernel_dtype, use_kernel
+from ..dispatch import check_kernel_dtype, check_no_grad, use_kernel
 from ..norm import layer_norm
 from . import _build
 
@@ -84,10 +84,13 @@ def _layer_tensors(layer):
 def encoder_stack_fused(enc, x: torch.Tensor, mask: torch.Tensor, *,
                         h: int = 8) -> torch.Tensor:
     """Key-masked N-layer encoder stack + final norm.  x [B, T, D] fp32 or
-    bf16; mask [B, T, 1].  Returns [B, T, D] in x's dtype."""
+    bf16; mask [B, T, 1].  Returns [B, T, D] in x's dtype.  The kernel has
+    no backward: on the card it raises when autograd would record the call
+    (`ops/attention.py:encoder_stack` sends such calls to kernels 3 and 4)."""
     if not use_kernel(x):
         return encoder_stack_fused_plain(enc, x, mask, h=h)
     global launches
+    check_no_grad("encoder_stack_fused", x, *enc.parameters())
     dtype_code = check_kernel_dtype(x, "encoder_stack_fused")
     if x.dim() != 3:
         raise ValueError(f"encoder_stack_fused: x must be [B, T, D], got "

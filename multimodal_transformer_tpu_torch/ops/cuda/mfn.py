@@ -22,7 +22,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..dispatch import acc_dtype, check_kernel_dtype, use_kernel
+from ..dispatch import acc_dtype, check_kernel_dtype, check_no_grad, use_kernel
 from . import _build
 
 MAX_MODS = 4
@@ -133,11 +133,14 @@ def kernel_args(xps, whhs, gates, what: str):
 
 
 def mfn_scan_fused(xps, whhs, gates):
-    """The MFN recurrence.  See the module docstring."""
+    """The MFN recurrence.  See the module docstring.  The kernel has no
+    backward: on the card it raises when autograd would record the call
+    (`ops/mfn_core.py:mfn_states` sends such calls to kernels 6 and 7)."""
     x0 = xps[0]
     if not use_kernel(x0):
         return mfn_scan_fused_plain(xps, whhs, gates)
     global launches
+    check_no_grad("mfn_scan_fused", *xps, *whhs, *gates)
     dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
         xps, whhs, gates, "mfn_scan_fused")
     total_h = sum(hid)

@@ -38,6 +38,7 @@ from . import encoder_train as enct_k
 from . import flash_attention as fa_k
 from . import mfn as mfn_k
 from . import mfn_train as mfnt_k
+from . import mfn_variants as mfnv_k
 from . import window_embed as we_k
 
 SLACK = 1e-6
@@ -135,13 +136,11 @@ def mfn_step_ops(whhs, gates) -> float:
     return 2.0 * macs
 
 
-def time_ms(fn, reps: int = 7, warmup: int = 2, burst: int = 1) -> float:
-    """Milliseconds per fn() call, timed with CUDA events: the median over
-    reps of a burst of back-to-back calls divided by its length (a burst
-    keeps the card's queue full, so the host's per-call preparation after
-    the first call overlaps the card's work); nan when reps is 0."""
-    if reps <= 0:
-        return math.nan
+def runs_ms(fn, reps: int = 7, warmup: int = 2, burst: int = 1) -> list:
+    """Milliseconds per fn() call of each of reps runs, timed with CUDA
+    events: a run is a burst of back-to-back calls divided by its length (a
+    burst keeps the card's queue full, so the host's per-call preparation
+    after the first call overlaps the card's work)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -155,7 +154,14 @@ def time_ms(fn, reps: int = 7, warmup: int = 2, burst: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / burst)
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, reps: int = 7, warmup: int = 2, burst: int = 1) -> float:
+    """The median of `runs_ms`; nan when reps is 0."""
+    if reps <= 0:
+        return math.nan
+    return statistics.median(runs_ms(fn, reps, warmup, burst))
 
 
 def lengths_for(B: int, T: int, seed: int) -> np.ndarray:
@@ -240,34 +246,76 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
                      [x, mask, kern, *enc.parameters()]))
 
 
-@torch.no_grad()
-def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
-              mods=AVL, reps: int = 5) -> KernelCheck:
+MOD_LETTER = {"acoustic": "A", "image": "V", "linguistic": "L",
+              "emotient": "E"}
+
+
+def _mfn_case(B, T, dtype, device, seed, mods):
+    """An MFN with the MFT's embed widths as inputs, and its hoisted xps,
+    W_hh list and gate tensors in dtype on device."""
     gen = torch.Generator().manual_seed(seed)
     mfn = MFN(mods, MFT_EMBED_DIM, output_dim=1, gen=gen).to(device=device,
                                                             dtype=dtype)
-    inputs = {m: torch.randn(B, T, MFT_EMBED_DIM[m], generator=gen).to(
-        device=device, dtype=dtype) for m in mods}
-    xps = [x.contiguous() for x in hoisted_inputs(mfn, inputs)]
+    with torch.no_grad():
+        inputs = {m: torch.randn(B, T, MFT_EMBED_DIM[m], generator=gen).to(
+            device=device, dtype=dtype) for m in mods}
+        xps = [x.contiguous() for x in hoisted_inputs(mfn, inputs)]
     whhs = [getattr(mfn, f"lstm_{m}").weight_hh.detach() for m in mods]
     gates = [g.detach() for g in mfn.gate_tensors()]
+    return gen, xps, whhs, gates
 
-    ref = mfn_k.mfn_scan_fused_plain([t.double() for t in xps],
-                                     [t.double() for t in whhs],
-                                     [t.double() for t in gates])
-    plain = mfn_k.mfn_scan_fused_plain(xps, whhs, gates)
-    kern = mfn_k.mfn_scan_fused(xps, whhs, gates)
+
+@torch.no_grad()
+def _check_mfn_scan(name, kernel, plain_fn, B, T, dtype, device, seed, mods,
+                    reps) -> KernelCheck:
+    """A kernel of kernel B's function (hs, mems) against its plain
+    version; the bound is kernel B's work, whatever the layout."""
+    _, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
+    ref = plain_fn(_double(xps), _double(whhs), _double(gates))
+    plain = plain_fn(xps, whhs, gates)
+    kern = kernel(xps, whhs, gates)
     torch.cuda.synchronize()
     return KernelCheck(
-        "mfn_scan_fused", f"B={B} T={T} A+V+L", _dtype_name(dtype),
-        _parts(["hs", "mems"], kern, plain, ref, [None, None]),
+        name, f"B={B} T={T} {'+'.join(MOD_LETTER[m] for m in mods)}",
+        _dtype_name(dtype), _parts(["hs", "mems"], kern, plain, ref,
+                                   [None, None]),
         _finite(kern, [None, None]),
-        time_ms(lambda: mfn_k.mfn_scan_fused(xps, whhs, gates), reps,
-                burst=KERNEL_BURST),
-        time_ms(lambda: mfn_k.mfn_scan_fused_plain(xps, whhs, gates), reps,
-                warmup=1),
+        time_ms(lambda: kernel(xps, whhs, gates), reps, burst=KERNEL_BURST),
+        time_ms(lambda: plain_fn(xps, whhs, gates), reps, warmup=1),
         *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
                      [*xps, *whhs, *gates, *kern]))
+
+
+def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
+              mods=AVL, reps: int = 5) -> KernelCheck:
+    """Kernel B."""
+    return _check_mfn_scan("mfn_scan_fused", mfn_k.mfn_scan_fused,
+                           mfn_k.mfn_scan_fused_plain, B, T, dtype, device,
+                           seed, mods, reps)
+
+
+def check_mfn_packed(B: int, T: int, dtype: torch.dtype, *, device,
+                     seed: int = 0, mods=AVL, reps: int = 5) -> KernelCheck:
+    """Row 8, the block-diagonal packing (zero blocks not counted in the
+    bound)."""
+    return _check_mfn_scan("mfn_scan_packed", mfnv_k.mfn_scan_packed,
+                           mfnv_k.mfn_scan_packed_plain, B, T, dtype, device,
+                           seed, mods, reps)
+
+
+def check_mfn_aligned(B: int, T: int, dtype: torch.dtype, *, device,
+                      seed: int = 0, mods=AVL, reps: int = 5) -> KernelCheck:
+    """Row 9, hidden blocks padded to multiples of ALIGN_HP (pad lanes not
+    counted in the bound)."""
+    return _check_mfn_scan("mfn_scan_aligned", mfnv_k.mfn_scan_aligned,
+                           mfnv_k.mfn_scan_aligned_plain, B, T, dtype, device,
+                           seed, mods, reps)
+
+
+def _label(p) -> str:
+    """The shape label's prefix of a training check at a dropout rate other
+    than the model's."""
+    return "" if p is None else f"p={p} "
 
 
 def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
@@ -285,12 +333,14 @@ def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
 def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, n_layers: int = TRAIN_LAYERS,
-                            reps: int = 5) -> KernelCheck:
+                            reps: int = 5,
+                            p: float | None = None) -> KernelCheck:
     """Kernel 3: the stack's output and every layer's saved input."""
+    rate = ENC_P if p is None else p
     _, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                      seed, D, F, n_layers)
     valid = kmask.bool()
-    args = (kmask, seeds, ENC_P, h)
+    args = (kmask, seeds, rate, h)
     ref = enct_k.encoder_stack_train_fwd_plain([p.double() for p in params],
                                                x.double(), *args)
     plain = enct_k.encoder_stack_train_fwd_plain(params, x, *args)
@@ -300,7 +350,8 @@ def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
     split = lambda o: [o[0]] + [o[1][l] for l in range(1, n_layers)]
     valids = [valid] * n_layers
     return KernelCheck(
-        "encoder_stack_train_fwd", f"B={B} T={T} D={D}", _dtype_name(dtype),
+        "encoder_stack_train_fwd", _label(p) + f"B={B} T={T} D={D}",
+        _dtype_name(dtype),
         _parts(names, split(kern), split(plain), split(ref), valids),
         _finite(split(kern), valids),
         time_ms(lambda: enct_k.encoder_stack_train_fwd(params, x, *args),
@@ -319,16 +370,18 @@ GRAD_NAMES = ("ln1.a", "ln1.b", "q.w", "q.b", "k.w", "k.b", "v.w", "v.b",
 
 def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
-                            F: int = 128, reps: int = 5) -> KernelCheck:
+                            F: int = 128, reps: int = 5,
+                            p: float | None = None) -> KernelCheck:
     """Kernel 4: dx and the 16 parameter grads of one layer, from a random
     layer input and a random output cotangent that is 0 past each video's
     length."""
+    rate = ENC_P if p is None else p
     gen, lp, _, kmask, seeds = _encoder_train_case(B, T, dtype, device, seed,
                                                    D, F, 1)
     x = torch.randn(B, T, D, generator=gen).to(device)
     dy = torch.randn(B, T, D, generator=gen).to(device) * kmask[..., None]
     valid = kmask.bool()
-    args = (kmask, seeds[0], ENC_P, h)
+    args = (kmask, seeds[0], rate, h)
     ref = enct_k.encoder_layer_bwd_plain([p.double() for p in lp], x.double(),
                                          dy.double(), *args)
     plain = enct_k.encoder_layer_bwd_plain(lp, x, dy, *args)
@@ -338,7 +391,8 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
     flat = lambda o: [o[0]] + list(o[1])
     valids = [valid] + [None] * len(lp)
     return KernelCheck(
-        "encoder_layer_bwd", f"B={B} T={T} D={D}", _dtype_name(dtype),
+        "encoder_layer_bwd", _label(p) + f"B={B} T={T} D={D}",
+        _dtype_name(dtype),
         _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
                valids),
         _finite(flat(kern), valids),
@@ -355,19 +409,21 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
 def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, n_layers: int = TRAIN_LAYERS,
-                            reps: int = 5) -> KernelCheck:
+                            reps: int = 5,
+                            p: float | None = None) -> KernelCheck:
     """Kernel 5: dx and the 16 stacked parameter grads of the whole stack,
     from kernel 3's saved layer inputs and a random output cotangent that is
     0 past each video's length; also bit-identical to kernel 4 called for
     every layer, last first (`identical`)."""
+    rate = ENC_P if p is None else p
     gen, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                        seed, D, F, n_layers)
     with torch.no_grad():
         _, saved = enct_k.encoder_stack_train_fwd(params, x, kmask, seeds,
-                                                  ENC_P, h)
+                                                  rate, h)
     dy = torch.randn(B, T, D, generator=gen).to(device) * kmask[..., None]
     valid = kmask.bool()
-    args = (kmask, seeds, ENC_P, h)
+    args = (kmask, seeds, rate, h)
     ref = enct_k.encoder_stack_bwd_plain(_double(params), saved.double(),
                                          dy.double(), *args)
     plain = enct_k.encoder_stack_bwd_plain(params, saved, dy, *args)
@@ -377,7 +433,7 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
         for l in reversed(range(n_layers)):
             g, per_layer[l] = enct_k.encoder_layer_bwd(
                 params[enct_k.N_PARAMS * l:enct_k.N_PARAMS * (l + 1)],
-                saved[l], g, kmask, seeds[l], ENC_P, h)
+                saved[l], g, kmask, seeds[l], rate, h)
     torch.cuda.synchronize()
     identical = torch.equal(kern[0], g) and all(
         torch.equal(a, torch.stack(b)) for a, b in zip(kern[1],
@@ -385,7 +441,8 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
     flat = lambda o: [o[0]] + list(o[1])
     valids = [valid] + [None] * enct_k.N_PARAMS
     c = KernelCheck(
-        "encoder_stack_bwd", f"B={B} T={T} D={D}", _dtype_name(dtype),
+        "encoder_stack_bwd", _label(p) + f"B={B} T={T} D={D}",
+        _dtype_name(dtype),
         _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
                valids),
         _finite(flat(kern), valids),
@@ -402,15 +459,7 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
 
 
 def _mfn_train_case(B, T, dtype, device, seed, mods):
-    gen = torch.Generator().manual_seed(seed)
-    mfn = MFN(mods, MFT_EMBED_DIM, output_dim=1, gen=gen).to(device=device,
-                                                            dtype=dtype)
-    with torch.no_grad():
-        inputs = {m: torch.randn(B, T, MFT_EMBED_DIM[m], generator=gen).to(
-            device=device, dtype=dtype) for m in mods}
-        xps = [x.contiguous() for x in hoisted_inputs(mfn, inputs)]
-    whhs = [getattr(mfn, f"lstm_{m}").weight_hh.detach() for m in mods]
-    gates = [g.detach() for g in mfn.gate_tensors()]
+    gen, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
     return gen, xps, whhs, gates, random_seeds(gen, T, 2)
 
 
@@ -420,59 +469,65 @@ def _double(ts):
 
 @torch.no_grad()
 def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
-                        seed: int = 0, mods=AVL, reps: int = 5) -> KernelCheck:
+                        seed: int = 0, mods=AVL, reps: int = 5,
+                        p: float | None = None) -> KernelCheck:
     """Kernel 6: hs, cs and mems."""
+    ps = MFN_PS if p is None else (p, p)
     _, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
                                                  mods)
     ref = mfnt_k.mfn_train_fwd_plain(_double(xps), _double(whhs),
-                                     _double(gates), seeds, MFN_PS)
-    plain = mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds, MFN_PS)
-    kern = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS)
+                                     _double(gates), seeds, ps)
+    plain = mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds, ps)
+    kern = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps)
     torch.cuda.synchronize()
     valids = [None] * 3
     return KernelCheck(
-        "mfn_train_fwd", f"B={B} T={T} A+V+L", _dtype_name(dtype),
+        "mfn_train_fwd", _label(p) + f"B={B} T={T} A+V+L",
+        _dtype_name(dtype),
         _parts(["hs", "cs", "mems"], kern, plain, ref, valids),
         _finite(kern, valids),
-        time_ms(lambda: mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS),
+        time_ms(lambda: mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps),
                 reps, burst=KERNEL_BURST),
         time_ms(lambda: mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds,
-                                                   MFN_PS), reps, warmup=1),
+                                                   ps), reps, warmup=1),
         *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
                      [*xps, *whhs, *gates, *kern]))
 
 
 def check_mfn_train_bwd(B: int, T: int, dtype: torch.dtype, *, device,
-                        seed: int = 0, mods=AVL, reps: int = 3) -> KernelCheck:
+                        seed: int = 0, mods=AVL, reps: int = 3,
+                        p: float | None = None) -> KernelCheck:
     """Kernel 7: d_xps and every parameter grad, from kernel 6's saved
     states (the same stored states feed all three versions) and random
     cotangents."""
+    ps = MFN_PS if p is None else (p, p)
     gen, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
                                                    mods)
     with torch.no_grad():
-        hs, cs, mems = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, MFN_PS)
+        hs, cs, mems = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps)
     g_hs = torch.randn(hs.shape, generator=gen).to(device)
     g_mems = torch.randn(mems.shape, generator=gen).to(device)
     saved = (hs, cs, mems, g_hs, g_mems)
     ref = mfnt_k.mfn_train_bwd_plain(_double(xps), _double(whhs),
-                                     _double(gates), seeds, MFN_PS,
+                                     _double(gates), seeds, ps,
                                      *_double(saved))
-    plain = mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds, MFN_PS, *saved)
+    plain = mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds, ps, *saved)
     with torch.no_grad():
-        kern = mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, MFN_PS, *saved)
+        kern = mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, ps, *saved)
     torch.cuda.synchronize()
     names = ([f"d_xp[{m}]" for m in mods] + [f"d_whh[{m}]" for m in mods]
              + [f"d_gate[{i}]" for i in range(16)])
     flat = lambda o: list(o[0]) + list(o[1]) + list(o[2])
     valids = [None] * len(names)
     return KernelCheck(
-        "mfn_train_bwd", f"B={B} T={T} A+V+L", _dtype_name(dtype),
+        "mfn_train_bwd", _label(p) + f"B={B} T={T} A+V+L",
+        _dtype_name(dtype),
         _parts(names, flat(kern), flat(plain), flat(ref), valids),
         _finite(flat(kern), valids),
-        time_ms(lambda: mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, MFN_PS,
+        time_ms(lambda: mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, ps,
                                              *saved), reps, burst=KERNEL_BURST),
         time_ms(lambda: mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds,
-                                                   MFN_PS, *saved),
+                                                   ps, *saved),
                 min(reps, 1), warmup=0),
         # each step's forward recomputed from the saved states, and the two
         # products of the backward per forward product
@@ -644,16 +699,3 @@ def check_flash_attention_grad(B: int, h: int, T: int, d_k: int,
         "FlashAttention grad", f"B={B} h={h} T={T} dk={d_k}",
         _dtype_name(dtype), _parts(names, kern, plain, ref, valids),
         _finite(kern, valids), math.nan, math.nan)
-
-
-def unported_bounds(B: int = 32, T: int = 160) -> Dict[str, float]:
-    """Bounds (ms, H100 SXM) of the TPU kernels without a port yet, from the
-    same rule as the checks, at the shapes their JAX dispatch gives them:
-    the packed and lane-padded MFN recurrences (kernel B's function, float32
-    state)."""
-    mfn = MFN(AVL, MFT_EMBED_DIM, output_dim=1)
-    whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in AVL]
-    mfn_ms = 1e3 * B * T * mfn_step_ops(whhs, mfn.gate_tensors()) / \
-        PEAK_OPS_PER_S["fp32"]
-    return {"mfn_scan_pallas_packed": mfn_ms,
-            "mfn_scan_pallas_aligned": mfn_ms}

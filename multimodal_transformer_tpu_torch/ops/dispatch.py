@@ -12,7 +12,8 @@ package's `ops/attention.py` routes it on the TPU:
   * "flash": layer by layer with attention through kernel 11
     (ops/cuda/flash_attention.py), eval in "key_query" mode at longer T;
   * "train": kernels 3 and 4 (ops/cuda/encoder_train.py), training with
-    dropout seeds in "key_query" mode, at every T;
+    dropout seeds in "key_query" mode, at every T, and any call that needs
+    gradients without seeds, at p = 0 (kernel A has no backward);
   * "train_stack": the same with kernel 5 for the backward, one call per
     stack; the caller asks for it with backward="stack" (the JAX package's
     opt-in MMTX_ENC_BWD=stack, an argument here rather than a variable);
@@ -46,20 +47,41 @@ def check_encoder_backward(backward: str) -> str:
 
 
 def encoder_route(on_card: bool, T: int, mask_mode: str, training: bool,
-                  backward: str = "perlayer") -> str:
+                  backward: str = "perlayer", needs_grad: bool = False) -> str:
     """The route of an encoder stack over T steps: on_card is whether its
     input is on a CUDA device and masked; training whether it carries
     dropout seeds; backward the training backward, "perlayer" (kernel 4 per
-    layer, the JAX package's default) or "stack" (kernel 5).  Training keeps
-    the kernels at every T: the JAX package trains past T = 256 through jnp
+    layer, the JAX package's default) or "stack" (kernel 5); needs_grad
+    whether autograd wants gradients of the call.  Training keeps the
+    kernels at every T: the JAX package trains past T = 256 through jnp
     instead, with the same dropout masks, so only the route differs (ROADMAP
-    Queue 3)."""
+    Queue 3).  A call that needs gradients without seeds takes the training
+    route too, at p = 0, as the JAX package differentiates `apply(rng=None)`
+    through its trainable kernels."""
     check_encoder_backward(backward)
     if not on_card or mask_mode != "key_query":
         return "plain"
-    if training:
+    if training or needs_grad:
         return "train_stack" if backward == "stack" else "train"
     return "flash" if T > FLASH_ATTN_MIN_T else "fused"
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these tensors: grad mode is on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raises if autograd would record a call on these tensors: the eval
+    kernels write their outputs through ctypes, with no backward, so their
+    outputs would silently carry no gradient."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: the eval kernel has no backward, and an input or "
+            "parameter requires grad; run it under torch.no_grad() or "
+            "torch.inference_mode(), or differentiate through the training "
+            "route")
 
 
 def check_kernel_dtype(x: torch.Tensor, what: str) -> int:

@@ -3,7 +3,9 @@
 Counterpart of `multimodal_transformer_tpu/ops/mfn_core.py`.  The LSTM input
 projections of every step are hoisted out of the recurrence as one batched
 matmul per modality; the output head runs batched afterwards.  In eval the
-recurrence is `mfn_scan_fused` (ops/cuda/mfn.py).  In training it takes the
+recurrence is `mfn_scan_fused` (ops/cuda/mfn.py, kernel B); on the card, a
+call without seeds that needs gradients takes the training kernels at p = 0
+instead (kernel B has no backward).  In training it takes the
 [T, 2] gamma1/gamma2 dropout seeds: a CUDA tensor goes to the training
 kernels (ops/cuda/mfn_train.py, forward and reverse recurrence), a CPU
 tensor to the plain recurrence with autograd; the head drops out its hidden
@@ -32,7 +34,7 @@ from ..utils.init import init_linear, init_lstm
 from .basic import dropout_with_idx
 from .cuda.mfn import mfn_scan_fused, mfn_scan_fused_plain
 from .cuda.mfn_train import mfn_states_train, mfn_train_fwd_plain
-from .dispatch import use_kernel
+from .dispatch import needs_grad, use_kernel
 
 HIDDEN_DIM = {"linguistic": 88, "emotient": 16, "acoustic": 48, "image": 88}
 MEM_DIM = 128
@@ -97,11 +99,17 @@ def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
     xps = hoisted_inputs(mfn, inputs)
     whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in mfn.mods]
     gates = mfn.gate_tensors()
+    on_card = not plain and use_kernel(xps[0])
     if seeds is None:
-        scan = mfn_scan_fused_plain if plain else mfn_scan_fused
+        if on_card and needs_grad(*xps, *whhs, *gates):
+            # differentiable eval: kernels 6 and 7 at p = 0, as the JAX
+            # package differentiates its eval kernel (`_fwd_call` at p = 0)
+            zeros = torch.zeros(xps[0].shape[1], 2, dtype=torch.int64)
+            return mfn_states_train(xps, whhs, gates, zeros, (0.0, 0.0))
+        scan = mfn_scan_fused if on_card else mfn_scan_fused_plain
         return scan(xps, whhs, gates)
     ps = (DROPOUTS["gamma1"], DROPOUTS["gamma2"])
-    if plain or not use_kernel(xps[0]):
+    if not on_card:
         hs, _, mems = mfn_train_fwd_plain(xps, whhs, gates, seeds, ps)
         return hs, mems
     return mfn_states_train(xps, whhs, gates, seeds, ps)

@@ -135,7 +135,8 @@ def test_cuda_query_mode_raises_without_a_kernel(case, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     assert torch.equal(train, plain_train)
     assert called == []
-    attention.encoder_stack(enc, xt, mt, h=H, mask_mode="key_query")
+    with torch.no_grad():  # eval: a call needing gradients trains at p = 0
+        attention.encoder_stack(enc, xt, mt, h=H, mask_mode="key_query")
     attention.encoder_stack(enc, xt, mt, h=H, mask_mode="key_query",
                             seeds=seeds)
     assert called == ["eval", "train"]

@@ -9,9 +9,12 @@ backward and whole-stack backward, MFN forward and reverse recurrence) at
 B=32, T in {160, 400}, fp32 and bf16, within the competitive bound
 err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
 output tensor, the whole-stack backward also bit-identical to the layer
-backward called per layer; and the encoder's routes: kernel A up to
-T = 512, kernel 11 layer by layer past it, the plain encoder in "query"
-mode, kernel 5 in place of kernel 4 on the "stack" training route.
+backward called per layer, and the training kernels again at p = 0; the
+MFN's packed and aligned variants (rows 8 and 9) at the main path's shape,
+a ragged one and one with the emotient modality; and the routes: kernel A
+up to T = 512, kernel 11 layer by layer past it, the plain encoder in
+"query" mode, kernel 5 in place of kernel 4 on the "stack" training route,
+kernels 3/4 and 6/7 at p = 0 for gradients without seeds.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  On the card, where JAX
 (which tests/conftest.py sets up) is not installed:
@@ -82,6 +85,124 @@ def test_train_kernel_within_bound(device, kernel, T, dtype):
     c = getattr(verify, check)(32, T, DTYPES[dtype], device=device, reps=0)
     assert getattr(mod, counter) > before
     assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kernel", sorted(TRAIN_KERNELS))
+def test_train_kernel_at_p0_within_bound(device, kernel, dtype):
+    """The dropout-free training route's kernels: the same checks at p = 0
+    (keep threshold 0, keep scale 1)."""
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    _, _, check = TRAIN_KERNELS[kernel]
+    c = getattr(verify, check)(32, 160, DTYPES[dtype], device=device, reps=0,
+                               p=0.0)
+    assert c.ok, c.line()
+
+
+# the MFN variants (rows 8 and 9): (B, T, modalities) at the main path's
+# shape, a ragged one and one with the emotient modality (H = 16)
+MFN_VARIANT_SHAPES = {
+    "main": (32, 160, ("acoustic", "image", "linguistic")),
+    "ragged": (3, 7, ("linguistic", "acoustic")),
+    "emotient": (4, 9, ("emotient", "acoustic"))}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(MFN_VARIANT_SHAPES))
+@pytest.mark.parametrize("variant", ["packed", "aligned"])
+def test_mfn_variant_kernel_within_bound(device, variant, shape, dtype):
+    from multimodal_transformer_tpu_torch.ops.cuda import (mfn, mfn_variants,
+                                                           verify)
+    counter = f"{variant}_launches"
+    before = (getattr(mfn_variants, counter), mfn.launches)
+    B, T, mods = MFN_VARIANT_SHAPES[shape]
+    c = getattr(verify, f"check_mfn_{variant}")(B, T, DTYPES[dtype],
+                                                device=device, mods=mods,
+                                                reps=0)
+    assert getattr(mfn_variants, counter) > before[0]
+    assert mfn.launches == before[1]
+    assert c.ok, c.line()
+
+
+def test_mfn_variants_raise_on_what_they_do_not_take(device):
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_variants
+    from multimodal_transformer_tpu_torch.ops.mfn_core import (MFN,
+                                                               hoisted_inputs)
+    mfn = MFN(("acoustic", "linguistic"), {"acoustic": 8, "linguistic": 8},
+              1).to(device)
+    whhs = [mfn.lstm_acoustic.weight_hh, mfn.lstm_linguistic.weight_hh]
+    with torch.no_grad():
+        xps = hoisted_inputs(mfn, {m: torch.randn(2, 5, 8, device=device)
+                                   for m in mfn.mods})
+        for scan in (mfn_variants.mfn_scan_packed,
+                     mfn_variants.mfn_scan_aligned):
+            with pytest.raises(ValueError):
+                scan(xps[:1], whhs, mfn.gate_tensors())
+            with pytest.raises(TypeError):
+                scan([x.half() for x in xps], whhs, mfn.gate_tensors())
+    xps = hoisted_inputs(mfn, {m: torch.randn(2, 5, 8, device=device)
+                               for m in mfn.mods})
+    for scan in (mfn_variants.mfn_scan_packed, mfn_variants.mfn_scan_aligned):
+        with pytest.raises(RuntimeError, match="no backward"):
+            scan(xps, whhs, mfn.gate_tensors())
+
+
+def _within_train_limits(got, want) -> bool:
+    """chip_smoke.py's train limits: each gradient within 1e-3 of its own
+    L2 norm plus 1e-6 of the whole gradient's (the k-projection biases'
+    gradients are mathematically zero, rounding noise on both paths)."""
+    total = torch.sqrt(sum((b.double() ** 2).sum() for b in want))
+    return all((a - b).double().norm() <= 1e-3 * b.double().norm()
+               + 1e-6 * total for a, b in zip(got, want))
+
+
+def test_dropout_free_gradients_take_the_training_kernels(device):
+    """Without seeds and with gradients needed, the encoder takes kernels 3
+    and 4 at p = 0 and the MFN kernels 6 and 7, never kernel A or B; the
+    gradients agree with autograd through the plain path; kernels A and B
+    called directly under autograd raise."""
+    from multimodal_transformer_tpu_torch.ops import mfn_core
+    from multimodal_transformer_tpu_torch.ops.attention import (
+        encoder_stack, encoder_stack_plain)
+    from multimodal_transformer_tpu_torch.ops.cuda import (encoder,
+                                                           encoder_train, mfn,
+                                                           mfn_train, verify)
+    gen = torch.Generator().manual_seed(5)
+    enc = verify.random_encoder(gen).to(device)
+    x = torch.randn(4, 40, 256, generator=gen).to(device).requires_grad_()
+    mask = torch.ones(4, 40, 1, device=device)
+    mask[1, 25:] = 0
+    g = torch.randn(4, 40, 256, generator=gen).to(device) * mask
+    leaves = [x] + list(enc.parameters())
+    for counter in (encoder, encoder_train, mfn, mfn_train):
+        counter.reset_launches()
+    got = torch.autograd.grad(encoder_stack(enc, x, mask,
+                                            mask_mode="key_query"), leaves, g)
+    want = torch.autograd.grad(encoder_stack_plain(enc, x, mask,
+                                                   mask_mode="key_query"),
+                               leaves, g)
+    assert (encoder.launches, encoder_train.fwd_launches,
+            encoder_train.bwd_launches) == (0, 1, 6)
+    assert _within_train_limits(got, want)
+    with pytest.raises(RuntimeError, match="no backward"):
+        encoder.encoder_stack_fused(enc, x, mask)
+
+    m = mfn_core.MFN(("acoustic", "image", "linguistic"),
+                     {k: 16 for k in ("acoustic", "image", "linguistic")}, 1,
+                     gen=gen).to(device)
+    inputs = {k: torch.randn(4, 12, 16, generator=gen).to(device)
+              for k in m.mods}
+    got = torch.autograd.grad(mfn_core.mfn_scan(m, inputs).sum(),
+                              list(m.parameters()))
+    want = torch.autograd.grad(mfn_core.mfn_scan(m, inputs, plain=True).sum(),
+                               list(m.parameters()))
+    assert (mfn.launches, mfn_train.fwd_launches,
+            mfn_train.bwd_launches) == (0, 1, 1)
+    assert _within_train_limits(got, want)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mfn.mfn_scan_fused(mfn_core.hoisted_inputs(m, inputs),
+                           [getattr(m, f"lstm_{k}").weight_hh for k in m.mods],
+                           m.gate_tensors())
 
 
 # (frames, mod dim, window embed) of the front end's shapes at B=32, T=160

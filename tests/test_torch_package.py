@@ -151,7 +151,7 @@ def test_library_name_follows_the_sources():
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libmmtx_")
     assert {s.name for s in _build.sources()} == {
         "encoder.cu", "mfn.cu", "encoder_train.cu", "mfn_train.cu",
-        "window_embed.cu", "flash_attention.cu"}
+        "window_embed.cu", "flash_attention.cu", "mfn_variants.cu"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
