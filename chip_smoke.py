@@ -95,6 +95,8 @@ import copy
 import json
 import logging
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -165,10 +167,13 @@ FAMILIES = (
      {"window_embed_highway": 1, "encoder_stack_fused": 1}, 5e-3),
 )
 # kernel 11's checks, (B, h, T, d_k, videos with no key): the long-video
-# buckets at D = 256 (d_k = 32), and a ragged T with d_k = 2 (the emotient
-# encoder, D = 16); its Function's gradients at (B, h, T, d_k)
+# buckets at D = 256 (d_k = 32) up to the largest (1,120), a ragged T with
+# videos with no key, d_k = 16 (the other TMA + wgmma instance), and a
+# ragged T with d_k = 2 (the emotient encoder, D = 16); its Function's
+# gradients at (B, h, T, d_k)
 FLASH_SHAPES = ((32, 8, 544, 32, 0), (32, 8, 640, 32, 0),
-                (32, 8, 1024, 32, 0), (5, 8, 601, 2, 2))
+                (32, 8, 1024, 32, 0), (32, 8, 1120, 32, 0),
+                (32, 8, 601, 32, 2), (32, 8, 544, 16, 0), (5, 8, 601, 2, 2))
 FLASH_GRAD = (4, 8, 544, 32)
 # long videos: one request of LONG_VIDEOS videos of LONG_MIN..LONG_MAX
 # windows, every bucket past 512; (name, family, modalities, kernel
@@ -248,6 +253,56 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         raise SmokeFailure(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# kernel 11's bf16 path at d_k in {16, 32} (TMA + wgmma), by its symbol
+FLASH_WGMMA = "flash_wgmma_kernel"
+
+
+def ptxas_lines(log: str, symbol: str) -> list:
+    """nvcc -Xptxas -v's lines for the kernels whose symbol contains
+    `symbol`: the entry, its stack and spills, its registers."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            keep = symbol in line
+        if keep:
+            lines.append(line.strip())
+    return lines
+
+
+def find_cuobjdump():
+    """cuobjdump from the CUDA toolkit or from Triton's package, or None."""
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+             / "cuobjdump"]
+    try:
+        import triton
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia"
+                     / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    found = [str(c) for c in cands if c.is_file()]
+    return found[0] if found else shutil.which("cuobjdump")
+
+
+def sass_check(lib_path, symbol: str, wanted=("HGMMA", "UTMALDG")) -> str:
+    """Whether the SASS of each kernel whose symbol contains `symbol` holds
+    each of `wanted`, or "not checked" without cuobjdump."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return "not checked (no cuobjdump)"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return f"not checked (cuobjdump failed: {out.stderr.strip()[:200]})"
+    found = []
+    for fn in out.stdout.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if symbol in name:
+            found.append(name + ": " + ", ".join(
+                f"{w} {'yes' if w in fn else 'NO'}" for w in wanted))
+    return "; ".join(found) if found else f"no function matching {symbol}"
 
 
 def n_batches(lens, batch_size: int, time_multiple: int) -> int:
@@ -1321,6 +1376,10 @@ def main() -> int:
     lib_path = _build.build(verbose=True)
     _build.load()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in ptxas_lines(_build.build_log, FLASH_WGMMA):
+        print(f"ptxas {line}", flush=True)
+    print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
 
     phase("kernels against their plain versions")

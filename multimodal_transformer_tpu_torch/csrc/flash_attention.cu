@@ -20,29 +20,56 @@
 //
 // What bounds it on the H100: at the long-video route's shapes (BH = 32 x 8,
 // T = 544..1120, DK = 32) one call moves ~36-73 MB of bf16 q, k, v and out
-// and does 4 BH T^2 DK = 9.7-41 GFLOP, so in bf16 it sits at the ridge of
-// the bytes (~11-22 us) and the tensor cores (~10-42 us); in fp32 every
-// product runs on the FMA pipes (67 TFLOP/s) and bounds it (~0.15-0.6 ms).
+// and does 4 BH T^2 DK = 9.7-41 GFLOP (14.6-62 with the split p below), so in
+// bf16 it sits near the ridge of the bytes (~11-22 us), the tensor cores
+// (~15-62 us) and the exponentials (one per score on the SFUs, ~20-85 us);
+// in fp32 every product runs on the FMA pipes (67 TFLOP/s) and bounds it
+// (~0.15-0.6 ms).  Measured on an H100, the bf16 path is held by its p.v:
+// DK = 32 makes each p.v wgmma a small m64n32k16, and the split p needs 16
+// of them per 128-key tile, which run far below the tensor cores' rate.
 //
-// What the design does about it, simple first (no wgmma, no TMA):
-//   * One block per (bh, 64-query tile); the key loop runs inside the block
-//     over 64-key tiles of k, v and the mask in shared memory, double
-//     buffered with cp.async (the copy of tile i + 1 in flight while tile i
-//     is multiplied); the ragged key tail is zero-filled by the copy and
-//     excluded in the softmax.  Nothing quadratic in T touches memory.
-//   * bf16: 4 warps of 16 query rows each.  q.k^T runs on the tensor cores
-//     (mma.sync m16n8k16, fp32 accumulation: exact products summed in fp32,
-//     as the TPU kernel's preferred_element_type); the scores stay in the
-//     accumulator registers, which are exactly the A fragments of p @ v.  The
-//     TPU kernel keeps p in fp32 for p @ v; here p = hi + lo with hi and lo
-//     bf16 (a split-bf16 product, two mma.sync per fragment): v is bf16
-//     already, so each product is exact to ~2^-17 of p, far inside the
-//     output's bf16 rounding (2^-9), and p @ v stays on the tensor cores.
-//     DK < 16 is zero-padded to one k step of 16 in shared memory.
+// Three paths, chosen by the wrapper from (dtype, DK) and checked here:
+//   * bf16, DK in {16, 32} (the encoders' D = 256 at h = 8 is DK = 32): one
+//     block per (bh, 128-query tile), three warpgroups.  Warpgroup 0 is the
+//     producer: one thread loads each 128-key tile of K and V with TMA (3-D
+//     tensor maps (DK, Tk, BH), box (DK, 128, 1), so a tile never crosses
+//     into the next head; keys >= Tk are zero-filled by the hardware), and
+//     its warp copies the tile's 128 mask values with 4-byte cp.async (the
+//     [B, Tk] mask's rows are 16-byte multiples only when Tk % 4 == 0, and
+//     T = 601's are not, so TMA cannot take them), into a 3-stage ring
+//     tracked by a full and an empty mbarrier per stage: the full barrier
+//     completes on the TMA's bytes and the warp's copies
+//     (cp.async.mbarrier.arrive), so the producer never waits on a load;
+//     `setmaxnreg` gives its registers to the consumers.
+//     Warpgroups 1 and 2 consume 64 query rows each (a warpgroup whose rows
+//     are all past Tq only frees the stages): s = q'.k^T on wgmma
+//     m64n128k16 with q' in registers (RS) and K read K-major from the
+//     swizzled tile; each warp turns the mask tile into bit words with
+//     ballots; the online softmax runs on the accumulator registers with
+//     exp2 of s log2(e) - m log2(e); o += p.v on wgmma m64n{DK}k16 with V
+//     read MN-major (the transpose bit), where the score accumulators are
+//     exactly the A fragments of p.  Tile i's scores and tile i - 1's p.v
+//     are issued together, and p.v runs while tile i's softmax does (two
+//     score buffers); the two consumers take turns to issue them (named
+//     barriers), so one's softmax runs while the other's products do.  The TPU kernel keeps p in fp32 for p @ v; here
+//     p = hi + lo with hi and lo bf16 (a split-bf16 product, two wgmma per
+//     k step): v is bf16 already, so each product is exact to ~2^-17 of p,
+//     far inside the output's bf16 rounding (2^-9).  A consumer warp frees
+//     a stage once its wgmmas on it have completed.  The output leaves
+//     through shared memory as 16-byte rows.
+//   * bf16, DK in {2, 4, 8} (the emotient encoder, D = 16): a row is under
+//     TMA's 16-byte minimum and wgmma's k depth, so one block per (bh,
+//     64-query tile) of 4 warps of 16 rows; 64-key tiles of k, v and the
+//     mask double buffered with cp.async, zero-padded to one k step of 16;
+//     q.k^T and the split-bf16 p.v on mma.sync m16n8k16.
 //   * fp32: 4 threads share a query row; each scores every fourth key of a
-//     tile and keeps its own partial p @ v over its keys (float4 reads of
-//     shared memory, conflict-free row stride DK + 4), and the four partial
-//     sums are joined by shuffles at the end, so no p tile is stored.
+//     64-key tile (cp.async, double buffered) and keeps its own partial
+//     p @ v over its keys (float4 reads of shared memory, conflict-free row
+//     stride DK + 4), and the four partial sums are joined by shuffles at
+//     the end, so no p tile is stored.
+
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is reached
+                   // through the runtime, so nothing links libcuda
 
 #include "common.cuh"
 
@@ -374,45 +401,644 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, DK in {16, 32}: TMA into an mbarrier ring, both products on wgmma.
+
+namespace hopper {
+
+constexpr int kConsumers = 2;                 // warpgroups of 64 query rows
+constexpr int QT = 64 * kConsumers, KT = 128;  // query rows per block, keys per tile
+constexpr int STAGES = 3;                     // K/V tiles in flight
+constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 produces
+// 128 * 40 + 256 * 232 = 384 * 168, the registers of the block at entry
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, from a 1024-byte aligned base: K tiles, V tiles (each
+// 128 rows of DK bf16, swizzled over the row's 32 or 64 bytes, as TMA
+// writes them and wgmma reads them), the consumers' output staging, the
+// mask tiles (128 fp32 each) and the barriers (full[STAGES],
+// empty[STAGES]).
 template <int DK>
-void launch(int dtype, const void* q, const void* k, const void* v, const float* km,
-            void* out, int BH, int Tq, int Tk, int h, float scale, cudaStream_t st) {
+struct Layout {
+  static constexpr int kRowBytes = DK * 2;           // the swizzle span
+  static constexpr int kGroupBytes = 8 * kRowBytes;  // 8 rows: the descriptors' stride
+  static constexpr int kTileBytes = KT * kRowBytes;
+  static constexpr int kOutLd = kRowBytes + 16;      // staging row stride, no bank conflicts
+  static constexpr int kK = 0;
+  static constexpr int kV = STAGES * kTileBytes;
+  static constexpr int kOut = 2 * STAGES * kTileBytes;
+  static constexpr int kMask = kOut + kConsumers * 64 * kOutLd;
+  static constexpr int kMaskBytes = KT * 4;
+  static constexpr int kBar = kMask + STAGES * kMaskBytes;
+  static constexpr int kDynamic = kBar + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static constexpr uint64_t kSwizzle = DK == 32 ? 2 : 3;  // descriptor mode: 64B or 32B
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of the given parity to complete.  A ring that never
+// fills is a fault of the kernel: after ~10 s the block traps, so the
+// launch fails rather than hangs.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// One box of a 3-D tensor map into shared memory; completion is counted
+// in bytes on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar)
+      : "memory");
+}
+// An arrival on the barrier once this thread's earlier cp.async copies
+// have landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar)
+               : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, the stride between 8-row
+// groups in both offset fields (the other field is unused at these widths:
+// one k step of K and all DK columns of V lie within one swizzle row), and
+// the swizzle mode.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t group_bytes,
+                                              uint64_t mode) {
+  const uint64_t off = (group_bytes >> 4) & 0x3FFF;
+  return ((addr >> 4) & 0x3FFF) | (off << 16) | (off << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from reading accumulators before the wait above.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Named barriers of the two consumer warpgroups (id 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d = a . B (scale_d 0) or d += a . B on wgmma m64n128k16: bf16 A from
+// registers, B K-major in shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,"
+      "%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,"
+      "%59,%60,%61,%62,%63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d = a . B (scale_d 0) or d += a . B on wgmma m64n32k16: bf16 A from
+// registers, B MN-major (transposed) in shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_n32_t(float (&d)[16], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d = a . B (scale_d 0) or d += a . B on wgmma m64n16k16: bf16 A from
+// registers, B MN-major (transposed) in shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_n16_t(float (&d)[8], const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <int DK>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DK / 2], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  if constexpr (DK == 32) {
+    wgmma_n32_t(o, a, desc, 1);
+  } else {
+    wgmma_n16_t(o, a, desc, 1);
+  }
+}
+
+template <int DK>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv, const bf16* __restrict__ q,
+                   const float* __restrict__ kmask, bf16* __restrict__ out, int Tq,
+                   int Tk, int h, float scale) {
+  using L = Layout<DK>;
+  constexpr int KS = DK / 16;  // k steps of q.k^T
+  constexpr int NO = DK / 2;   // output accumulators per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* masks = reinterpret_cast<float*>(smem + L::kMask);
+  const uint32_t full0 = base + L::kBar, empty0 = full0 + 8 * STAGES;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * QT;
+  const int n = (Tk + KT - 1) / KT;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 33);    // the TMA's bytes, the 32 lanes' copies
+      mbar_init(empty0 + 8 * s, 4 * kConsumers);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one warp loads, the other three leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (warp != 0) return;
+    const float* km = kmask + (size_t)(bh / h) * Tk;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES, k0 = i * KT;
+      const uint32_t full = full0 + 8 * s;
+      mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(full, 2 * L::kTileBytes);
+        tma_load(base + L::kK + s * L::kTileBytes, &tmk, 0, k0, bh, full);
+        tma_load(base + L::kV + s * L::kTileBytes, &tmv, 0, k0, bh, full);
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {  // zeros past Tk
+        const int key = k0 + 32 * w + lane;
+        cp_async<4>(masks + s * KT + 32 * w + lane, km + (key < Tk ? key : 0), key < Tk);
+      }
+      mbar_arrive_cp_async(full);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int c = wg - 1;
+  auto release = [&](int i) {  // this warp is done with tile i's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * (i % STAGES));
+  };
+  if (q0 + 64 * c >= Tq) {
+    // every row of this warpgroup is past Tq (the last query tile of a
+    // ragged T): free each stage once it has filled, compute nothing
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(full0 + 8 * (i % STAGES), (i / STAGES) & 1);
+      release(i);
+    }
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = 64 * c + 16 * warp + g;  // the thread's first row in the block
+  const int r0 = q0 + lr, r1 = r0 + 8;
+
+  // q' fragments (the A operand of q.k^T in registers): rows r0 and r1,
+  // columns 16 ks + 2t, + 1, + 8, + 9
+  const bf16* qb = q + (size_t)bh * Tq * DK;
+  auto qpair = [&](int r, int col) -> uint32_t {
+    if (r >= Tq) return 0u;
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(qb + (size_t)r * DK + col));
+    return as_u32(__floats2bfloat162_rn(f.x * scale, f.y * scale));
+  };
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int col = 16 * ks + 2 * t;
+    qa[ks][0] = qpair(r0, col);
+    qa[ks][1] = qpair(r1, col);
+    qa[ks][2] = qpair(r0, col + 8);
+    qa[ks][3] = qpair(r1, col + 8);
+  }
+
+  // Two score tiles (one being scored while the other's p is multiplied by
+  // V): s[4j + e] is row g, s[4j + 2 + e] row g + 8 (of the warp's 16) at
+  // key 8j + 2t + e; o the same over the DK columns.
+  float sa[64], sb[64], o[NO];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sa[i] = sb[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = kMaskedScore, m1 = kMaskedScore, l0 = 0.f, l1 = 0.f;
+
+  // s = q' K_i^T (one commit group)
+  auto issue_scores = [&](float (&s)[64], int i) {
+    const uint32_t kt = base + L::kK + (i % STAGES) * L::kTileBytes;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_n128(s, qa[ks], smem_desc(kt + 32 * ks, L::kGroupBytes, L::kSwizzle), ks);
+    wg_commit();
+  };
+  // o += p V_i over 8 steps of 16 keys, p's (hi, lo) pairs in place of the
+  // scores: score tiles 2kk and 2kk + 1 are the A fragment of step kk (one
+  // commit group)
+  auto issue_pv = [&](float (&p)[64], int i) {
+    const uint32_t vt = base + L::kV + (i % STAGES) * L::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const float* f = p + 8 * kk;
+      const uint32_t ph[4] = {__float_as_uint(f[0]), __float_as_uint(f[2]),
+                              __float_as_uint(f[4]), __float_as_uint(f[6])};
+      const uint32_t pl[4] = {__float_as_uint(f[1]), __float_as_uint(f[3]),
+                              __float_as_uint(f[5]), __float_as_uint(f[7])};
+      const uint64_t dv = smem_desc(vt + 16 * kk * L::kRowBytes, L::kGroupBytes, L::kSwizzle);
+      wgmma_pv<DK>(o, ph, dv);
+      wgmma_pv<DK>(o, pl, dv);
+    }
+    wg_commit();
+  };
+  // The online softmax of tile i on its scores, in place: the mask, the new
+  // running max, p = 2^(s log2 e - m log2 e) (one FFMA and one MUFU.EX2 a
+  // score; a row whose keys are all masked gets one power of two for every
+  // key, so it stays the uniform mean), the running sum, and each pair
+  // (s[2i], s[2i + 1]) turned into the bf16 pairs (hi, lo) of p = hi + lo.
+  // Returns in a0, a1 the factors of the rows' earlier sums.
+  auto softmax = [&](float (&s)[64], int i, float& a0, float& a1) {
+    // the tile's keys as bit words (key 32w + b is bit b of word w): kept
+    // (in range, mask != 0) and in range
+    const float* mt = masks + (i % STAGES) * KT;
+    const int live = Tk - i * KT;
+    uint32_t kw[4], lw[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const bool in = 32 * w + lane < live;
+      kw[w] = __ballot_sync(0xffffffffu, in && mt[32 * w + lane] != 0.f);
+      lw[w] = __ballot_sync(0xffffffffu, in);
+    }
+    if ((kw[0] & kw[1] & kw[2] & kw[3]) != 0xffffffffu) {  // a key masked or past Tk
+      uint32_t kb[4], lb[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        kb[w] = kw[w] >> (2 * t);
+        lb[w] = lw[w] >> (2 * t);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int bit = 8 * (j & 3) + e;
+          if (!((kb[j >> 2] >> bit) & 1u)) {
+            const float fill = ((lb[j >> 2] >> bit) & 1u) ? kMaskedScore : -INFINITY;
+            s[4 * j + e] = fill;
+            s[4 * j + 2 + e] = fill;
+          }
+        }
+      }
+    }
+    float x0[8], x1[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x0[j] = fmaxf(fmaxf(s[8 * j], s[8 * j + 1]), fmaxf(s[8 * j + 4], s[8 * j + 5]));
+      x1[j] = fmaxf(fmaxf(s[8 * j + 2], s[8 * j + 3]), fmaxf(s[8 * j + 6], s[8 * j + 7]));
+    }
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1) {
+#pragma unroll
+      for (int j = 0; j < w; ++j) {
+        x0[j] = fmaxf(x0[j], x0[j + w]);
+        x1[j] = fmaxf(x1[j], x1[j + w]);
+      }
+    }
+    float mx0 = x0[0], mx1 = x1[0];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // the 4 threads of a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // every tile holds a key < Tk, so mx >= -1e9 and the new max is finite
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    a0 = ex2((m0 - mn0) * kLog2e);
+    a1 = ex2((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = mn0 * kLog2e, ml1 = mn1 * kLog2e;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p0 = ex2(fmaf(s[4 * j], kLog2e, -ml0));
+      const float p1 = ex2(fmaf(s[4 * j + 1], kLog2e, -ml0));
+      const float p2 = ex2(fmaf(s[4 * j + 2], kLog2e, -ml1));
+      const float p3 = ex2(fmaf(s[4 * j + 3], kLog2e, -ml1));
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      uint32_t hi, lo;
+      split_bf16(p0, p1, hi, lo);
+      s[4 * j] = __uint_as_float(hi);
+      s[4 * j + 1] = __uint_as_float(lo);
+      split_bf16(p2, p3, hi, lo);
+      s[4 * j + 2] = __uint_as_float(hi);
+      s[4 * j + 3] = __uint_as_float(lo);
+    }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+  };
+
+  // The consumers take turns to issue their wgmmas (barrier 1 + c is
+  // consumer c's turn), so one's softmax runs while the other's products
+  // do; without the turns both would wait on the same stage, multiply
+  // together, then take their exponentials together.  Each issues n + 1
+  // times; a block whose second consumer has no rows takes no turns.
+  const bool turns = kConsumers == 2 && q0 + 64 < Tq;
+  auto my_turn = [&]() {
+    if (turns) bar_sync(1 + c, 256);
+  };
+  auto your_turn = [&]() {
+    if (turns) bar_arrive(2 - c, 256);
+  };
+  if (c == 1) your_turn();  // consumer 0 goes first
+
+  // tile 0
+  float a0, a1;
+  mbar_wait(full0, 0);
+  my_turn();
+  wg_fence();
+  issue_scores(sa, 0);
+  your_turn();
+  wg_wait<0>();
+  fence_regs(sa);
+  softmax(sa, 0, a0, a1);  // o is still 0
+  // tile i: its scores and tile i - 1's p V in flight together, then its
+  // softmax while p V runs, then o rescaled to the new max
+  auto step = [&](float (&s)[64], float (&p)[64], int i) {
+    mbar_wait(full0 + 8 * (i % STAGES), (i / STAGES) & 1);
+    my_turn();
+    wg_fence();
+    issue_scores(s, i);
+    issue_pv(p, i - 1);
+    your_turn();
+    wg_wait<1>();
+    fence_regs(s);
+    float b0, b1;
+    softmax(s, i, b0, b1);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    release(i - 1);
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      o[4 * j] *= b0;
+      o[4 * j + 1] *= b0;
+      o[4 * j + 2] *= b1;
+      o[4 * j + 3] *= b1;
+    }
+  };
+  auto last_pv = [&](float (&p)[64]) {
+    my_turn();
+    wg_fence();
+    issue_pv(p, n - 1);
+    your_turn();
+    wg_wait<0>();
+    fence_regs(o);
+    release(n - 1);
+  };
+  int i = 1;
+  for (; i + 1 < n; i += 2) {  // two tiles an iteration: the buffers trade roles
+    step(sb, sa, i);
+    step(sa, sb, i + 1);
+  }
+  if (i < n) {
+    step(sb, sa, i);
+    last_pv(sb);
+  } else {
+    last_pv(sa);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // through the warp's 16 staging rows, then 16-byte rows to global memory
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  uint8_t* stage_out = smem + L::kOut;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(stage_out + lr * L::kOutLd + 2 * col) =
+        __floats2bfloat162_rn(o[4 * j] * i0, o[4 * j + 1] * i0);
+    *reinterpret_cast<__nv_bfloat162*>(stage_out + (lr + 8) * L::kOutLd + 2 * col) =
+        __floats2bfloat162_rn(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+  }
+  __syncwarp();
+  constexpr int CPR = L::kRowBytes / 16;  // 16-byte chunks per row
+  const int wr = 64 * c + 16 * warp;      // the warp's first row in the block
+#pragma unroll
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int rr = i / CPR, ch = i % CPR;
+    const int row = q0 + wr + rr;
+    if (row < Tq)
+      *reinterpret_cast<uint4*>(out + ((size_t)bh * Tq + row) * DK + 8 * ch) =
+          *reinterpret_cast<const uint4*>(stage_out + (wr + rr) * L::kOutLd + 16 * ch);
+  }
+}
+
+}  // namespace hopper
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a [BH, Tk, DK] bf16 tensor, dims innermost first, one box a
+// 128-key tile of one head, swizzled over its DK * 2-byte rows.
+template <int DK>
+bool tensor_map(CUtensorMap* map, const void* t, int BH, int Tk) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)DK, (cuuint64_t)Tk, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DK * 2, (cuuint64_t)Tk * DK * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)DK, (cuuint32_t)hopper::KT, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            DK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DK>
+int launch_hopper(const void* q, const void* k, const void* v, const float* km, void* out,
+                  int BH, int Tq, int Tk, int h, float scale, cudaStream_t st) {
+  using L = hopper::Layout<DK>;
+  const auto kernel = hopper::flash_wgmma_kernel<DK>;
+  static int setup = -1;  // cudaError_t of the one-time set-up
+  if (setup < 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDynamic);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    // setmaxnreg.inc waits for registers the producer released: the block
+    // must start with all of them, or the consumers would wait forever
+    if (err == cudaSuccess &&
+        attr.numRegs * hopper::kThreads <
+            128 * (hopper::kProducerRegs + hopper::kConsumers * hopper::kConsumerRegs))
+      err = cudaErrorInvalidConfiguration;
+    setup = (int)err;
+  }
+  if (setup != 0) return setup;
+  CUtensorMap tmk, tmv;
+  if (!tensor_map<DK>(&tmk, k, BH, Tk) || !tensor_map<DK>(&tmv, v, BH, Tk))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Tq + hopper::QT - 1) / hopper::QT, BH);
+  kernel<<<grid, hopper::kThreads, L::kDynamic, st>>>(
+      tmk, tmv, static_cast<const bf16*>(q), km, static_cast<bf16*>(out), Tq, Tk, h, scale);
+  return (int)cudaGetLastError();
+}
+
+enum Path : int { kPathFma = 0, kPathMma = 1, kPathWgmma = 2 };
+
+template <int DK>
+int launch(int path, const void* q, const void* k, const void* v, const float* km,
+           void* out, int BH, int Tq, int Tk, int h, float scale, cudaStream_t st) {
   const dim3 grid((Tq + QT - 1) / QT, BH);
-  if (dtype == kBF16) {
-    flash_bf16_kernel<DK><<<grid, kThreads16, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), km, static_cast<bf16*>(out), Tq, Tk, h, scale);
+  if (path == kPathWgmma) {
+    if constexpr (DK >= 16) {
+      return launch_hopper<DK>(q, k, v, km, out, BH, Tq, Tk, h, scale, st);
+    }
+  } else if (path == kPathMma) {
+    if constexpr (DK < 16) {
+      flash_bf16_kernel<DK><<<grid, kThreads16, 0, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), km, static_cast<bf16*>(out), Tq, Tk, h, scale);
+      return (int)cudaGetLastError();
+    }
   } else {
     flash_f32_kernel<DK><<<grid, kThreads32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), km, static_cast<float*>(out), Tq, Tk, h, scale);
+    return (int)cudaGetLastError();
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash
 }  // namespace mmtx
 
-// C entry.  q/out [BH, Tq, DK], k/v [BH, Tk, DK], all contiguous and 16-byte
-// aligned, in the storage dtype (0 fp32, 1 bf16); kmask [BH / h, Tk] fp32;
-// scale: 1/sqrt(DK) rounded to the storage dtype.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int mmtx_flash_attention(int dtype, const void* q, const void* k,
+// C entry.  path: 0 fp32 (FMA pipes), 1 bf16 with DK < 16 (mma.sync), 2 bf16
+// with DK in {16, 32} (TMA + wgmma); it must be the one of (dtype, DK), as
+// the wrapper's kernel_path chooses it.  q/out [BH, Tq, DK], k/v [BH, Tk, DK],
+// all contiguous and 16-byte aligned, in the storage dtype (0 fp32, 1 bf16);
+// kmask [BH / h, Tk] fp32; scale: 1/sqrt(DK) rounded to the storage dtype.
+// Returns cudaGetLastError() after the launch, or the error of a set-up step.
+extern "C" int mmtx_flash_attention(int path, int dtype, const void* q, const void* k,
                                     const void* v, const void* kmask, void* out,
                                     int BH, int Tq, int Tk, int DK, int h, float scale,
                                     void* stream) {
   using namespace mmtx;
+  using namespace mmtx::flash;
   if ((dtype != kF32 && dtype != kBF16) || BH < 1 || Tq < 1 || Tk < 1 || h < 1 ||
       BH % h != 0)
     return (int)cudaErrorInvalidValue;
+  const int want = dtype == kF32 ? kPathFma : (DK >= 16 ? kPathWgmma : kPathMma);
+  if (path != want) return (int)cudaErrorInvalidValue;
   const float* km = static_cast<const float*>(kmask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (DK) {
-    case 2: flash::launch<2>(dtype, q, k, v, km, out, BH, Tq, Tk, h, scale, st); break;
-    case 4: flash::launch<4>(dtype, q, k, v, km, out, BH, Tq, Tk, h, scale, st); break;
-    case 8: flash::launch<8>(dtype, q, k, v, km, out, BH, Tq, Tk, h, scale, st); break;
-    case 16: flash::launch<16>(dtype, q, k, v, km, out, BH, Tq, Tk, h, scale, st); break;
-    case 32: flash::launch<32>(dtype, q, k, v, km, out, BH, Tq, Tk, h, scale, st); break;
+    case 2: return launch<2>(path, q, k, v, km, out, BH, Tq, Tk, h, scale, st);
+    case 4: return launch<4>(path, q, k, v, km, out, BH, Tq, Tk, h, scale, st);
+    case 8: return launch<8>(path, q, k, v, km, out, BH, Tq, Tk, h, scale, st);
+    case 16: return launch<16>(path, q, k, v, km, out, BH, Tq, Tk, h, scale, st);
+    case 32: return launch<32>(path, q, k, v, km, out, BH, Tq, Tk, h, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

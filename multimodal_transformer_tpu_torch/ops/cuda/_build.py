@@ -56,12 +56,15 @@ _SIGNATURES = {
                            _I, _P],
     "mmtx_window_embed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P],
-    "mmtx_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _P],
+    "mmtx_flash_attention": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# nvcc's output of the last verbose build (-Xptxas -v: registers, shared
+# memory and spills of every kernel); empty when the library was cached
+build_log = ""
 
 
 class KernelBuildError(RuntimeError):
@@ -94,6 +97,7 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
+    global build_log
     out = library_path()
     if out.is_file():
         return out
@@ -119,8 +123,8 @@ def build(verbose: bool = False) -> Path:
                 f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
                 f"{proc.stdout}\n{proc.stderr}")
         if verbose:
-            print("".join(log for _, log, _ in logs), file=sys.stderr,
-                  flush=True)
+            build_log = "".join(log for _, log, _ in logs)
+            print(build_log, file=sys.stderr, flush=True)
         os.replace(lib, out)
     return out
 

@@ -8,7 +8,12 @@ mask is [BH // h, Tk]: the mask of each video, shared by its h heads (h=1
 takes a [BH, Tk] mask), so the repeat over heads is never materialised.
 
 `flash_attention_masked` launches the CUDA kernel for a CUDA tensor and runs
-`flash_attention_masked_plain` for a CPU tensor.  The plain version is the
+`flash_attention_masked_plain` for a CPU tensor.  The kernel has three
+paths, chosen by `kernel_path(dtype, d_k)` and passed to the C entry, which
+refuses any other: float32 on the FMA pipes; bf16 with d_k < 16 on
+`mma.sync` (a row is under TMA's 16 bytes and `wgmma`'s k depth); bf16
+with d_k in {16, 32} through TMA and `wgmma`.  None stands in for another:
+a path that fails to build or launch raises.  The plain version is the
 dense key-masked attention with the kernel's rounding points: q is
 multiplied by 1/sqrt(d_k) in its storage dtype (the scale itself rounded to
 that dtype, as the Pallas kernel's `q * scale` takes the Python scale as a
@@ -34,6 +39,8 @@ from . import _build
 
 NEG_INF = -1e9
 SUPPORTED_DK = (2, 4, 8, 16, 32)
+# the kernel's paths (csrc/flash_attention.cu, enum Path)
+PATH_FMA, PATH_MMA, PATH_WGMMA = 0, 1, 2
 
 # Number of kernel launches (one per attention call) since the last reset.
 launches = 0
@@ -48,6 +55,19 @@ def q_scale(d_k: int, dtype: torch.dtype) -> float:
     """1/sqrt(d_k) rounded to dtype: the factor q is multiplied by."""
     return torch.tensor(1.0 / math.sqrt(d_k),
                         dtype=torch.float64).to(dtype).item()
+
+
+def kernel_path(dtype: torch.dtype, d_k: int) -> int:
+    """The kernel path of (dtype, d_k): PATH_FMA for float32, PATH_MMA for
+    bf16 with d_k < 16, PATH_WGMMA for bf16 with d_k in {16, 32}."""
+    if d_k not in SUPPORTED_DK:
+        raise ValueError(f"flash_attention_masked: d_k={d_k} not in "
+                         f"{SUPPORTED_DK}")
+    if dtype == torch.float32:
+        return PATH_FMA
+    if dtype == torch.bfloat16:
+        return PATH_WGMMA if d_k >= 16 else PATH_MMA
+    raise TypeError(f"flash_attention_masked: no kernel path for {dtype}")
 
 
 def flash_attention_masked_plain(q, k, v, kmask, h: int = 1):
@@ -111,9 +131,9 @@ def flash_attention_masked(q, k, v, kmask, h: int = 1):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mmtx_flash_attention(
-            dtype_code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            km.data_ptr(), out.data_ptr(), BH, Tq, k.shape[1], d_k, h,
-            q_scale(d_k, q.dtype), stream)
+            kernel_path(q.dtype, d_k), dtype_code, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), km.data_ptr(), out.data_ptr(), BH,
+            Tq, k.shape[1], d_k, h, q_scale(d_k, q.dtype), stream)
     _build.check(rc, "flash_attention_masked")
     launches += 1
     return out

@@ -2,10 +2,13 @@
 phases of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
 B=32, T=160 A+V+L, kernel 10 (window embed) at the front end's four shapes
 and its autograd Function's gradients, kernel 11 (flash attention) at the
-long-video buckets' shapes (B*h = 32*8, T in {544, 640, 1024}, d_k = 32) and
-a ragged case (T = 601, d_k = 2, videos with no key) and its Function's
-gradients, and the five training kernels (encoder stack forward, layer
-backward and whole-stack backward, MFN forward and reverse recurrence) at
+long-video buckets' shapes (B*h = 32*8, T in {544, 640, 1024, 1120}, d_k =
+32, and T = 544, d_k = 16) and ragged cases (T = 601, d_k = 32 and d_k = 2,
+videos with no key), its TMA + wgmma path (bf16, d_k in {16, 32}) at T in
+{137, 544, 601, 1024, 1120} with videos with no key and on one-hot q and k
+whose output is known exactly, and its Function's gradients on both d_k,
+and the five training kernels (encoder stack forward, layer backward and
+whole-stack backward, MFN forward and reverse recurrence) at
 B=32, T in {160, 400}, fp32 and bf16, within the competitive bound
 err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
 output tensor, the whole-stack backward also bit-identical to the layer
@@ -235,9 +238,13 @@ def test_window_embed_function_grads_within_bound(device, dtype):
 
 
 # (B, h, T, d_k, videos with every key masked) of kernel 11: the long-video
-# buckets at D = 256, and a ragged T with d_k = 2 (the emotient encoder)
+# buckets at D = 256 up to 1,120, ragged T with d_k = 32 and d_k = 2 (the
+# emotient encoder), and d_k = 16
 FLASH_SHAPES = {"T544": (32, 8, 544, 32, 0), "T640": (32, 8, 640, 32, 0),
-                "T1024": (32, 8, 1024, 32, 0), "ragged_dk2": (5, 8, 601, 2, 2)}
+                "T1024": (32, 8, 1024, 32, 0), "ragged_dk2": (5, 8, 601, 2, 2),
+                "T1120": (32, 8, 1120, 32, 0),
+                "ragged_dk32": (32, 8, 601, 32, 2),
+                "T544_dk16": (32, 8, 544, 16, 0)}
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -258,6 +265,67 @@ def test_flash_attention_kernel_within_bound(device, shape, dtype):
 def test_flash_attention_function_grads_within_bound(device, dtype):
     from multimodal_transformer_tpu_torch.ops.cuda import verify
     c = verify.check_flash_attention_grad(4, 8, 544, 32, DTYPES[dtype],
+                                          device=device)
+    assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("d_k", [16, 32])
+@pytest.mark.parametrize("T", [137, 544, 601, 1024, 1120])
+def test_flash_attention_wgmma_path_within_bound(device, T, d_k):
+    """bf16 at d_k in {16, 32} takes the TMA + wgmma path: ragged key tiles,
+    query tiles past Tq and two videos with no key."""
+    from multimodal_transformer_tpu_torch.ops.cuda import (flash_attention,
+                                                           verify)
+    assert flash_attention.kernel_path(torch.bfloat16, d_k) == \
+        flash_attention.PATH_WGMMA
+    before = flash_attention.launches
+    c = verify.check_flash_attention(32, 8, T, d_k, torch.bfloat16,
+                                     device=device, all_masked=2, reps=0)
+    assert flash_attention.launches == before + 1
+    assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("d_k", [16, 32])
+def test_flash_attention_wgmma_path_on_one_hot_keys(device, d_k):
+    """A closed form that names what a wrong TMA box or wgmma descriptor
+    would move: q[i] = 256 e_(i mod d_k) and k[j] = e_(j mod d_k), so query
+    i attends (to e^-45 of the rest) to the keys j = i mod d_k, and
+    v[j, d] = d_k (j mod 256/d_k) + d, exact in bf16, is the same on all of
+    them: out[i] = v[i] up to the other keys' weight (< T 255 e^-45, ~1e-15;
+    1e-6 here), where a wrong key or column is off by 1 or more.  A wrong
+    key decodes as out // d_k, a wrong column (a 16-byte chunk) as
+    out mod d_k.  The second video has no key (the uniform mean of v), held
+    to the competitive bound."""
+    from multimodal_transformer_tpu_torch.ops.cuda import flash_attention
+    B, h, T = 2, 8, 601
+    idx = torch.arange(T)
+    eye = torch.eye(d_k)
+    v1 = (d_k * (idx % (256 // d_k)))[:, None] + torch.arange(d_k)[None, :]
+    heads = lambda t: t.float().expand(B * h, T, d_k).contiguous().to(
+        device=device, dtype=torch.bfloat16)
+    q, k, v = heads(256.0 * eye[idx % d_k]), heads(eye[idx % d_k]), heads(v1)
+    kmask = torch.ones(B, T, device=device)
+    kmask[1] = 0
+    out = flash_attention.flash_attention_masked(q, k, v, kmask, h).float()
+    torch.cuda.synchronize()
+    got, want = out[:h].cpu(), v1.float().expand(h, T, d_k)
+    bad = ((got - want).abs() > 1e-6).nonzero().tolist()
+    assert not bad, "first wrong (head, row, column): got key class, " \
+        "column: " + "; ".join(
+            f"{b, i, d}: {round(got[b, i, d].item()) // d_k}, "
+            f"{round(got[b, i, d].item()) % d_k}"
+            f" (want {i % (256 // d_k)}, {d})" for b, i, d in bad[:8])
+    ref = flash_attention.flash_attention_masked_plain(
+        q.double(), k.double(), v.double(), kmask, h)[h:]
+    plain = flash_attention.flash_attention_masked_plain(q, k, v, kmask, h)
+    err = (out[h:] - ref).abs().max().item()
+    plain_err = (plain[h:].double() - ref).abs().max().item()
+    assert err <= 2 * plain_err + 1e-6, (err, plain_err)
+
+
+def test_flash_attention_function_grads_on_d_k_16_within_bound(device):
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    c = verify.check_flash_attention_grad(4, 8, 601, 16, torch.bfloat16,
                                           device=device)
     assert c.ok, c.line()
 
