@@ -6,13 +6,17 @@ any failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
    card's name and power limit as nvidia-smi reports them;
-2. build: compiles the CUDA kernels from multimodal_transformer_tpu_torch/csrc;
+2. build: compiles the CUDA kernels from multimodal_transformer_tpu_torch/csrc
+   and prints registers, shared memory and spills of kernel 11's wgmma path
+   and kernel B's stages;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
-   the encoder stack, the MFN recurrence and its packed and aligned
-   variants (the variants also at a ragged shape and with the emotient
-   modality), the window embed at the front end's four shapes plus the
+   the encoder stack, the MFN recurrence (kernel B, also at a ragged
+   shape, with the emotient modality, at B=2, T=1,120 and at B=1, T=37,
+   bit-identical when called again, and each of its three stages' device
+   time at B=32, T=160 from torch.profiler) and its packed and aligned
+   variants (also at the ragged and emotient shapes), the window embed at the front end's four shapes plus the
    gradients of its autograd Function, and flash attention (kernel 11) at
    the long-video buckets' shapes, a ragged case with d_k = 2 and videos
    with no key, and its Function's gradients;
@@ -234,6 +238,9 @@ SOURCES = {
 # case and one with the emotient modality (H = 16, the narrowest pad)
 MFN_VARIANT_SHAPES = ((3, 7, ("linguistic", "acoustic")),
                       (4, 9, ("emotient", "acoustic")))
+# kernel B's checks besides the main path's and the variants' shapes: a
+# long-video bucket and one video (evaluate_per_video)
+MFN_B_SHAPES = MFN_VARIANT_SHAPES + ((2, 1120, AVL), (1, 37, AVL))
 # the dropout-free training phase's configurations: (name, family)
 FREE_TRAIN = (("MFT A+V+L", "MFT"), ("B3-MFN A+V+L", "B3-MFN"))
 
@@ -257,6 +264,8 @@ def card_line() -> str:
 
 # kernel 11's bf16 path at d_k in {16, 32} (TMA + wgmma), by its symbol
 FLASH_WGMMA = "flash_wgmma_kernel"
+# kernel B's stages (csrc/mfn.cu), by their namespace
+MFN_STAGED = "mfn_staged"
 
 
 def ptxas_lines(log: str, symbol: str) -> list:
@@ -357,11 +366,10 @@ def run_kernel_checks(torch, device):
                       verify.check_mfn_aligned):
             checks.append(check(BENCH_B, BENCH_T, dtype, device=device))
             print(checks[-1].line(), flush=True)
-            if check is verify.check_mfn:
-                continue
-            for B, T, mods in MFN_VARIANT_SHAPES:
+            kernel_b = check is verify.check_mfn
+            for B, T, mods in MFN_B_SHAPES if kernel_b else MFN_VARIANT_SHAPES:
                 checks.append(check(B, T, dtype, device=device, mods=mods,
-                                    reps=0))
+                                    reps=3 if kernel_b else 0))
                 print(checks[-1].line(), flush=True)
         for Fr, D, E in WINDOW_EMBED_SHAPES:
             checks.append(verify.check_window_embed(BENCH_B, BENCH_T, Fr, D, E,
@@ -380,6 +388,13 @@ def run_kernel_checks(torch, device):
         checks.append(verify.check_flash_attention_grad(*FLASH_GRAD, dtype,
                                                         device=device))
         print(checks[-1].line(), flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        stages = verify.mfn_stage_ms(BENCH_B, BENCH_T, dtype, device=device)
+        print(f"mfn_scan_fused stages, B={BENCH_B} T={BENCH_T} "
+              f"{str(dtype).split('.')[-1]}, device ms per call (torch."
+              "profiler): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in stages.items()),
+              flush=True)
     bad = [c for c in checks if not c.ok]
     if bad:
         raise SmokeFailure(f"{len(bad)} kernel check(s) outside the bound")
@@ -1377,8 +1392,9 @@ def main() -> int:
     _build.load()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in ptxas_lines(_build.build_log, FLASH_WGMMA):
-        print(f"ptxas {line}", flush=True)
+    for symbol in (FLASH_WGMMA, MFN_STAGED):
+        for line in ptxas_lines(_build.build_log, symbol):
+            print(f"ptxas {line}", flush=True)
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
 

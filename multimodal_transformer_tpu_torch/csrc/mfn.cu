@@ -1,5 +1,5 @@
-// Kernel B: the whole T-step Memory Fusion Network recurrence in one launch,
-// eval mode.
+// Kernel B: the whole T-step Memory Fusion Network recurrence, eval mode, as
+// three stages launched in order on one stream from one C entry.
 //
 // Replaces: multimodal_transformer_tpu/ops/pallas/mfn_kernel.py
 //   mfn_scan_pallas (body _mfn_kernel).
@@ -9,49 +9,649 @@
 // computed outside); then c* = [c_{t-1}; c_t], att1 (Linear-ReLU-Linear, softmax
 // over the FEATURE axis), attended = att * c*, c^ = tanh(att2(attended)),
 // gamma1/gamma2 = sigmoid(MLP([attended; mem])), mem = g1 * mem + g2 * c^.
-// State and arithmetic are fp32; weights and xp are read in their storage
-// dtype; the per-step hidden concat and memory are written in that dtype.
+// State, workspace and arithmetic are fp32; weights and xp are read in their
+// storage dtype; the per-step hidden concat and memory are written in that
+// dtype.
 //
-// What bounds it on the H100: the recurrence is serial in t and tiny per step
-// (B=32 videos x ~0.42 M multiply-adds), so it is latency- and L2-bound, not
-// FLOP-bound.  Every block re-reads all gate and hidden-to-hidden weights each
-// step: ~1.7 MB in fp32 for A+V+L (0.85 MB in bf16), i.e. ~8.7 GB of L2 reads
-// for one B=32, T=160 call in fp32.  At ~64 B/clock of L2 bandwidth per SM that
-// traffic, not the arithmetic, sets the step time.
+// Only two quantities carry state from step to step: the LSTM state (h, c),
+// through W_hh, and the memory, which enters only through the mem columns
+// [2TH:] of the gamma fc1 layers and through the update.  Everything else
+// depends on c_{t-1} and c_t alone, so the recurrence splits into
+//   1. the LSTM scan (lstm_scan_kernel): one block per (video, modality)
+//      loops over t with W_hh in shared memory; a step is one barrier phase;
+//   2. the feed-forward part over all B*(T+1) rows at once: att1, the
+//      feature softmax and attended, att2 and c^, and the attended columns
+//      [:2TH] of both gamma fc1 layers plus their biases (P1, P2), as FMA
+//      GEMMs with fused epilogues (ff_gemm_kernel) and a row softmax
+//      (attend_kernel);
+//   3. the memory scan (mem_scan_kernel): one block per video loops over t
+//      with the mem side of both gamma MLPs in shared memory; a step is two
+//      barrier phases.
+// The only change in the order of operations against a step-by-step
+// recurrence: gamma fc1's sum is split into its attended part (stage 2) and
+// its mem part (stage 3).
 //
-// What the design does about it: one thread block per video with a loop over
-// t inside the kernel (mfn_common.cuh scan_kernel), so the serial chain never
-// leaves the SM; the weight rows are read in warp-owned groups so a step pays
-// one L2 round trip per row group.  Packing weights into shared memory across
-// a thread-block cluster, or serving several videos per block to amortise
-// the weight reads, is later work.
+// What bounds it on the H100: each scan's step is a short chain that no
+// other work hides (one block per SM, T steps in series): the products'
+// shared-memory reads (a warp's broadcast float4 read of h or mem costs as
+// many cycles as a full one), the shuffles that join a row's lanes, the cell's
+// or gates' exponentials and divisions, and the barrier; about 1.3 us a step
+// for stage 1 and 1.5 for stage 3 at the MFT's widths.  Stage 2 holds ~75% of
+// the multiply-adds; it runs on the fp32 FMA pipes (the activations are fp32,
+// so the tensor cores would change the rounding) and is bound by its shared
+// reads, four float4 reads per 16 FMAs a thread.
+//
+// What the design does about it: the chain per step holds only W_hh . h (one
+// barrier) and the two short mem products (two barriers), with the weights in
+// one SM's shared memory (opt-in past 48 KB) laid out so that each warp's
+// reads of its rows' next four weights are conflict-free.  In stage 1 a thread
+// sums a slice of all four gate rows of its hidden unit, so one read of h
+// serves four rows and the cell update needs no phase of its own; h is
+// double-buffered; the xp rows of the next steps arrive through cp.async into
+// a ring in shared memory.  Stage 3 loads P and c^ of step t+1 while step t
+// computes.  No atomics: the same inputs give the same bits.
 
 #include "mfn_common.cuh"
 
+namespace mmtx {
+namespace mfn_staged {
+
+using mfn::Args;
+
+constexpr int kMaxThreads = 1024;
+constexpr size_t kSmemMax = 232448;  // per block on sm_90, after the opt-in
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Four neighbouring weights in the storage dtype, read as one vector.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+
+__device__ __forceinline__ float4 to_f4(float4 v) { return v; }
+__device__ __forceinline__ float4 to_f4(uint2 v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Lanes per hidden unit in the LSTM scan, H units in a block of `threads`:
+// the largest power of two up to kLstmLanes that fits and leaves each lane at
+// least four columns.  More lanes shorten each lane's sum but add shuffles,
+// and every warp then runs the cell update.  Host and device agree on it.
+constexpr int kLstmLanes = 4;
+__host__ __device__ inline int lanes_per_unit(int H, int threads) {
+  int s = 1;
+  while (s < kLstmLanes && H * 2 * s <= threads && 8 * s <= H) s *= 2;
+  return s;
+}
+
+// Steps of xp rows in flight: the LSTM scan copies them into a ring in
+// shared memory with cp.async, kRing - 1 steps ahead.
+constexpr int kRing = 8;
+
+// sum over q < n4 of w[q * stride] . x[q], four running sums
+template <typename V>
+__device__ __forceinline__ float dot4(const V* w, int stride, const float4* x, int n4) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+  for (int q = 0; q < n4; ++q) {
+    const float4 wv = to_f4(w[q * stride]);
+    const float4 xv = x[q];
+    s0 = fmaf(wv.x, xv.x, s0);
+    s1 = fmaf(wv.y, xv.y, s1);
+    s2 = fmaf(wv.z, xv.z, s2);
+    s3 = fmaf(wv.w, xv.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// Four neighbouring fp32 products added into two running sums.
+__device__ __forceinline__ void fma4(float& s0, float& s1, float4 w, float4 x) {
+  s0 = fmaf(w.x, x.x, s0);
+  s1 = fmaf(w.y, x.y, s1);
+  s0 = fmaf(w.z, x.z, s0);
+  s1 = fmaf(w.w, x.w, s1);
+}
+
+// Each of v[] summed over `lanes` neighbouring lanes (a power of two, at
+// most kLstmLanes): the levels are unrolled, so the N sums' shuffles overlap.
+template <int N>
+__device__ __forceinline__ void lane_sums(float (&v)[N], int lanes) {
+#pragma unroll
+  for (int off = 1; off < kLstmLanes; off <<= 1) {
+    if (off < lanes) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+  }
+}
+
+// Zeroes `bytes` (a multiple of 16) of shared memory.
+__device__ __forceinline__ void zero_smem(unsigned char* p, size_t bytes) {
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<float4*>(p)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// dst[dst_of(e)] = src[src_of(e)] for e < n, kBatch loads in flight per
+// thread (the weights are read once per block, from L2 or device memory).
+template <typename T, typename Src, typename Dst>
+__device__ __forceinline__ void gather(const T* __restrict__ src, int n, T* dst, Src src_of,
+                                       Dst dst_of) {
+  constexpr int kBatch = 8;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * blockDim.x) {
+    T v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e = e0 + k * blockDim.x;
+      if (e < n) v[k] = src[src_of(e)];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e = e0 + k * blockDim.x;
+      if (e < n) dst[dst_of(e)] = v[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- stage 1
+
+// Layout of one stage-1 block of modality width H in a block of `threads`:
+// S lanes per hidden unit, each over Hp / S columns of its four gate rows
+// (Hp: H padded to 4S).
+struct LstmLayout {
+  int S, Hp, nq, NT;  // lanes per unit, padded width, chunks of 4 per lane, working threads
+  __host__ __device__ LstmLayout(int H, int threads) {
+    S = lanes_per_unit(H, threads);
+    Hp = round_up(H, 4 * S);
+    nq = Hp / (4 * S);
+    NT = H * S;
+  }
+  // W_hh as [nq][4 gates][NT lanes][4] (zero past H), then h double-buffered
+  // [2][Hp] and the ring of xp rows [kRing][4H]
+  __host__ __device__ size_t w_bytes(int H, size_t esize) const {
+    return (size_t)Hp * 4 * H * esize;
+  }
+  __host__ __device__ size_t bytes(int H, size_t esize) const {
+    return w_bytes(H, esize) + 2 * (size_t)Hp * sizeof(float) + (size_t)kRing * 4 * H * esize;
+  }
+};
+
+// Block (b, m): video b, modality m.  Thread j S + part sums the part-th
+// slice of the four gate rows (i, f, g, o) of hidden unit j; the S lanes of
+// a unit are joined by shuffles and lane j S updates the cell.  Writes
+// hs[b, t, off_m + j] in the storage dtype and c_t to cs[b, t + 1, off_m + j]
+// in fp32, with cs[b, 0] = c_{-1} = 0.  xp rows must be 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) lstm_scan_kernel(Args a, float* cs) {
+  using V = typename Vec4<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x, m = blockIdx.y;
+  const int H = a.hid[m], G = 4 * H, TH = a.total_h, T_ = a.T;
+  const LstmLayout L(H, blockDim.x);
+  const int S = L.S, Hp = L.Hp, NT = L.NT, slice = Hp / S;
+  int off = 0;
+  for (int i = 0; i < m; ++i) off += a.hid[i];
+  const size_t w_bytes = L.w_bytes(H, sizeof(T));
+  float* hbuf = reinterpret_cast<float*>(smem_raw + w_bytes);
+  T* ring = reinterpret_cast<T*>(smem_raw + w_bytes + 2 * (size_t)Hp * sizeof(float));
+  zero_smem(smem_raw, L.bytes(H, sizeof(T)));
+  __syncthreads();
+  // W_hh [4H, H] row g H + j, column i -> gate g, lane j S + i / slice,
+  // chunk (i % slice) / 4
+  gather(static_cast<const T*>(a.whh[m]), G * H, reinterpret_cast<T*>(smem_raw),
+         [](int e) { return e; },
+         [=](int e) {
+           const int r = e / H, i = e % H, il = i % slice;
+           return (((il >> 2) * 4 + r / H) * NT + (r % H) * S + i / slice) * 4 + (il & 3);
+         });
+
+  const int tid = threadIdx.x, j = tid / S, part = tid % S;
+  const bool active = tid < NT, owner = active && part == 0;
+  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte copy
+  const int chunks = G / kPer;          // G * sizeof(T) is a multiple of 16 (H even)
+  const T* xp = static_cast<const T*>(a.xp[m]) + (size_t)b * T_ * G;
+  auto fetch = [&](int t) {
+    if (t < T_)
+      for (int i = tid; i < chunks; i += blockDim.x)
+        cp_async<16>(ring + (t % kRing) * G + i * kPer, xp + (size_t)t * G + i * kPer, true);
+    cp_async_commit();
+  };
+  for (int t = 0; t < kRing - 1; ++t) fetch(t);
+  T* hs = static_cast<T*>(a.hs) + (size_t)b * T_ * TH + off;
+  float* csb = cs + (size_t)b * (T_ + 1) * TH + off;
+  if (owner) csb[j] = 0.f;
+  const V* w = reinterpret_cast<const V*>(smem_raw) + tid;
+  float c = 0.f;
+  cp_async_wait<kRing - 2>();
+  __syncthreads();
+
+  for (int t = 0; t < T_; ++t) {
+    fetch(t + kRing - 1);
+    float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+    if (active) {
+      const float4* h4 = reinterpret_cast<const float4*>(hbuf + (t & 1) * Hp + part * slice);
+#pragma unroll 2
+      for (int q = 0; q < L.nq; ++q) {
+        const float4 hv = h4[q];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) fma4(s0[g], s1[g], to_f4(w[(q * 4 + g) * NT]), hv);
+      }
+    }
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) z[g] = s0[g] + s1[g];
+    lane_sums(z, S);
+    if (owner) {
+      const T* x = ring + (t % kRing) * G + j;
+      const float zi = z[0] + to_f(x[0]), zf = z[1] + to_f(x[H]);
+      const float zg = z[2] + to_f(x[2 * H]), zo = z[3] + to_f(x[3 * H]);
+      c = sigmoidf(zf) * c + sigmoidf(zi) * tanhf(zg);
+      const float h = sigmoidf(zo) * tanhf(c);
+      hbuf[((t + 1) & 1) * Hp + j] = h;
+      hs[(size_t)t * TH + j] = from_f<T>(h);
+      csb[(size_t)(t + 1) * TH + j] = c;
+    }
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- stage 2
+
+// out[m, n] = act(acc + bias[n]) with row stride ldo.
+template <typename T>
+struct BiasAct {
+  float* out;
+  int ldo;
+  const T* bias;
+  int act;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    out[(size_t)m * ldo + n] = mfn::activate(acc + to_f(bias[n]), act);
+  }
+};
+
+// One product of the batched stage: C[M, N] = A[M, K] . W[N, K]^T, then epi.
+template <typename T>
+struct FfJob {
+  const T* w;
+  int ldw, N;
+  BiasAct<T> epi;
+};
+
+template <typename T>
+struct FfJobs {
+  FfJob<T> job[3];
+};
+
+constexpr int FBM = 64, FBN = 64, FBK = 16, kFfThreads = 256;
+
+// C = A . W^T for up to three products sharing A (blockIdx.z picks one):
+// A fp32 [M, lda], W in the storage dtype [N, ldw], both K-contiguous.  64x64
+// tiles, 16-deep k steps double-buffered through shared memory (the next
+// step's loads are in registers while this one computes), 4x4 neighbouring
+// outputs per thread read as float4 (two shared loads per 16 FMAs).  Each
+// output sums k in order: deterministic.
+template <typename T>
+__global__ void __launch_bounds__(kFfThreads)
+ff_gemm_kernel(const float* __restrict__ A, int lda, int M, int K, FfJobs<T> jobs) {
+  __shared__ __align__(16) float As[2][FBK][FBM + 4];
+  __shared__ __align__(16) float Ws[2][FBK][FBN + 4];
+  const FfJob<T> jb = jobs.job[blockIdx.z];
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  if (n0 >= jb.N) return;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lr = tid >> 2, lk = (tid & 3) * 4;
+  const float* a_row = A + (size_t)(m0 + lr) * lda;
+  const T* w_row = jb.w + (size_t)(n0 + lr) * jb.ldw;
+  const bool a_ok = m0 + lr < M, w_ok = n0 + lr < jb.N;
+  float ra[4], rw[4];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gk = k0 + lk + i;
+      ra[i] = a_ok && gk < K ? a_row[gk] : 0.f;
+      rw[i] = w_ok && gk < K ? to_f(w_row[gk]) : 0.f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      As[buf][lk + i][lr] = ra[i];
+      Ws[buf][lk + i][lr] = rw[i];
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  load(0);
+  store(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+    const bool more = k0 + FBK < K;
+    if (more) load(k0 + FBK);
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 wv = *reinterpret_cast<const float4*>(&Ws[buf][kk][tx * 4]);
+      const float a4[4] = {av.x, av.y, av.z, av.w}, w4[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], w4[j], acc[i][j]);
+    }
+    if (more) store(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int mm = m0 + ty * 4 + i;
+    if (mm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int nn = n0 + tx * 4 + j;
+      if (nn < jb.N) jb.epi(mm, nn, acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+void ff_gemm(const float* A, int lda, int M, int K, const FfJob<T>* jobs, int n_jobs,
+             cudaStream_t st) {
+  FfJobs<T> js{};
+  int n_max = 0;
+  for (int i = 0; i < n_jobs; ++i) {
+    js.job[i] = jobs[i];
+    n_max = jobs[i].N > n_max ? jobs[i].N : n_max;
+  }
+  const dim3 grid((n_max + FBN - 1) / FBN, (M + FBM - 1) / FBM, n_jobs);
+  ff_gemm_kernel<T><<<grid, kFfThreads, 0, st>>>(A, lda, M, K, js);
+}
+
+// One warp per row: x <- softmax(x) * c*, over the n = 2TH features; row m's
+// c* is the 2TH floats at cs + m * TH (c_{t-1} then c_t).
+__global__ void attend_kernel(float* __restrict__ logits, const float* __restrict__ cs, int M,
+                              int TH) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const int n = 2 * TH;
+  float* x = logits + (size_t)row * n;
+  const float* cstar = cs + (size_t)row * TH;
+  float mx = -INFINITY;
+  for (int i = lane; i < n; i += 32) mx = fmaxf(mx, x[i]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int i = lane; i < n; i += 32) sum += expf(x[i] - mx);
+  sum = warp_sum(sum);
+  for (int i = lane; i < n; i += 32) x[i] = expf(x[i] - mx) / sum * cstar[i];
+}
+
+// ---------------------------------------------------------------- stage 3
+
+struct MemArgs {
+  const void* w1[2];  // gamma_k fc1 weight [hg_k, 2TH + MEM]; the columns [2TH:] are read
+  const void* w2[2];  // gamma_k fc2 weight [MEM, hg_k]
+  const void* b2[2];  // gamma_k fc2 bias [MEM]
+  const float* P;     // [rows, hg1 + hg2]: gamma1 fc1, then gamma2 fc1, on attended + bias
+  const float* chat;  // [rows, MEM]
+  void* mems;         // [B, T, MEM]
+  int T, TH2, mem, hg1, hg2;
+};
+
+// Shared memory of a stage-3 block, in bytes at the offsets: wa
+// [MEMp/2/4][2 Ra][4] and wb [HGp/4][2 MEM][4] in the storage dtype (zero
+// past each layer's columns), then fp32 mem [MEMp], the gamma hiddens
+// [2][HGp] and the fc2 biases [2 MEM].
+struct MemLayout {
+  int MEMp, half, Ra, HGp;
+  size_t wa, wb, memv, gh, bias, total;
+  __host__ __device__ MemLayout(int mem, int hg1, int hg2, size_t esize) {
+    MEMp = round_up(mem, 8);
+    half = MEMp / 2;
+    Ra = hg1 + hg2;
+    HGp = round_up(hg1 > hg2 ? hg1 : hg2, 4);
+    wa = 0;
+    wb = wa + (size_t)MEMp * Ra * esize;
+    memv = wb + (size_t)HGp * 2 * mem * esize;
+    gh = memv + (size_t)MEMp * sizeof(float);
+    bias = gh + 2 * (size_t)HGp * sizeof(float);
+    total = bias + (size_t)round_up(2 * mem, 4) * sizeof(float);
+  }
+};
+
+inline int mem_threads(int mem, int hg1, int hg2) {
+  const int n = hg1 + hg2 > mem ? hg1 + hg2 : mem;
+  return round_up(2 * n, 32);
+}
+
+// Block b: video b.  Phase a, thread i = 2r + half (r < hg1 + hg2, the
+// gamma1 hidden rows, then gamma2's): g_h[r] = relu(P[r] + W_mem[r, :] .
+// mem), the two halves of the mem axis joined by a shuffle.  Phase b, thread
+// i = 2r + k (r < MEM): g_k[r] = sigmoid(fc2_k[r, :] . g_kh + bias), joined
+// by a shuffle; thread 2r then updates mem[r] = g1 mem + g2 c^.  P and c^ of
+// step t + 1 are loaded while step t computes.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) mem_scan_kernel(MemArgs a) {
+  using V = typename Vec4<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int MEM = a.mem, hg1 = a.hg1, hg2 = a.hg2, TH2 = a.TH2, gin = a.TH2 + a.mem;
+  const MemLayout L(MEM, hg1, hg2, sizeof(T));
+  const int Ra2 = 2 * L.Ra, M2 = 2 * MEM, half = L.half;
+  float* memv = reinterpret_cast<float*>(smem_raw + L.memv);
+  float* gh = reinterpret_cast<float*>(smem_raw + L.gh);
+  float* bias = reinterpret_cast<float*>(smem_raw + L.bias);
+  const int b = blockIdx.x, tid = threadIdx.x, T_ = a.T;
+  zero_smem(smem_raw, L.total);
+  __syncthreads();
+  T* wa = reinterpret_cast<T*>(smem_raw + L.wa);
+  T* wb = reinterpret_cast<T*>(smem_raw + L.wb);
+  for (int g = 0; g < 2; ++g) {
+    const int n = g ? hg2 : hg1, r0 = g ? hg1 : 0;
+    // gamma_g fc1 row r, column TH2 + c -> lane 2 (r0 + r) + c / half
+    gather(static_cast<const T*>(a.w1[g]), n * MEM, wa,
+           [=](int e) { return (e / MEM) * gin + TH2 + e % MEM; },
+           [=](int e) {
+             const int r = e / MEM, c = e % MEM, cl = c % half;
+             return ((cl >> 2) * Ra2 + 2 * (r0 + r) + c / half) * 4 + (cl & 3);
+           });
+    // gamma_g fc2 row r, column c -> lane 2 r + g
+    gather(static_cast<const T*>(a.w2[g]), MEM * n, wb, [](int e) { return e; },
+           [=](int e) {
+             const int r = e / n, c = e % n;
+             return ((c >> 2) * M2 + 2 * r + g) * 4 + (c & 3);
+           });
+    for (int i = tid; i < MEM; i += blockDim.x)
+      bias[2 * i + g] = to_f(static_cast<const T*>(a.b2[g])[i]);
+  }
+
+  const int r = tid >> 1, side = tid & 1;
+  const bool in_a = tid < Ra2, in_b = tid < M2;
+  const bool take_p = in_a && side == 0, take_c = in_b && side == 0;
+  const size_t row0 = (size_t)b * (T_ + 1);
+  const float* P = a.P + row0 * L.Ra + r;
+  const float* chat = a.chat + row0 * MEM + r;
+  T* mems = static_cast<T*>(a.mems) + (size_t)b * T_ * MEM + r;
+  const V* wa_v = reinterpret_cast<const V*>(wa) + tid;
+  const V* wb_v = reinterpret_cast<const V*>(wb) + tid;
+  const float4* mem_in = reinterpret_cast<const float4*>(memv + side * half);
+  const float4* gh_in = reinterpret_cast<const float4*>(gh + side * L.HGp);
+  float* gh_out = gh + (r < hg1 ? r : L.HGp + r - hg1);
+  float p_next = take_p ? P[0] : 0.f, c_next = take_c ? chat[0] : 0.f;
+  float mem_r = 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < T_; ++t) {
+    const float p_cur = p_next, c_cur = c_next;
+    if (t + 1 < T_) {
+      if (take_p) p_next = P[(size_t)(t + 1) * L.Ra];
+      if (take_c) c_next = chat[(size_t)(t + 1) * MEM];
+    }
+    // phase a: the gamma hiddens
+    float s = in_a ? dot4(wa_v, Ra2, mem_in, half / 4) : 0.f;
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (take_p) *gh_out = fmaxf(p_cur + s, 0.f);
+    __syncthreads();
+    // phase b: gamma1, gamma2 and the memory update
+    float g = 0.f;
+    if (in_b) g = sigmoidf(dot4(wb_v, M2, gh_in, L.HGp / 4) + bias[tid]);
+    const float g2 = __shfl_xor_sync(0xffffffffu, g, 1);
+    if (take_c) {
+      mem_r = g * mem_r + g2 * c_cur;
+      memv[r] = mem_r;
+      mems[(size_t)t * MEM] = from_f<T>(mem_r);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- host
+
+struct Work {
+  float *cs, *hid, *att, *P, *chat;
+  static Work carve(Carver& c, const Args& a) {
+    const size_t rows = (size_t)a.B * (a.T + 1), M = rows - 1;
+    const int hmax = a.h_att1 > a.h_att2 ? a.h_att1 : a.h_att2;
+    Work w;
+    w.cs = c.take<float>(rows * a.total_h);
+    w.hid = c.take<float>(M * hmax);
+    w.att = c.take<float>(M * 2 * a.total_h);
+    w.P = c.take<float>(M * (a.h_g1 + a.h_g2));
+    w.chat = c.take<float>(M * a.mem);
+    return w;
+  }
+};
+
+// The stage-1 block: threads for the modality that wants most, and the
+// largest shared memory of any modality's layout at that count.
+inline size_t lstm_block(const Args& a, size_t esize, int* threads) {
+  int th = 0;
+  for (int m = 0; m < a.n_mods; ++m) {
+    const int H = a.hid[m];
+    const int n = round_up(H * lanes_per_unit(H, kMaxThreads), 32);
+    th = n > th ? n : th;
+  }
+  size_t s = 0;
+  for (int m = 0; m < a.n_mods; ++m) {
+    const size_t sm = LstmLayout(a.hid[m], th).bytes(a.hid[m], esize);
+    s = sm > s ? sm : s;
+  }
+  *threads = th;
+  return s;
+}
+
+template <typename T>
+int run(const Args& a, void* ws, cudaStream_t st) {
+  const size_t es = sizeof(T);
+  Carver c{static_cast<char*>(ws)};
+  const Work w = Work::carve(c, a);
+  const int TH = a.total_h, TH2 = 2 * TH;
+  const int M = a.B * (a.T + 1) - 1;  // rows (b, t), t <= T; rows with t = T are not read
+  auto W = [&](int i) { return static_cast<const T*>(a.g[i]); };
+
+  // stage 1
+  int th1 = 0;
+  const size_t sm1 = lstm_block(a, es, &th1);
+  cudaError_t err = cudaFuncSetAttribute(lstm_scan_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
+  if (err != cudaSuccess) return (int)err;
+  lstm_scan_kernel<T><<<dim3(a.B, a.n_mods), th1, sm1, st>>>(a, w.cs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  // stage 2: row m of A is c* = the 2TH floats at cs + m TH
+  const int h1 = a.h_att1, h2 = a.h_att2, R = a.h_g1 + a.h_g2, gin = TH2 + a.mem;
+  const FfJob<T> att1_fc1{W(0), TH2, h1, {w.hid, h1, W(1), mfn::kRelu}};
+  ff_gemm<T>(w.cs, TH, M, TH2, &att1_fc1, 1, st);
+  const FfJob<T> att1_fc2{W(2), h1, TH2, {w.att, TH2, W(3), mfn::kNone}};
+  ff_gemm<T>(w.hid, h1, M, h1, &att1_fc2, 1, st);
+  attend_kernel<<<(M + 7) / 8, 256, 0, st>>>(w.att, w.cs, M, TH);
+  const FfJob<T> on_attended[3] = {{W(4), TH2, h2, {w.hid, h2, W(5), mfn::kRelu}},
+                                   {W(8), gin, a.h_g1, {w.P, R, W(9), mfn::kNone}},
+                                   {W(12), gin, a.h_g2, {w.P + a.h_g1, R, W(13), mfn::kNone}}};
+  ff_gemm<T>(w.att, TH2, M, TH2, on_attended, 3, st);
+  const FfJob<T> att2_fc2{W(6), h2, a.mem, {w.chat, a.mem, W(7), mfn::kTanh}};
+  ff_gemm<T>(w.hid, h2, M, h2, &att2_fc2, 1, st);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  // stage 3
+  const MemArgs ma{{a.g[8], a.g[12]}, {a.g[10], a.g[14]}, {a.g[11], a.g[15]}, w.P, w.chat,
+                   a.mems, a.T, TH2, a.mem, a.h_g1, a.h_g2};
+  const int th3 = mem_threads(a.mem, a.h_g1, a.h_g2);
+  const MemLayout L(a.mem, a.h_g1, a.h_g2, es);
+  err = cudaFuncSetAttribute(mem_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  mem_scan_kernel<T><<<a.B, th3, L.total, st>>>(ma);
+  return (int)cudaGetLastError();
+}
+
+// Whether the stages take these widths: a block of at most 1,024 threads per
+// scan, each scan's shared memory within the opt-in limit, and a GEMM grid
+// within 65,535 row tiles.
+inline bool fits(const Args& a, size_t esize) {
+  int th1 = 0;
+  const size_t sm1 = lstm_block(a, esize, &th1);
+  const long long M = (long long)a.B * (a.T + 1) - 1;
+  if (th1 > kMaxThreads || sm1 > kSmemMax || mem_threads(a.mem, a.h_g1, a.h_g2) > kMaxThreads)
+    return false;
+  const MemLayout L(a.mem, a.h_g1, a.h_g2, esize);
+  return L.total <= kSmemMax && (M + FBM - 1) / FBM <= 65535;
+}
+
+inline bool parse(Args& a, int dtype, const void* xp, const void* whh, const void* hid,
+                  int n_mods, const void* gates, int B, int T, int mem, int h_att1, int h_att2,
+                  int h_g1, int h_g2) {
+  if (dtype != kF32 && dtype != kBF16) return false;
+  if (!mfn::fill_args(a, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2, h_g1, h_g2))
+    return false;
+  for (int m = 0; m < n_mods; ++m)
+    if (a.hid[m] < 2 || a.hid[m] % 2) return false;
+  const int ws[5] = {mem, h_att1, h_att2, h_g1, h_g2};
+  for (int v : ws)
+    if (v < 2 || v % 2) return false;
+  return fits(a, dtype == kF32 ? sizeof(float) : sizeof(__nv_bfloat16));
+}
+
+}  // namespace mfn_staged
+}  // namespace mmtx
+
+// Bytes of fp32 workspace mmtx_mfn_scan needs, or -1 for shapes it refuses.
+// hid: host array of n_mods hidden sizes.
+extern "C" long long mmtx_mfn_scan_workspace(int dtype, const void* hid, int n_mods, int B,
+                                             int T, int mem, int h_att1, int h_att2, int h_g1,
+                                             int h_g2) {
+  using namespace mmtx;
+  const void* none[mfn::kMaxMods] = {nullptr, nullptr, nullptr, nullptr};
+  const void* gates[16] = {};
+  mfn::Args a;
+  if (!mfn_staged::parse(a, dtype, none, none, hid, n_mods, gates, B, T, mem, h_att1, h_att2,
+                         h_g1, h_g2))
+    return -1;
+  Carver c{nullptr};
+  mfn_staged::Work::carve(c, a);
+  return (long long)c.used;
+}
+
 // C entry.  xp/whh: host arrays of n_mods device pointers; hid: host array of
-// n_mods hidden sizes; gates: host array of 16 device pointers (see Args).
-// Returns cudaGetLastError() after the launch.
-extern "C" int mmtx_mfn_scan(int dtype, const void* xp, const void* whh,
-                             const void* hid, int n_mods, const void* gates,
-                             void* hs, void* mems, int B, int T, int mem,
-                             int h_att1, int h_att2, int h_g1, int h_g2,
+// n_mods hidden sizes; gates: host array of 16 device pointers (see
+// mfn::Args); ws: mmtx_mfn_scan_workspace bytes.  Launches the three stages
+// on the stream; returns the first CUDA error, or cudaErrorInvalidValue for
+// shapes the kernels refuse.
+extern "C" int mmtx_mfn_scan(int dtype, const void* xp, const void* whh, const void* hid,
+                             int n_mods, const void* gates, void* hs, void* mems, void* ws,
+                             int B, int T, int mem, int h_att1, int h_att2, int h_g1, int h_g2,
                              void* stream) {
   using namespace mmtx;
   mfn::Args a;
-  if (!mfn::fill_args(a, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2, h_g1,
-                      h_g2))
+  if (!mfn_staged::parse(a, dtype, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2,
+                         h_g1, h_g2))
     return (int)cudaErrorInvalidValue;
   a.hs = hs;
   a.mems = mems;
-  const size_t smem = mfn::smem_floats(a) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    mfn::scan_kernel<float, false><<<B, mfn::kThreads, smem, st>>>(a);
-  } else if (dtype == kBF16) {
-    mfn::scan_kernel<__nv_bfloat16, false><<<B, mfn::kThreads, smem, st>>>(a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32) return mfn_staged::run<float>(a, ws, st);
+  return mfn_staged::run<__nv_bfloat16>(a, ws, st);
 }

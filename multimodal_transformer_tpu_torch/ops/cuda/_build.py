@@ -35,8 +35,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mmtx_encoder_stack": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
-    "mmtx_mfn_scan": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _P],
+    "mmtx_mfn_scan": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _P],
+    "mmtx_mfn_scan_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     "mmtx_mfn_scan_packed": [_I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _P],
     "mmtx_mfn_scan_aligned": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,

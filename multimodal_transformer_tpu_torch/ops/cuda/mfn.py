@@ -1,11 +1,19 @@
-"""Kernel B: the whole MFN recurrence in one launch (csrc/mfn.cu).
+"""Kernel B: the MFN recurrence as three stages from one C entry
+(csrc/mfn.cu).
 
 Counterpart of `multimodal_transformer_tpu/ops/pallas/mfn_kernel.py`
 `mfn_scan_pallas` (the recurrence; the input projections and the output
 head stay outside, as they do around the `pallas_call`).  `mfn_scan_fused`
-launches the CUDA kernel for CUDA tensors and runs `mfn_scan_fused_plain`
+launches the CUDA stages for CUDA tensors and runs `mfn_scan_fused_plain`
 for CPU tensors.  Both keep state and arithmetic in float32 (float64 for
 float64 inputs) and return outputs in the inputs' dtype.
+
+The stages: (1) the LSTM scan, one block per (video, modality) with W_hh in
+shared memory; (2) everything that depends only on c_{t-1} and c_t, batched
+over all B*T rows: att1, the feature softmax, attended, att2 and c^, and the
+attended part of both gamma fc1 layers; (3) the memory scan, one block per
+video with the mem side of the gamma MLPs in shared memory.
+`mfn_scan_staged_plain` computes the same stages in PyTorch, in that order.
 
 Arguments:
   xps:   per modality [B, T, 4H_m], the hoisted x @ W_ih^T + b_ih + b_hh;
@@ -26,7 +34,14 @@ from ..dispatch import acc_dtype, check_kernel_dtype, check_no_grad, use_kernel
 from . import _build
 
 MAX_MODS = 4
+# the one-block-per-video scan of csrc/mfn_common.cuh (kernel 6's forward,
+# rows 8 and 9) keeps its activations in static-size shared memory
 _SMEM_LIMIT = 48 * 1024
+# kernel B's serial stages: shared memory a block may opt in to on sm_90,
+# threads a block may have, and row tiles a GEMM grid may have
+SMEM_OPT_IN = 232448
+MAX_THREADS = 1024
+MAX_ROW_TILES = 65535
 
 # Number of kernel launches (one per recurrence) since the last reset.
 launches = 0
@@ -78,6 +93,59 @@ def mfn_scan_fused_plain(xps, whhs, gates):
             torch.stack(mem_out, dim=1).to(dtype))
 
 
+def mfn_scan_staged_plain(xps, whhs, gates):
+    """Kernel B's three stages in PyTorch, in the kernel's order: the LSTM
+    scan, the feed-forward part batched over all B*T rows, the memory scan.
+    The same function as `mfn_scan_fused_plain`; gamma fc1's sum is split
+    into its attended and mem parts."""
+    dtype = xps[0].dtype
+    acc = acc_dtype(dtype)
+    B, T = xps[0].shape[:2]
+    dev = xps[0].device
+    th2 = 2 * sum(w.shape[1] for w in whhs)
+    W = [w.to(acc) for w in whhs]
+    G = [g.to(acc) for g in gates]
+    # stage 1: one LSTM recurrence per modality
+    hs, cs = [], []
+    for xp, w in zip(xps, W):
+        H = w.shape[1]
+        h = torch.zeros(B, H, dtype=acc, device=dev)
+        c = torch.zeros(B, H, dtype=acc, device=dev)
+        h_t, c_t = [], []
+        for t in range(T):
+            z = xp[:, t].to(acc) + h @ w.T
+            c = (torch.sigmoid(z[:, H:2 * H]) * c
+                 + torch.sigmoid(z[:, :H]) * torch.tanh(z[:, 2 * H:3 * H]))
+            h = torch.sigmoid(z[:, 3 * H:]) * torch.tanh(c)
+            h_t.append(h)
+            c_t.append(c)
+        hs.append(torch.stack(h_t, dim=1))
+        cs.append(torch.stack(c_t, dim=1))
+    c_all = torch.cat(cs, dim=2)
+    c_prev = torch.cat([torch.zeros_like(c_all[:, :1]), c_all[:, :-1]], dim=1)
+    # stage 2: every row (b, t) at once
+    c_star = torch.cat([c_prev, c_all], dim=2).reshape(B * T, th2)
+    logits = F.linear(torch.relu(F.linear(c_star, G[0], G[1])), G[2], G[3])
+    attended = torch.softmax(logits, dim=1) * c_star
+    c_hat = torch.tanh(F.linear(torch.relu(F.linear(attended, G[4], G[5])),
+                                G[6], G[7])).view(B, T, -1)
+    p1 = F.linear(attended, G[8][:, :th2], G[9]).view(B, T, -1)
+    p2 = F.linear(attended, G[12][:, :th2], G[13]).view(B, T, -1)
+    # stage 3: the memory recurrence
+    w1, w2 = G[8][:, th2:], G[12][:, th2:]
+    mem = torch.zeros(B, G[6].shape[0], dtype=acc, device=dev)
+    mems = []
+    for t in range(T):
+        g1 = torch.sigmoid(F.linear(torch.relu(p1[:, t] + mem @ w1.T),
+                                    G[10], G[11]))
+        g2 = torch.sigmoid(F.linear(torch.relu(p2[:, t] + mem @ w2.T),
+                                    G[14], G[15]))
+        mem = g1 * mem + g2 * c_hat[:, t]
+        mems.append(mem)
+    return (torch.cat(hs, dim=2).to(dtype),
+            torch.stack(mems, dim=1).to(dtype))
+
+
 def _check_shapes(xps, whhs, gates):
     if not 1 <= len(xps) <= MAX_MODS or len(whhs) != len(xps):
         raise ValueError(f"mfn_scan_fused: 1..{MAX_MODS} modalities, one W_hh "
@@ -110,13 +178,86 @@ def _check_shapes(xps, whhs, gates):
 
 def smem_bytes(total_h: int, mem: int, h1: int, h2: int, hg1: int,
                hg2: int) -> int:
-    """Shared memory of one kernel block (mirrors csrc/mfn.cu smem_floats)."""
+    """Shared memory of one block of the one-block-per-video scan (kernel
+    6's forward, rows 8 and 9; mirrors csrc/mfn_common.cuh smem_floats)."""
     return 4 * (12 * total_h + h1 + mem + h2 + hg1 + hg2 + 3 * mem + 2)
 
 
-def kernel_args(xps, whhs, gates, what: str):
-    """Checks what the MFN kernels take and returns (dtype code, B, T, mem,
-    h_att1, h_att2, h_g1, h_g2, hidden sizes); raises for anything else."""
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# steps of xp rows the LSTM scan keeps in flight (csrc/mfn.cu kRing) and
+# its cap on lanes per hidden unit (kLstmLanes)
+_RING = 8
+_LSTM_LANES = 4
+
+
+def _lanes_per_unit(H: int, threads: int) -> int:
+    """Lanes per hidden unit in kernel B's LSTM scan (mirrors csrc/mfn.cu
+    lanes_per_unit)."""
+    s = 1
+    while s < _LSTM_LANES and H * 2 * s <= threads and 8 * s <= H:
+        s *= 2
+    return s
+
+
+def _staged_threads(hid, mem: int, hg1: int, hg2: int) -> dict:
+    """Threads of a block of kernel B's two serial stages (mirrors
+    csrc/mfn.cu lstm_block and mem_threads)."""
+    lstm = max(_round_up(H * _lanes_per_unit(H, MAX_THREADS), 32)
+               for H in hid)
+    return {"lstm": lstm, "memory": _round_up(2 * max(hg1 + hg2, mem), 32)}
+
+
+def staged_smem_bytes(hid, mem: int, hg1: int, hg2: int,
+                      itemsize: int) -> dict:
+    """Shared memory of a block of kernel B's two serial stages, weights in
+    a storage dtype of `itemsize` bytes (mirrors csrc/mfn.cu LstmLayout and
+    MemLayout): "lstm", W_hh of the widest modality padded to a multiple of
+    4 columns per lane, h twice and 8 steps of xp rows; "memory", the mem
+    columns of both gamma fc1 layers, both gamma fc2 layers, mem, the gamma
+    hiddens and the fc2 biases."""
+    th = _staged_threads(hid, mem, hg1, hg2)
+    lstm = 0
+    for H in hid:
+        hp = _round_up(H, 4 * _lanes_per_unit(H, th["lstm"]))
+        lstm = max(lstm, hp * 4 * H * itemsize + 8 * hp
+                   + _RING * 4 * H * itemsize)
+    memp, hgp = _round_up(mem, 8), _round_up(max(hg1, hg2), 4)
+    memory = ((memp * (hg1 + hg2) + hgp * 2 * mem) * itemsize + 4 * memp
+              + 8 * hgp + 4 * _round_up(2 * mem, 4))
+    return {"lstm": lstm, "memory": memory}
+
+
+def check_staged_fit(hid, mem: int, hg1: int, hg2: int, itemsize: int,
+                     B: int, T: int, what: str) -> None:
+    """Raises, with the widths, for shapes kernel B's stages cannot take: a
+    serial stage's block past SMEM_OPT_IN bytes or MAX_THREADS threads, or
+    more rows than the batched GEMMs' grid holds."""
+    need = staged_smem_bytes(hid, mem, hg1, hg2, itemsize)
+    threads = _staged_threads(hid, mem, hg1, hg2)
+    bad = []
+    if need["lstm"] > SMEM_OPT_IN or threads["lstm"] > MAX_THREADS:
+        bad.append(f"the LSTM scan needs {need['lstm']} bytes and "
+                   f"{threads['lstm']} threads for hidden widths {list(hid)}")
+    if need["memory"] > SMEM_OPT_IN or threads["memory"] > MAX_THREADS:
+        bad.append(f"the memory scan needs {need['memory']} bytes and "
+                   f"{threads['memory']} threads for mem={mem}, gamma "
+                   f"hiddens {hg1}, {hg2}")
+    if _round_up(B * (T + 1) - 1, 64) // 64 > MAX_ROW_TILES:
+        bad.append(f"B={B}, T={T} gives more than {MAX_ROW_TILES} tiles of "
+                   "64 rows")
+    if bad:
+        raise ValueError(f"{what}: {'; '.join(bad)} (a block takes at most "
+                         f"{SMEM_OPT_IN} bytes of shared memory and "
+                         f"{MAX_THREADS} threads)")
+
+
+def _kernel_args(xps, whhs, gates, what: str):
+    """Checks the dtype, shapes, device and layout every MFN kernel takes and
+    returns (dtype code, B, T, mem, h_att1, h_att2, h_g1, h_g2, hidden
+    sizes); raises for anything else."""
     x0 = xps[0]
     dtype_code = check_kernel_dtype(x0, what)
     B, T, mem, h1, h2, hg1, hg2 = _check_shapes(xps, whhs, gates)
@@ -126,10 +267,19 @@ def kernel_args(xps, whhs, gates, what: str):
                 f"{what}: every tensor must be contiguous, on {x0.device} "
                 f"and in {x0.dtype}; got {t.dtype} on {t.device}")
     hid = [w.shape[1] for w in whhs]
+    return dtype_code, B, T, mem, h1, h2, hg1, hg2, hid
+
+
+def kernel_args(xps, whhs, gates, what: str):
+    """`_kernel_args` for the kernels on the one-block-per-video scan
+    (kernels 6 and 7, rows 8 and 9), which also need its activations within
+    48 KB of shared memory."""
+    args = _kernel_args(xps, whhs, gates, what)
+    mem, h1, h2, hg1, hg2, hid = args[3:]
     if smem_bytes(sum(hid), mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:
         raise ValueError(f"{what}: widths need more than 48 KB of shared "
                          "memory per block")
-    return dtype_code, B, T, mem, h1, h2, hg1, hg2, hid
+    return args
 
 
 def mfn_scan_fused(xps, whhs, gates):
@@ -140,22 +290,33 @@ def mfn_scan_fused(xps, whhs, gates):
     if not use_kernel(x0):
         return mfn_scan_fused_plain(xps, whhs, gates)
     global launches
-    check_no_grad("mfn_scan_fused", *xps, *whhs, *gates)
-    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
-        xps, whhs, gates, "mfn_scan_fused")
+    what = "mfn_scan_fused"
+    check_no_grad(what, *xps, *whhs, *gates)
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = _kernel_args(
+        xps, whhs, gates, what)
+    check_staged_fit(hid, mem, hg1, hg2, x0.element_size(), B, T, what)
+    if any(x.data_ptr() % 16 for x in xps):
+        raise ValueError(f"{what}: the kernel copies xp rows 16 bytes at a "
+                         "time; every xp must start on a 16-byte boundary")
     total_h = sum(hid)
+    hid_arr = (ctypes.c_int * len(hid))(*hid)
+    lib = _build.load()
+    n_ws = lib.mmtx_mfn_scan_workspace(dtype_code, hid_arr, len(hid), B, T,
+                                       mem, h1, h2, hg1, hg2)
+    if n_ws < 0:
+        raise ValueError(f"{what}: shapes refused by the kernel")
+    ws = torch.empty(n_ws // 4, dtype=torch.float32, device=x0.device)
     hs = torch.empty((B, T, total_h), dtype=x0.dtype, device=x0.device)
     mems = torch.empty((B, T, mem), dtype=x0.dtype, device=x0.device)
     xp_ptrs = _build.pointer_array([t.data_ptr() for t in xps])
     whh_ptrs = _build.pointer_array([t.data_ptr() for t in whhs])
     gate_ptrs = _build.pointer_array([t.data_ptr() for t in gates])
-    hid_arr = (ctypes.c_int * len(hid))(*hid)
-    lib = _build.load()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mmtx_mfn_scan(dtype_code, xp_ptrs, whh_ptrs, hid_arr, len(xps),
-                               gate_ptrs, hs.data_ptr(), mems.data_ptr(), B, T,
-                               mem, h1, h2, hg1, hg2, stream)
-    _build.check(rc, "mfn_scan_fused")
+                               gate_ptrs, hs.data_ptr(), mems.data_ptr(),
+                               ws.data_ptr(), B, T, mem, h1, h2, hg1, hg2,
+                               stream)
+    _build.check(rc, what)
     launches += 1
     return hs, mems

@@ -279,9 +279,9 @@ def mfn_scan_aligned_plain(xps, whhs, gates, hp: int = ALIGN_HP):
 
 def aligned_smem_bytes(hps, mem: int, h1: int, h2: int, hg1: int,
                        hg2: int) -> int:
-    """Shared memory of one aligned kernel block: kernel B's layout over the
-    padded lanes plus one int per 32-lane chunk (mirrors
-    csrc/mfn_variants.cu)."""
+    """Shared memory of one aligned kernel block: the one-block-per-video
+    scan's layout (csrc/mfn_common.cuh) over the padded lanes plus one int
+    per 32-lane chunk (mirrors csrc/mfn_variants.cu)."""
     return smem_bytes(sum(hps), mem, h1, h2, hg1, hg2) + 4 * (sum(hps) // 32)
 
 

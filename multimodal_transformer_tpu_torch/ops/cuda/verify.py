@@ -267,13 +267,18 @@ def _mfn_case(B, T, dtype, device, seed, mods):
 
 @torch.no_grad()
 def _check_mfn_scan(name, kernel, plain_fn, B, T, dtype, device, seed, mods,
-                    reps) -> KernelCheck:
+                    reps, repeat: bool = False) -> KernelCheck:
     """A kernel of kernel B's function (hs, mems) against its plain
-    version; the bound is kernel B's work, whatever the layout."""
+    version; the bound is kernel B's work, whatever the layout.  repeat:
+    also call the kernel again and require the same bits."""
     _, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
     ref = plain_fn(_double(xps), _double(whhs), _double(gates))
     plain = plain_fn(xps, whhs, gates)
     kern = kernel(xps, whhs, gates)
+    identical = None
+    if repeat:
+        identical = all(torch.equal(a, b) for a, b in
+                        zip(kern, kernel(xps, whhs, gates)))
     torch.cuda.synchronize()
     return KernelCheck(
         name, f"B={B} T={T} {'+'.join(MOD_LETTER[m] for m in mods)}",
@@ -283,15 +288,48 @@ def _check_mfn_scan(name, kernel, plain_fn, B, T, dtype, device, seed, mods,
         time_ms(lambda: kernel(xps, whhs, gates), reps, burst=KERNEL_BURST),
         time_ms(lambda: plain_fn(xps, whhs, gates), reps, warmup=1),
         *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
-                     [*xps, *whhs, *gates, *kern]))
+                     [*xps, *whhs, *gates, *kern]), identical=identical)
 
 
 def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
               mods=AVL, reps: int = 5) -> KernelCheck:
-    """Kernel B."""
+    """Kernel B, also bit-identical when called again."""
     return _check_mfn_scan("mfn_scan_fused", mfn_k.mfn_scan_fused,
                            mfn_k.mfn_scan_fused_plain, B, T, dtype, device,
-                           seed, mods, reps)
+                           seed, mods, reps, repeat=True)
+
+
+# kernel B's stages by the names of their CUDA kernels (csrc/mfn.cu), in
+# the order a name is matched: the LSTM scan, the memory scan, then the rest
+# of the namespace (the GEMMs with kernel B's epilogue and the softmax)
+MFN_STAGES = (("stage 1, LSTM scan", "lstm_scan_kernel"),
+              ("stage 3, memory scan", "mem_scan_kernel"),
+              ("stage 2, batched", "mfn_staged"))
+
+
+@torch.no_grad()
+def mfn_stage_ms(B: int, T: int, dtype: torch.dtype, *, device,
+                 seed: int = 0, mods=AVL, calls: int = 5) -> Dict[str, float]:
+    """Device ms per call of each of kernel B's stages, from torch.profiler's
+    kernel events over `calls` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
+    mfn_k.mfn_scan_fused(xps, whhs, gates)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            mfn_k.mfn_scan_fused(xps, whhs, gates)
+        torch.cuda.synchronize()
+    out = {stage: 0.0 for stage, _ in MFN_STAGES}
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        for stage, key in MFN_STAGES:
+            if key in e.name:
+                out[stage] += (e.time_range.end - e.time_range.start) / 1e3
+                break
+    return {stage: out[stage] / calls for stage in sorted(out)}
 
 
 def check_mfn_packed(B: int, T: int, dtype: torch.dtype, *, device,

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card (the kernel
 phases of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
-B=32, T=160 A+V+L, kernel 10 (window embed) at the front end's four shapes
+B=32, T=160 A+V+L, B=2, T=1,120, B=1, T=37, a ragged case and the emotient
+modality (bit-identical when called again), kernel 10 (window embed) at the front end's four shapes
 and its autograd Function's gradients, kernel 11 (flash attention) at the
 long-video buckets' shapes (B*h = 32*8, T in {544, 640, 1024, 1120}, d_k =
 32, and T = 544, d_k = 16) and ragged cases (T = 601, d_k = 32 and d_k = 2,
@@ -58,7 +59,29 @@ def test_mfn_kernel_within_bound(device, dtype):
     before = mfn.launches
     c = verify.check_mfn(32, 160, DTYPES[dtype], device=device, reps=1)
     assert mfn.launches > before
-    assert c.ok, c.line()
+    assert c.ok and c.identical, c.line()
+
+
+# kernel B off the main path's shape: (B, T, modalities) of a long-video
+# bucket, one video (evaluate_per_video), a ragged case and the emotient
+# modality (H = 16)
+MFN_B_SHAPES = {"T1120": (2, 1120, ("acoustic", "image", "linguistic")),
+                "B1": (1, 37, ("acoustic", "image", "linguistic")),
+                "ragged": (3, 7, ("linguistic", "acoustic")),
+                "emotient": (4, 9, ("emotient", "acoustic"))}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(MFN_B_SHAPES))
+def test_mfn_kernel_shapes_within_bound(device, shape, dtype):
+    """Within the bound and bit-identical when called again."""
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn, verify
+    B, T, mods = MFN_B_SHAPES[shape]
+    before = mfn.launches
+    c = verify.check_mfn(B, T, DTYPES[dtype], device=device, mods=mods,
+                         reps=0)
+    assert mfn.launches == before + 2
+    assert c.ok and c.identical, c.line()
 
 
 # kernel -> (wrapper module, launch counter, verify check)

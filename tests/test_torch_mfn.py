@@ -91,8 +91,15 @@ def test_kernel_shape_checks(case):
 
 
 def test_kernel_shared_memory_fits_every_mft_modality_set():
-    h = mfn_core.HIDDEN_DIM
-    total = sum(h.values())
-    assert mfn_k.smem_bytes(total, mfn_core.MEM_DIM, mfn_core.H_ATT1,
-                            mfn_core.H_ATT2, mfn_core.H_GAMMA1,
-                            mfn_core.H_GAMMA2) <= 48 * 1024
+    """Kernel B's serial stages fit one block for every modality set of the
+    MFT and B3-MFN (any non-empty subset of the four), fp32 and bf16, at the
+    widest batch of a long-video bucket."""
+    names = sorted(mfn_core.HIDDEN_DIM)
+    widths = (mfn_core.MEM_DIM, mfn_core.H_GAMMA1, mfn_core.H_GAMMA2)
+    for n in range(1, 2 ** len(names)):
+        hid = [mfn_core.HIDDEN_DIM[m] for i, m in enumerate(names)
+               if n >> i & 1]
+        for itemsize in (4, 2):
+            need = mfn_k.staged_smem_bytes(hid, *widths, itemsize)
+            assert max(need.values()) <= mfn_k.SMEM_OPT_IN
+            mfn_k.check_staged_fit(hid, *widths, itemsize, 32, 1120, "test")
