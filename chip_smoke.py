@@ -7,12 +7,21 @@ any failure exits nonzero:
 1. gate: a CUDA device must be present (there is no CPU path); prints the
    card's name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from multimodal_transformer_tpu_torch/csrc
-   and prints registers, shared memory and spills of kernel 11's wgmma path
-   and kernel B's stages;
+   and prints registers, shared memory and spills of kernel 11's wgmma path,
+   kernel B's stages and kernel A's wgmma path (its row chain and attention
+   kernels), and whether their SASS holds HGMMA (and UTMALDG where they
+   load by TMA): kernel A's wgmma kernels must, and the run fails when
+   cuobjdump cannot read them;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
-   the encoder stack, the MFN recurrence (kernel B, also at a ragged
+   the encoder stack (B=32 at T = 160, 137 and 544; in bf16 also d_k = 16
+   (D = 128), one video at T = 1, 37, 100 and 512 (the wgmma path's score
+   tiles of 64 to 256 keys) and the emotient encoder's D = 16 (d_k = 2, the
+   FMA path), each bf16 case also bit-identical when called again, then the
+   device time of each of its kernels at B=32, T=160 from torch.profiler),
+   the MFN recurrence
+   (kernel B, also at a ragged
    shape, with the emotient modality, at B=2, T=1,120 and at B=1, T=37,
    bit-identical when called again, and each of its three stages' device
    time at B=32, T=160 from torch.profiler) and its packed and aligned
@@ -39,7 +48,8 @@ any failure exits nonzero:
    with the same checks: every encoder takes the flash route (kernel 11 six
    times per encoder and batch, kernel A never); the MFT A+V+L request is
    profiled; then the B=32 encoder stack through kernel A and through the
-   flash route at T = 544, 640 and 1,024, bf16 and fp32, alternated;
+   flash route at T = 137, 160, 544, 640 and 1,024, bf16 and fp32,
+   alternated;
 8. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
    A+V+L widths over 24 videos of 20-1,100 windows, fp32 and (batched)
    eval_dtype=bf16: exact launch counts, the per-video CCCs of both paths
@@ -194,7 +204,18 @@ LONG_FAMILIES = (
     ("MFT L", "MFT", ("linguistic",), {"window_embed_highway": 1,
                                        "flash_attention_masked": 6}, 5e-3),
 )
-CROSSOVER_T = (544, 640, 1024)
+CROSSOVER_T = (137, 160, 544, 640, 1024)
+# the long-video route's first bucket: kernel 11's line in the JSON
+FLASH_MAIN_T = 544
+# kernel A's checks besides B=32 at T in {160, 137, 544}, bf16 only:
+# (B, T, D, path) at d_k = D / 8: the wgmma path at d_k = 16 and at one
+# video (per-video evaluation: one score tile of 64 keys at T = 37 and 1,
+# two online tiles of 256 at T = 512, one tile of 128 at T = 100), and the
+# FMA path at the emotient encoder's D = 16 (d_k = 2)
+ENCODER_BF16_SHAPES = ((BENCH_B, BENCH_T, 128, "wgmma"),
+                       (1, 37, 256, "wgmma"), (1, 1, 256, "wgmma"),
+                       (1, 100, 256, "wgmma"), (1, 512, 256, "wgmma"),
+                       (BENCH_B, BENCH_T, 16, "fma"))
 # evaluation: EVAL_VIDEOS videos of MIN_WINDOWS..LONG_MAX windows with
 # unit-normal targets.  The batched CCCs against the per-video ones,
 # absolute: fp32 differs only in the order of float32 sums, 1e-4.  In bf16
@@ -266,6 +287,10 @@ def card_line() -> str:
 FLASH_WGMMA = "flash_wgmma_kernel"
 # kernel B's stages (csrc/mfn.cu), by their namespace
 MFN_STAGED = "mfn_staged"
+# kernel A's wgmma path (csrc/encoder.cu), by namespace and kernel
+ENC_WGMMA = "enc_wgmma"
+ENC_WGMMA_SASS = (("enc_wgmma12chain_kernel", ("HGMMA",)),
+                  ("enc_wgmma16attention_kernel", ("HGMMA", "UTMALDG")))
 
 
 def ptxas_lines(log: str, symbol: str) -> list:
@@ -355,13 +380,30 @@ def read_counters() -> dict:
 
 
 def run_kernel_checks(torch, device):
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
     from multimodal_transformer_tpu_torch.ops.cuda import verify
 
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for T in (160, 137, 544):
-            checks.append(verify.check_encoder(32, T, dtype, device=device))
+            checks.append(verify.check_encoder(BENCH_B, T, dtype,
+                                               device=device, repeat=bf16))
             print(checks[-1].line(), flush=True)
+        for B, T, D, path in ENCODER_BF16_SHAPES if bf16 else ():
+            want = {"wgmma": enc_k.PATH_WGMMA, "fma": enc_k.PATH_FMA}[path]
+            if enc_k.kernel_path(dtype, D // 8, D, 128) != want:
+                raise SmokeFailure(f"kernel A at D={D}: not the {path} path")
+            checks.append(verify.check_encoder(B, T, dtype, device=device, D=D,
+                                               repeat=True))
+            print(checks[-1].line(), flush=True)
+        if bf16:
+            kernels = verify.encoder_kernel_ms(BENCH_B, BENCH_T, dtype,
+                                               device=device)
+            print(f"encoder_stack_fused kernels, B={BENCH_B} T={BENCH_T} "
+                  "bfloat16, device ms per stack (torch.profiler): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items()),
+                  flush=True)
         for check in (verify.check_mfn, verify.check_mfn_packed,
                       verify.check_mfn_aligned):
             checks.append(check(BENCH_B, BENCH_T, dtype, device=device))
@@ -1340,7 +1382,10 @@ def _json_entry(name, checks, launches):
     three front ends of one MFT A+V+L forward."""
     if name == "flash_attention_masked":
         cs = [c for c in checks if c.name == name and c.dtype == "bfloat16"
-              and c.shape == f"B={BENCH_B} h=8 T={CROSSOVER_T[0]} dk=32"]
+              and c.shape == f"B={BENCH_B} h=8 T={FLASH_MAIN_T} dk=32"]
+    elif name == "encoder_stack_fused":
+        cs = [c for c in checks if c.name == name and c.dtype == "bfloat16"
+              and c.shape == f"B={BENCH_B} T={BENCH_T} D=256"]
     elif name == "window_embed_highway":
         cs = [c for c in checks if c.name == name and c.dtype == "bfloat16"
               and any(c.shape == f"B={BENCH_B} T={BENCH_T} F={f} D={d} E={e}"
@@ -1392,11 +1437,16 @@ def main() -> int:
     _build.load()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for symbol in (FLASH_WGMMA, MFN_STAGED):
+    for symbol in (FLASH_WGMMA, MFN_STAGED, ENC_WGMMA):
         for line in ptxas_lines(_build.build_log, symbol):
             print(f"ptxas {line}", flush=True)
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
+    for symbol, wanted in ENC_WGMMA_SASS:
+        sass = sass_check(lib_path, symbol, wanted)
+        print(f"SASS of {symbol}: {sass}", flush=True)
+        if " NO" in sass or sass.startswith(("not checked", "no function")):
+            raise SmokeFailure(f"kernel A's {symbol}: {sass}")
 
     phase("kernels against their plain versions")
     checks = run_kernel_checks(torch, device)

@@ -33,8 +33,8 @@ _F = ctypes.c_float
 # name -> argument types.  The launches return c_int (cudaGetLastError());
 # the *_workspace sizes return c_longlong (bytes).
 _SIGNATURES = {
-    "mmtx_encoder_stack": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _P],
+    "mmtx_encoder_stack": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _I, _I, _I, _I, _I, _P],
     "mmtx_mfn_scan": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _P],
     "mmtx_mfn_scan_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I],

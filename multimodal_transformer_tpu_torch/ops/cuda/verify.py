@@ -218,20 +218,34 @@ def _key_mask(B: int, T: int, seed: int, dtype, device):
     return mask.to(device)
 
 
-@torch.no_grad()
-def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
-                  D: int = 256, h: int = 8, F: int = 128, n_layers: int = 6,
-                  reps: int = 7) -> KernelCheck:
+def _encoder_case(B, T, dtype, device, seed, D, F, n_layers):
+    """A random encoder, x and the key mask: varied lengths in a batch, the
+    whole video at B=1 (as evaluate_per_video calls it)."""
     gen = torch.Generator().manual_seed(seed)
     enc = random_encoder(gen, D, F, n_layers).to(device=device, dtype=dtype)
     x = torch.randn(B, T, D, generator=gen).to(device=device, dtype=dtype)
-    mask = _key_mask(B, T, seed, dtype, device)
+    mask = (_key_mask(B, T, seed, dtype, device) if B > 1 else
+            torch.ones(B, T, 1, device=device, dtype=dtype))
+    return enc, x, mask
+
+
+@torch.no_grad()
+def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
+                  D: int = 256, h: int = 8, F: int = 128, n_layers: int = 6,
+                  reps: int = 7, repeat: bool = False) -> KernelCheck:
+    """Kernel A against its plain version; repeat: also call the kernel
+    again and require the same bits."""
+    enc, x, mask = _encoder_case(B, T, dtype, device, seed, D, F, n_layers)
     valid = mask[..., 0].bool()
 
     ref = enc_k.encoder_stack_fused_plain(copy.deepcopy(enc).double(),
                                           x.double(), mask.double(), h=h)
     plain = enc_k.encoder_stack_fused_plain(enc, x, mask, h=h)
     kern = enc_k.encoder_stack_fused(enc, x, mask, h=h)
+    identical = None
+    if repeat:
+        identical = torch.equal(kern, enc_k.encoder_stack_fused(enc, x, mask,
+                                                                h=h))
     torch.cuda.synchronize()
     return KernelCheck(
         "encoder_stack_fused", f"B={B} T={T} D={D}", _dtype_name(dtype),
@@ -243,7 +257,43 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
                 reps),
         *bound_times({_ops_type(dtype): n_layers * encoder_layer_ops(B, T, D,
                                                                      F)},
-                     [x, mask, kern, *enc.parameters()]))
+                     [x, mask, kern, *enc.parameters()]),
+        identical=identical)
+
+
+def kernel_device_ms(fn, calls: int, name_of) -> Dict[str, float]:
+    """Device ms per call of fn's kernels, from torch.profiler's kernel
+    events over `calls` calls after a warm one, summed by name_of(event
+    name) (events it maps to None are left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        key = name_of(e.name) if str(e.device_type).endswith("CUDA") else None
+        if key is not None:
+            out[key] = out.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
+
+
+@torch.no_grad()
+def encoder_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
+                      seed: int = 0, calls: int = 5) -> Dict[str, float]:
+    """Device ms per stack of each of kernel A's kernels (by name, template
+    arguments included) over `calls` warm calls at D=256, h=8, F=128, 6
+    layers."""
+    enc, x, mask = _encoder_case(B, T, dtype, device, seed, 256, 128, 6)
+    out = kernel_device_ms(
+        lambda: enc_k.encoder_stack_fused(enc, x, mask), calls,
+        lambda n: (n.split("mmtx::", 1)[1].split("(", 1)[0]
+                   if "mmtx::" in n else None))
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 MOD_LETTER = {"acoustic": "A", "image": "V", "linguistic": "L",
@@ -310,26 +360,13 @@ MFN_STAGES = (("stage 1, LSTM scan", "lstm_scan_kernel"),
 @torch.no_grad()
 def mfn_stage_ms(B: int, T: int, dtype: torch.dtype, *, device,
                  seed: int = 0, mods=AVL, calls: int = 5) -> Dict[str, float]:
-    """Device ms per call of each of kernel B's stages, from torch.profiler's
-    kernel events over `calls` warm calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device ms per call of each of kernel B's stages over `calls` warm
+    calls."""
     _, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
-    mfn_k.mfn_scan_fused(xps, whhs, gates)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            mfn_k.mfn_scan_fused(xps, whhs, gates)
-        torch.cuda.synchronize()
-    out = {stage: 0.0 for stage, _ in MFN_STAGES}
-    for e in prof.events():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        for stage, key in MFN_STAGES:
-            if key in e.name:
-                out[stage] += (e.time_range.end - e.time_range.start) / 1e3
-                break
-    return {stage: out[stage] / calls for stage in sorted(out)}
+    out = kernel_device_ms(
+        lambda: mfn_k.mfn_scan_fused(xps, whhs, gates), calls,
+        lambda n: next((stage for stage, key in MFN_STAGES if key in n), None))
+    return {stage: out.get(stage, 0.0) for stage, _ in sorted(MFN_STAGES)}
 
 
 def check_mfn_packed(B: int, T: int, dtype: torch.dtype, *, device,

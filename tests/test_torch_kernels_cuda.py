@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain versions on the card (the kernel
-phases of chip_smoke.py): kernel A at B=32, T in {160, 137, 544}, kernel B at
+phases of chip_smoke.py): kernel A at B=32, T in {160, 137, 544} (its bf16
+wgmma path also at d_k = 16, at B=1, T in {37, 1} and at two online key
+tiles, its bf16 FMA path at D = 16, d_k = 2, each bit-identical when
+called again), kernel B at
 B=32, T=160 A+V+L, B=2, T=1,120, B=1, T=37, a ragged case and the emotient
 modality (bit-identical when called again), kernel 10 (window embed) at the front end's four shapes
 and its autograd Function's gradients, kernel 11 (flash attention) at the
@@ -51,6 +54,28 @@ def test_encoder_kernel_within_bound(device, T, dtype):
     c = verify.check_encoder(32, T, DTYPES[dtype], device=device, reps=1)
     assert encoder.launches > before
     assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("B,T,D", [(32, 160, 256), (32, 160, 128),
+                                   (1, 37, 256), (1, 1, 256), (3, 300, 256)])
+def test_encoder_wgmma_path_within_bound_and_bit_identical(device, B, T, D):
+    """Kernel A's bf16 wgmma path at d_k = D / 8 in {32, 16}, one video at
+    T = 37 and T = 1, and two online key tiles (T = 300)."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder, verify
+    assert encoder.kernel_path(torch.bfloat16, D // 8, D, 128) == \
+        encoder.PATH_WGMMA
+    c = verify.check_encoder(B, T, torch.bfloat16, device=device, D=D, reps=1,
+                             repeat=True)
+    assert c.identical and c.ok, c.line()
+
+
+def test_encoder_bf16_fma_path_within_bound_and_bit_identical(device):
+    """Kernel A's bf16 FMA path at the emotient encoder's D = 16 (d_k = 2)."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder, verify
+    assert encoder.kernel_path(torch.bfloat16, 2, 16, 128) == encoder.PATH_FMA
+    c = verify.check_encoder(32, 160, torch.bfloat16, device=device, D=16,
+                             reps=1, repeat=True)
+    assert c.identical and c.ok, c.line()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
