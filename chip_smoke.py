@@ -9,9 +9,11 @@ any failure exits nonzero:
 2. build: compiles the CUDA kernels from multimodal_transformer_tpu_torch/csrc
    and prints registers, shared memory and spills of kernel 11's wgmma path,
    kernel B's stages and kernel A's wgmma path (its row chain and attention
-   kernels), and whether their SASS holds HGMMA (and UTMALDG where they
-   load by TMA): kernel A's wgmma kernels must, and the run fails when
-   cuobjdump cannot read them;
+   kernels) and of kernels 4 and 5's wgmma path (csrc/encoder_bwd.cu: any
+   spill fails the run, and so does a build log without a spill report for
+   each of its kernels), and whether their SASS holds HGMMA (and UTMALDG
+   where they load by TMA): kernel A's and kernels 4 and 5's wgmma kernels
+   must, and the run fails when cuobjdump cannot read them;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
@@ -62,7 +64,12 @@ any failure exits nonzero:
    (the dropout-free route) at T=160, fp32 and bf16, the bound applied to
    every output tensor (dx and each gradient included), the whole-stack
    backward (kernel 5) also bit-identical to six calls of the layer
-   backward (kernel 4);
+   backward (kernel 4); kernels 4 and 5's bf16 wgmma path also at d_k 16
+   and 32, T in {1, 137, 160, 400} and p in {0.1, 0}, and their bf16 FMA
+   path at the emotient encoder's D = 16 (d_k = 2), T = 160, p in {0.1, 0}
+   (kernel 5 on 2 layers), each on its path and bit-identical when called
+   again; then kernel 4's device ms at B=32, T=160 (torch.profiler), bf16
+   and fp32, with the events captured of each launch name;
 10. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
@@ -291,6 +298,22 @@ MFN_STAGED = "mfn_staged"
 ENC_WGMMA = "enc_wgmma"
 ENC_WGMMA_SASS = (("enc_wgmma12chain_kernel", ("HGMMA",)),
                   ("enc_wgmma16attention_kernel", ("HGMMA", "UTMALDG")))
+# kernels 4 and 5's bf16 wgmma path (csrc/encoder_bwd.cu), by namespace and
+# kernel: each product kernel (the sums kernel has none)
+ENC_BWD = "enc_bwd"
+ENC_BWD_SASS = tuple((f"enc_bwd{len(k)}{k}", wanted) for k, wanted in (
+    ("front_kernel", ("HGMMA", "UTMALDG")), ("attn_fwd_kernel", ("HGMMA", "UTMALDG")),
+    ("mid_kernel", ("HGMMA", "UTMALDG")), ("attn_dq_kernel", ("HGMMA", "UTMALDG")),
+    ("attn_dkv_kernel", ("HGMMA", "UTMALDG")), ("back_kernel", ("HGMMA", "UTMALDG")),
+    ("wgrad_kernel", ("HGMMA",))))
+# kernels 4 and 5's bf16 checks besides the model's (d_k 32 at T 160 and 400,
+# and at p = 0 at T 160): (T, d_k, p, path) at D = 8 d_k, bit-identical on
+# repeat; the wgmma path at both head widths and the FMA path at d_k 2
+ENC_BWD_CASES = tuple(
+    (T, d_k, p, "wgmma") for T in (1, 137, 160, 400) for d_k in (16, 32)
+    for p in (0.1, 0.0)
+    if not (d_k == 32 and (T, p) in ((160, 0.1), (400, 0.1), (160, 0.0)))
+) + tuple((160, 2, p, "fma") for p in (0.1, 0.0))
 
 
 def ptxas_lines(log: str, symbol: str) -> list:
@@ -304,6 +327,30 @@ def ptxas_lines(log: str, symbol: str) -> list:
         if keep:
             lines.append(line.strip())
     return lines
+
+
+def spill_gate(log: str, symbol: str, kernels) -> int:
+    """The spill bytes that ptxas reports for the kernels whose symbol
+    contains `symbol`; raises unless the log has an entry and a spill line
+    for each of `kernels` (a log without them checks nothing)."""
+    lines = ptxas_lines(log, symbol)
+    entries = [l for l in lines if "Compiling entry function" in l]
+    missing = [k for k in kernels if not any(k in e for e in entries)]
+    if missing or sum("spill stores" in l for l in lines) < len(entries):
+        raise SmokeFailure(f"the build log has no ptxas spill report for "
+                           f"{missing or symbol}: the spill gate cannot check")
+    return spill_bytes(lines)
+
+
+def spill_bytes(lines) -> int:
+    """The spill stores and loads, in bytes, that ptxas_lines report."""
+    total = 0
+    for line in lines:
+        if "spill stores" in line:
+            parts = line.replace(",", "").split()
+            total += int(parts[parts.index("spill") - 2])
+            total += int(parts[parts.index("loads") - 3])
+    return total
 
 
 def find_cuobjdump():
@@ -592,6 +639,7 @@ def run_mfn_variants(torch, device) -> dict:
 
 
 def run_train_kernel_checks(torch, device):
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
     from multimodal_transformer_tpu_torch.ops.cuda import verify
 
     fns = (verify.check_encoder_train_fwd, verify.check_encoder_layer_bwd,
@@ -601,16 +649,44 @@ def run_train_kernel_checks(torch, device):
     # (T, dropout rate): the model's rates at both T, timed at the main
     # path's shape only; p = 0 at T = 160, the dropout-free training route
     cases = [(T, None) for T in TRAIN_T] + [(BENCH_T, 0.0)]
+
+    def report(c):
+        checks.append(c)
+        print(c.line(), flush=True)
+        if not c.ok:
+            for name, (e, pe) in c.parts.items():
+                print(f"    {name}: err {e:.3e} plain err {pe:.3e}", flush=True)
+
     for dtype in (torch.float32, torch.bfloat16):
         for T, p in cases:
             for fn in fns:
-                checks.append(fn(32, T, dtype, device=device, p=p,
-                                 reps=5 if (T, p) == (BENCH_T, None) else 0))
-                print(checks[-1].line(), flush=True)
-                if not checks[-1].ok:
-                    for name, (e, pe) in checks[-1].parts.items():
-                        print(f"    {name}: err {e:.3e} plain err {pe:.3e}",
-                              flush=True)
+                report(fn(32, T, dtype, device=device, p=p,
+                          reps=5 if (T, p) == (BENCH_T, None) else 0))
+    # kernels 4 and 5's bf16 wgmma path at both head widths, one key to
+    # seven key tiles, both rates (kernel 5 on a stack of 2: the 6-layer
+    # stack is checked above); then their bf16 FMA path at the emotient
+    # encoder's widths (D = 16, d_k = 2); all bit-identical on repeat
+    for T, d_k, p, path in ENC_BWD_CASES:
+        D = 8 * d_k
+        want = {"wgmma": enc_k.PATH_WGMMA, "fma": enc_k.PATH_FMA}[path]
+        if enc_k.kernel_path(torch.bfloat16, d_k, D, 128) != want:
+            raise SmokeFailure(f"encoder backward d_k={d_k} D={D}: not on "
+                               f"the {path} path")
+        report(verify.check_encoder_layer_bwd(
+            32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
+            repeat=True))
+        report(verify.check_encoder_stack_bwd(
+            32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
+            n_layers=2, repeat=True))
+    for dtype in (torch.bfloat16, torch.float32):
+        ms = verify.encoder_bwd_kernel_ms(BENCH_B, BENCH_T, dtype,
+                                          device=device, calls=5)
+        print(f"encoder_layer_bwd kernels, B={BENCH_B} T={BENCH_T} "
+              f"{str(dtype).split('.')[-1]}, device ms per call (torch."
+              f"profiler, events captured over 5 calls), "
+              f"{sum(v for v, _ in ms.values()):.4f} in all: "
+              + ", ".join(f"{k} {v:.4f} ({n})" for k, (v, n) in ms.items()),
+              flush=True)
     bad = [c for c in checks if not c.ok]
     if bad:
         raise SmokeFailure(f"{len(bad)} train kernel check(s) outside the "
@@ -1437,16 +1513,20 @@ def main() -> int:
     _build.load()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for symbol in (FLASH_WGMMA, MFN_STAGED, ENC_WGMMA):
+    for symbol in (FLASH_WGMMA, MFN_STAGED, ENC_WGMMA, ENC_BWD):
         for line in ptxas_lines(_build.build_log, symbol):
             print(f"ptxas {line}", flush=True)
+    spills = spill_gate(_build.build_log, ENC_BWD,
+                        [k for k, _ in ENC_BWD_SASS] + ["enc_bwd10sum_kernel"])
+    if spills:
+        raise SmokeFailure(f"kernels 4/5's wgmma path spills {spills} bytes")
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
-    for symbol, wanted in ENC_WGMMA_SASS:
+    for symbol, wanted in ENC_WGMMA_SASS + ENC_BWD_SASS:
         sass = sass_check(lib_path, symbol, wanted)
         print(f"SASS of {symbol}: {sass}", flush=True)
         if " NO" in sass or sass.startswith(("not checked", "no function")):
-            raise SmokeFailure(f"kernel A's {symbol}: {sass}")
+            raise SmokeFailure(f"{symbol}: {sass}")
 
     phase("kernels against their plain versions")
     checks = run_kernel_checks(torch, device)

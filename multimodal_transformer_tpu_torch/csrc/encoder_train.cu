@@ -24,40 +24,38 @@
 // equal the JAX package's bit for bit.
 //
 // Backward (one layer, kernel 4; the whole stack, kernel 5): recomputes the
-// layer from its saved input
-// (the probabilities are rebuilt tile by tile from a per-row log-sum-exp, so
-// no [T, T] block is ever stored and every T works), regenerates the keep
-// bits from the hash, and emits dx and the 16 parameter gradients.  The
-// attention backward is two passes: one block per query tile computes
-// D_i = sum_k P_ik dP_ik and dq; one block per key tile computes dk and dv.
-// Where the TPU kernel rounds ds to the storage dtype before the dq/dk
-// products, this kernel keeps it in fp32; dq, dk, dv themselves are stored
-// in the storage dtype as there.
+// layer from its saved input (the probabilities are rebuilt tile by tile,
+// so no [T, T] block is ever stored and every T works), regenerates the
+// keep bits from the hash, and emits dx and the 16 parameter gradients.
+// Two paths, chosen by the C entries (`mmtx_encoder_bwd_path`, the
+// wrapper's kernel_path):
+//   * bf16 at d_k in {16, 32}, D in {128, 256} and F = 128: every product
+//     on wgmma, eight launches a layer, at the TPU kernel's rounding points
+//     (csrc/encoder_bwd.cu);
+//   * fp32, and bf16 at other widths: the code below, every product a
+//     strided 64x64-tile FMA GEMM with a fused epilogue from gemm.cuh, the
+//     attention backward in two FMA passes (one block per query tile for
+//     D_i = sum_k P_ik dP_ik and dq, one per key tile for dk and dv), ~43
+//     launches a layer.  It keeps ds in fp32 where the TPU kernel rounds it
+//     to the storage dtype before the dq/dk products; dq, dk, dv are stored
+//     in the storage dtype as there.  At MFT shapes (B=32, T=160, D=256,
+//     h=8, F=128) a layer's ~10 GFLOP run on the fp32 FMA pipes (67 TFLOP/s
+//     peak): compute-bound, far below the tensor cores.
+// Weight gradients are split over fixed row chunks whose partials a second
+// pass adds in order (no float atomics), so the gradients are bit-identical
+// from run to run on both paths.
 //
 // Kernel 5 (mmtx_encoder_stack_bwd, replaces _stack_bwd_call) runs kernel 4's
 // sequence for every layer, last first, in one host call: the workspace is
 // carved once, dy is carried between layers in two fp32 [B, T, D] buffers,
-// every gradient lands in its stacked [N, ...] output, and the layer boundary
-// is fused: the last LayerNorm backward of layer l also writes layer l-1's
-// dropout-masked FFN-output gradient, the first thing layer l-1 needs.  The
-// arithmetic is kernel 4's, in the same order (the same split-K partials and
-// column sums, the same LayerNorm-backward kernel), so kernel 5's outputs are
-// bit-identical to N kernel-4 calls.
-//
-// What bounds it on the H100: at MFT shapes (B=32, T=160, D=256, h=8,
-// F=128) one layer is ~3.4 GFLOP forward and ~7 GFLOP for the backward with
-// its recompute, all on the fp32 FMA pipes (67 TFLOP/s peak) in this first
-// version; the long weight-gradient reductions (over B*T = 5,120 rows) add
-// traffic for their partials.  Compute-bound, far below the bf16 tensor-core
-// peak.
-//
-// What the design does about it: correctness and determinism first.  Every
-// product is one strided 64x64-tile FMA GEMM with a fused epilogue from
-// gemm.cuh; weight gradients are split over fixed row chunks whose partials
-// a second pass adds in order, so the gradients are bit-identical from run to
-// run (no float atomics).  One C entry per kernel launches its whole sequence
-// on the caller's stream.  Moving the products onto wgmma is later work.
+// every gradient lands in its stacked [N, ...] output.  On the FMA path the
+// layer boundary is fused: the last LayerNorm backward of layer l also
+// writes layer l-1's dropout-masked FFN-output gradient, the first thing
+// layer l-1 needs; the wgmma path draws that dropout from dy in its chain.
+// The arithmetic is kernel 4's, in the same order, so kernel 5's outputs
+// are bit-identical to N kernel-4 calls on both paths.
 
+#include "encoder_bwd.cuh"
 #include "gemm.cuh"
 
 namespace mmtx {
@@ -255,12 +253,6 @@ void linear_grad_input(const TG* g, int ldg, const T* W, int M, int Nout, int Ni
 }
 
 // ---------------------------------------------------------------- attention
-
-__device__ __forceinline__ uint32_t prob_index(int b, int H, int hd, int Tlen, int qi,
-                                               int kj) {
-  return (((uint32_t)b * H + hd) * (uint32_t)Tlen + (uint32_t)qi) * (uint32_t)Tlen +
-         (uint32_t)kj;
-}
 
 // Forward attention with dropout on the probabilities.  One block per
 // (64-query tile, head, video), TPQ threads per query row, online softmax over
@@ -856,6 +848,8 @@ extern "C" long long mmtx_encoder_train_workspace(int dtype, int B, int T, int D
   using namespace mmtx;
   Carver c{nullptr};
   const int M = B * T;
+  if (backward && enc_bwd::takes(dtype, D, H, F))
+    return enc_bwd::workspace_bytes(B, T, D, H, F, backward == 2);
   if (dtype == kBF16) {
     if (backward == 2) enct::StackBwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
     else if (backward) enct::Bwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
@@ -895,6 +889,13 @@ extern "C" int mmtx_encoder_train_fwd(int dtype, const void* x, const void* kmas
   return (int)cudaErrorInvalidValue;
 }
 
+// The path kernels 4 and 5 take for (dtype, D, h, F), as the wrapper's
+// kernel_path chooses it: 1 (wgmma, csrc/encoder_bwd.cu) for bf16 at d_k
+// in {16, 32}, D in {128, 256} and F = 128, else 0 (the FMA code here).
+extern "C" int mmtx_encoder_bwd_path(int dtype, int D, int H, int F) {
+  return mmtx::enc_bwd::takes(dtype, D, H, F) ? 1 : 0;
+}
+
 // Kernel 4.  x_l, dy fp32 [B, T, D]; layer_ptrs: the layer's 16 parameters
 // in the storage dtype; seeds: host array of the layer's 4 uint32 seeds;
 // dx fp32 [B, T, D]; grad_ptrs: 16 fp32 device buffers shaped like the
@@ -914,6 +915,9 @@ extern "C" int mmtx_encoder_layer_bwd(int dtype, const void* x, const void* dy,
   const float* g = static_cast<const float*>(dy);
   const float* km = static_cast<const float*>(kmask);
   float* d = static_cast<float*>(dx);
+  if (enc_bwd::takes(dtype, D, H, F))
+    return enc_bwd::layer_bwd(xx, g, km, lp, sd, threshold, keep_p, d, gp, workspace, B, T, D,
+                              H, F, st);
   if (dtype == kF32)
     return enct::layer_bwd<float>(xx, g, km, lp, sd, threshold, keep_p, d, gp, workspace, B,
                                   T, D, H, F, st);
@@ -945,6 +949,9 @@ extern "C" int mmtx_encoder_stack_bwd(int dtype, const void* saved, const void* 
   const float* g = static_cast<const float*>(dy);
   const float* km = static_cast<const float*>(kmask);
   float* d = static_cast<float*>(dx);
+  if (enc_bwd::takes(dtype, D, H, F))
+    return enc_bwd::stack_bwd(sv, g, km, lp, n_layers, sd, threshold, keep_p, d, gp, workspace,
+                              B, T, D, H, F, st);
   if (dtype == kF32)
     return enct::stack_bwd<float>(sv, g, km, lp, n_layers, sd, threshold, keep_p, d, gp,
                                   workspace, B, T, D, H, F, st);

@@ -44,6 +44,14 @@ struct DropSite {
   }
 };
 
+// The flat position of probability (qi, kj) of head hd of video b in the
+// JAX package's [B, h, T, T] tensor: its dropout keep bit's counter.
+__device__ __forceinline__ uint32_t prob_index(int b, int H, int hd, int Tlen, int qi,
+                                               int kj) {
+  return (((uint32_t)b * H + hd) * (uint32_t)Tlen + (uint32_t)qi) * (uint32_t)Tlen +
+         (uint32_t)kj;
+}
+
 // Compensated summation: s + comp carries the running sum's lost bits.
 struct KahanSum {
   float s = 0.f, comp = 0.f;

@@ -49,6 +49,7 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _P],
     "mmtx_encoder_stack_bwd": [_I, _P, _P, _P, _P, _I, _P, _U, _F, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],
+    "mmtx_encoder_bwd_path": [_I, _I, _I, _I],
     "mmtx_mfn_train_fwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
                            _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmtx_mfn_train_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I],
@@ -63,8 +64,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# nvcc's output of the last verbose build (-Xptxas -v: registers, shared
-# memory and spills of every kernel); empty when the library was cached
+# nvcc's output of the verbose build of these sources (-Xptxas -v:
+# registers, shared memory and spills of every kernel), kept beside the
+# library; empty until build(verbose=True)
 build_log = ""
 
 
@@ -97,10 +99,16 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists;
+    verbose: also set build_log, from the log kept beside the library, or
+    by compiling again where the library was built without one."""
     global build_log
     out = library_path()
-    if out.is_file():
+    log_path = out.with_suffix(".log")
+    if out.is_file() and not verbose:
+        return out
+    if out.is_file() and log_path.is_file():
+        build_log = log_path.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
@@ -126,6 +134,7 @@ def build(verbose: bool = False) -> Path:
         if verbose:
             build_log = "".join(log for _, log, _ in logs)
             print(build_log, file=sys.stderr, flush=True)
+            log_path.write_text(build_log)
         os.replace(lib, out)
     return out
 

@@ -49,17 +49,17 @@ def reset_launches() -> None:
     launches = 0
 
 
-def kernel_path(dtype: torch.dtype, d_k: int, D: int, F: int) -> int:
+def kernel_path(dtype: torch.dtype, d_k: int, D: int, F: int,
+                what: str = "encoder_stack_fused") -> int:
     """The kernel path of (dtype, d_k, D, F): PATH_WGMMA for bf16 with d_k in
     {16, 32}, D in {128, 256} and F = 128; PATH_FMA for float32 and other
-    bf16 widths."""
+    bf16 widths.  Raises, naming `what`, where no path takes the shape."""
     if d_k not in SUPPORTED_DK:
-        raise ValueError(f"encoder_stack_fused: d_k={d_k} not in "
-                         f"{SUPPORTED_DK}")
+        raise ValueError(f"{what}: d_k={d_k} not in {SUPPORTED_DK}")
     if dtype == torch.float32:
         return PATH_FMA
     if dtype != torch.bfloat16:
-        raise TypeError(f"encoder_stack_fused: no kernel path for {dtype}")
+        raise TypeError(f"{what}: no kernel path for {dtype}")
     if d_k in WGMMA_DK and D in WGMMA_D and F == WGMMA_F:
         return PATH_WGMMA
     return PATH_FMA

@@ -20,8 +20,22 @@ probabilities, the attention output and the dropped FFN hidden stored in
 the storage dtype.  With float64 inputs it computes everything in float64
 (the reference for error bounds).  The plain backward of a layer is
 `torch.autograd.grad` through the plain forward from the layer's saved
-input, with the same keep bits.  There is no final norm: the caller applies
-it, so autograd owns its parameters.
+input, with the same keep bits.  In bf16 its gradients round where the TPU
+kernel's backward rounds them (`ops/pallas/encoder.py:_layer_bwd_core`) and
+nowhere else: dff, dmidp and dattn before their products (their bias
+gradients sum the unrounded values), do, dq, dk and dv (their bias
+gradients sum the rounded values), ds / sqrt(d_k) before the dq product and
+ds before the dk product; the parameters' gradients come back unrounded.
+In float32 and float64 every rounding is the identity, as before.  There is
+no final norm: the caller applies it, so autograd owns its parameters.
+
+Kernels 4 and 5 have kernel A's two paths, chosen by `kernel_path(dtype,
+d_k, D, F)` (ops/cuda/encoder.py) and checked against the C entries' own
+choice: wgmma (bf16 at d_k in {16, 32}, D in {128, 256} and F = 128:
+csrc/encoder_bwd.cu, at the rounding points above) and the FMA pipes
+(float32, and bf16 at other widths: csrc/encoder_train.cu, ds kept in
+float32).  None stands in for another: a path that fails to build or launch
+raises.
 
 Dropout sites per layer (seed column): 0 attention probabilities, flat index
 over [B, h, T, T]; 1 attention output, 2 FFN hidden, 3 FFN output, flat
@@ -39,7 +53,8 @@ from ..dispatch import (acc_dtype, check_encoder_backward, check_kernel_dtype,
                         use_kernel)
 from ..norm import layer_norm
 from . import _build
-from .encoder import NEG_INF, SUPPORTED_DK, _layer_tensors
+from .encoder import (NEG_INF, PATH_WGMMA, SUPPORTED_DK, _layer_tensors,
+                      kernel_path)
 
 N_PARAMS = 16   # per layer, in _layer_tensors order
 
@@ -55,44 +70,104 @@ def reset_launches() -> None:
     fwd_launches = bwd_launches = stack_bwd_launches = 0
 
 
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose gradient is rounded to bf16 (a rounding point of
+    the TPU kernel's backward)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+class _RoundValue(torch.autograd.Function):
+    """x rounded to bf16 (as the forward stores it); the gradient passes
+    unrounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Scores(torch.autograd.Function):
+    """s = round(q / sqrt(d_k)) k^T on q before its scale and bf16 k, with
+    the TPU kernel's backward: dq = round(ds / sqrt(d_k)) k and dk =
+    round(ds)^T round(q / sqrt(d_k))."""
+
+    @staticmethod
+    def forward(ctx, q, k, inv_sqrt_dk):
+        qs = (q * inv_sqrt_dk).to(torch.bfloat16).to(q.dtype)
+        ctx.save_for_backward(qs, k, inv_sqrt_dk)
+        return qs @ k.transpose(-2, -1)
+
+    @staticmethod
+    def backward(ctx, ds):
+        qs, k, inv_sqrt_dk = ctx.saved_tensors
+        r = lambda t: t.to(torch.bfloat16).to(ds.dtype)
+        return (r(ds * inv_sqrt_dk) @ k, r(ds).transpose(-2, -1) @ qs, None)
+
+
 def layer_train_plain(lp, x: torch.Tensor, kmask: torch.Tensor, seeds,
-                      p: float, h: int) -> torch.Tensor:
+                      p: float, h: int, cdt: torch.dtype | None = None
+                      ) -> torch.Tensor:
     """One layer's forward in plain PyTorch.  lp: the 16 parameters in the
     storage dtype (or upcast copies of them); x: [B, T, D] residual stream in
-    the accumulation dtype; kmask [B, T]; seeds: the layer's 4 site seeds."""
+    the accumulation dtype; kmask [B, T]; seeds: the layer's 4 site seeds;
+    cdt: the storage dtype (default: float64 for float64 x, else lp's)."""
     (ln1a, ln1b, wq, bq, wk, bk, wv, bv, wo, bo, ln2a, ln2b,
      w1, b1, w2, b2) = lp
-    cdt = torch.float64 if x.dtype == torch.float64 else wq.dtype
+    if cdt is None:
+        cdt = torch.float64 if x.dtype == torch.float64 else wq.dtype
     acc = x.dtype
     B, T, D = x.shape
     d_k = D // h
     s0, s1, s2, s3 = (int(s) for s in seeds)
+    # bf16 into float32: values rounded where the forward stores them,
+    # gradients rounded only at the TPU kernel's backward rounding points
+    bf16 = cdt == torch.bfloat16 and acc == torch.float32
 
     def c(t):
-        return t.to(cdt).to(acc)
+        return _RoundValue.apply(t.to(acc)) if bf16 else t.to(cdt).to(acc)
+
+    def rg(t):
+        return _RoundGrad.apply(t) if bf16 else t
 
     def mm(a, w, b):
-        return c(a) @ c(w).T + c(b)
+        return rg(c(a) @ c(w).T) + c(b)
 
     def heads(t):
         return c(t).view(B, T, h, d_k).transpose(1, 2)
 
     inv_sqrt_dk = 1.0 / torch.tensor(float(d_k), dtype=acc).sqrt().item()
-    xn = layer_norm(x, c(ln1a), c(ln1b)).to(cdt)
-    q = (mm(xn, wq, bq) * torch.tensor(inv_sqrt_dk, dtype=acc)).to(cdt)
-    k = mm(xn, wk, bk).to(cdt)
-    v = mm(xn, wv, bv).to(cdt)
-    s = heads(q) @ heads(k).transpose(-2, -1)
+    xn = c(layer_norm(x, c(ln1a), c(ln1b)))
+    if bf16:  # dq, dk, dv rounded before their bias gradients
+        k = rg(mm(xn, wk, bk))
+        v = rg(mm(xn, wv, bv))
+        split = lambda t: t.view(B, T, h, d_k).transpose(1, 2)
+        s = _Scores.apply(split(rg(mm(xn, wq, bq))), heads(k),
+                          torch.tensor(inv_sqrt_dk, dtype=acc))
+    else:
+        q = (mm(xn, wq, bq) * torch.tensor(inv_sqrt_dk, dtype=acc)).to(cdt)
+        k = mm(xn, wk, bk).to(cdt)
+        v = mm(xn, wv, bv).to(cdt)
+        s = heads(q) @ heads(k).transpose(-2, -1)
     s = s.masked_fill(kmask[:, None, None, :] == 0, NEG_INF)
     prob = torch.softmax(s, dim=-1)
     if p > 0.0:
         idx = torch.arange(prob.numel(), dtype=torch.int64,
                            device=x.device).view(prob.shape)
         prob = dropout_with_idx(prob, s0, p, idx)
-    o = (c(prob.to(cdt)) @ heads(v)).transpose(1, 2).reshape(B, T, D)
-    x1 = x + dropout(mm(o.to(cdt), wo, bo), s1, p)
-    xn2 = layer_norm(x1, c(ln2a), c(ln2b)).to(cdt)
-    mid = dropout(torch.relu(mm(xn2, w1, b1)), s2, p).to(cdt)
+    o = (c(prob) @ heads(v)).transpose(1, 2).reshape(B, T, D)
+    x1 = x + dropout(mm(rg(o), wo, bo), s1, p)
+    xn2 = c(layer_norm(x1, c(ln2a), c(ln2b)))
+    mid = c(dropout(torch.relu(mm(xn2, w1, b1)), s2, p))
     return x1 + dropout(mm(mid, w2, b2), s3, p)
 
 
@@ -115,8 +190,8 @@ def encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p: float, h: int):
         # upcast leaves: the grads come back unrounded, like the kernel's;
         # the forward reads them in the storage dtype
         ps = [t.detach().to(acc).requires_grad_() for t in lp]
-        ps_in = ps if acc == torch.float64 else [t.to(lp[2].dtype) for t in ps]
-        y = layer_train_plain(ps_in, x, kmask, seeds, p, h)
+        y = layer_train_plain(ps, x, kmask, seeds, p, h,
+                              cdt=acc if acc == torch.float64 else lp[2].dtype)
         grads = torch.autograd.grad(y, [x] + ps, dy)
     return grads[0], list(grads[1:])
 
@@ -160,6 +235,19 @@ def _check_heads(D: int, h: int, what: str) -> None:
 def _seed_array(seeds) -> ctypes.Array:
     vals = [int(v) & 0xFFFFFFFF for v in torch.as_tensor(seeds).flatten().tolist()]
     return (ctypes.c_uint32 * len(vals))(*vals)
+
+
+def _check_backward_path(lib, dtype_code, params, D, h, F, what) -> None:
+    """Raises unless the C entries take kernel_path's path for the shape;
+    the wgmma path loads parameters by TMA, so it also needs them 16-byte
+    aligned."""
+    path = kernel_path(params[2].dtype, D // h, D, F, what=what)
+    if lib.mmtx_encoder_bwd_path(dtype_code, D, h, F) != path:
+        raise RuntimeError(f"{what}: the library's path for D={D}, h={h}, "
+                           f"F={F} is not kernel_path's {path}")
+    if path == PATH_WGMMA and any(t.data_ptr() % 16 for t in params):
+        raise ValueError(f"{what}: the wgmma path needs 16-byte aligned "
+                         "parameters")
 
 
 def _workspace(lib, dtype_code, B, T, D, h, F, backward: bool, device):
@@ -231,6 +319,7 @@ def encoder_layer_bwd(lp, x_l, dy, kmask, seeds, p: float, h: int):
     F = lp[12].shape[0]
     km = kmask.to(device=x_l.device, dtype=torch.float32).contiguous()
     lib = _build.load()
+    _check_backward_path(lib, dtype_code, lp, D, h, F, what)
     dx = torch.empty_like(x_l)
     grads = [torch.empty(t.shape, dtype=torch.float32, device=x_l.device)
              for t in lp]
@@ -297,6 +386,7 @@ def encoder_stack_bwd(params, saved, dy, kmask, seeds, p: float, h: int):
     dtype_code, n_layers, B, T, D, F, km = _stack_bwd_args(
         params, saved, dy, kmask, seeds, h, what)
     lib = _build.load()
+    _check_backward_path(lib, dtype_code, params, D, h, F, what)
     dx = torch.empty_like(dy)
     grads = [torch.empty((n_layers,) + tuple(t.shape), dtype=torch.float32,
                          device=saved.device) for t in params[:N_PARAMS]]

@@ -261,10 +261,14 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
         identical=identical)
 
 
-def kernel_device_ms(fn, calls: int, name_of) -> Dict[str, float]:
+def kernel_device_ms(fn, calls: int, name_of, per_launch: bool = False,
+                     seen: Dict[str, int] | None = None) -> Dict[str, float]:
     """Device ms per call of fn's kernels, from torch.profiler's kernel
     events over `calls` calls after a warm one, summed by name_of(event
-    name) (events it maps to None are left out)."""
+    name) (events it maps to None are left out); per_launch: the mean ms of
+    a name's events instead, which for kernels launched once a call is
+    their ms per call even when the profiler drops some events; seen, where
+    given, receives the number of events captured of each name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -274,12 +278,14 @@ def kernel_device_ms(fn, calls: int, name_of) -> Dict[str, float]:
             fn()
         torch.cuda.synchronize()
     out: Dict[str, float] = {}
+    seen = {} if seen is None else seen
     for e in prof.events():
         key = name_of(e.name) if str(e.device_type).endswith("CUDA") else None
         if key is not None:
             out[key] = out.get(key, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / calls
-    return out
+                e.time_range.end - e.time_range.start) / 1e3
+            seen[key] = seen.get(key, 0) + 1
+    return {k: v / (seen[k] if per_launch else calls) for k, v in out.items()}
 
 
 @torch.no_grad()
@@ -294,6 +300,34 @@ def encoder_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
         lambda n: (n.split("mmtx::", 1)[1].split("(", 1)[0]
                    if "mmtx::" in n else None))
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
+                          seed: int = 0, calls: int = 5, p: float = ENC_P
+                          ) -> Dict[str, Tuple[float, int]]:
+    """(device ms per call, events captured) of each launch name of kernel
+    4 (one layer's backward, template arguments included; device-to-device
+    copies as "Memcpy DtoD") over `calls` warm calls at D=256, h=8, F=128.
+    Each of the wgmma path's kernels launches once a call, so its reading is
+    the mean of its launches (it holds when the profiler drops events); the
+    FMA path's names launch several times a call and are summed over the
+    calls, so a dropped event lowers them: the count shows it."""
+    gen, lp, _, kmask, seeds = _encoder_train_case(B, T, dtype, device, seed,
+                                                   256, 128, 1)
+    x = torch.randn(B, T, 256, generator=gen).to(device)
+    dy = torch.randn(B, T, 256, generator=gen).to(device) * kmask[..., None]
+    seen: Dict[str, int] = {}
+    with torch.no_grad():
+        out = kernel_device_ms(
+            lambda: enct_k.encoder_layer_bwd(lp, x, dy, kmask, seeds[0], p, 8),
+            calls,
+            lambda n: (n.split("mmtx::", 1)[1].split("(", 1)[0]
+                       if "mmtx::" in n else
+                       "Memcpy DtoD" if "Memcpy DtoD" in n else None),
+            per_launch=enc_k.kernel_path(dtype, 32, 256, 128)
+            == enc_k.PATH_WGMMA, seen=seen)
+    return {k: (v, seen[k]) for k, v in sorted(out.items(),
+                                               key=lambda kv: -kv[1])}
 
 
 MOD_LETTER = {"acoustic": "A", "image": "V", "linguistic": "L",
@@ -387,10 +421,11 @@ def check_mfn_aligned(B: int, T: int, dtype: torch.dtype, *, device,
                            seed, mods, reps)
 
 
-def _label(p) -> str:
-    """The shape label's prefix of a training check at a dropout rate other
-    than the model's."""
-    return "" if p is None else f"p={p} "
+def _label(p, d_k: int = 32) -> str:
+    """The shape label's prefix of a training check at a dropout rate or a
+    head width other than the model's."""
+    return ("" if p is None else f"p={p} ") + ("" if d_k == 32 else
+                                               f"dk={d_k} ")
 
 
 def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
@@ -446,10 +481,12 @@ GRAD_NAMES = ("ln1.a", "ln1.b", "q.w", "q.b", "k.w", "k.b", "v.w", "v.b",
 def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, reps: int = 5,
-                            p: float | None = None) -> KernelCheck:
+                            p: float | None = None,
+                            repeat: bool = False) -> KernelCheck:
     """Kernel 4: dx and the 16 parameter grads of one layer, from a random
     layer input and a random output cotangent that is 0 past each video's
-    length."""
+    length; repeat: also call the kernel again and require the same
+    bits."""
     rate = ENC_P if p is None else p
     gen, lp, _, kmask, seeds = _encoder_train_case(B, T, dtype, device, seed,
                                                    D, F, 1)
@@ -462,11 +499,16 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
     plain = enct_k.encoder_layer_bwd_plain(lp, x, dy, *args)
     with torch.no_grad():
         kern = enct_k.encoder_layer_bwd(lp, x, dy, *args)
+        identical = None
+        if repeat:
+            again = enct_k.encoder_layer_bwd(lp, x, dy, *args)
+            identical = torch.equal(kern[0], again[0]) and all(
+                torch.equal(a, b) for a, b in zip(kern[1], again[1]))
     torch.cuda.synchronize()
     flat = lambda o: [o[0]] + list(o[1])
     valids = [valid] + [None] * len(lp)
     return KernelCheck(
-        "encoder_layer_bwd", _label(p) + f"B={B} T={T} D={D}",
+        "encoder_layer_bwd", _label(p, D // h) + f"B={B} T={T} D={D}",
         _dtype_name(dtype),
         _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
                valids),
@@ -478,18 +520,20 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
         # the layer's forward (recomputed: only its input is saved) and the
         # two products of the backward per forward product
         *bound_times({_ops_type(dtype): 3 * encoder_layer_ops(B, T, D, F)},
-                     [x, dy, kmask, *lp, *flat(kern)]))
+                     [x, dy, kmask, *lp, *flat(kern)]), identical=identical)
 
 
 def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, n_layers: int = TRAIN_LAYERS,
                             reps: int = 5,
-                            p: float | None = None) -> KernelCheck:
+                            p: float | None = None,
+                            repeat: bool = False) -> KernelCheck:
     """Kernel 5: dx and the 16 stacked parameter grads of the whole stack,
     from kernel 3's saved layer inputs and a random output cotangent that is
     0 past each video's length; also bit-identical to kernel 4 called for
-    every layer, last first (`identical`)."""
+    every layer, last first, and (repeat) to itself called again
+    (`identical`)."""
     rate = ENC_P if p is None else p
     gen, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                        seed, D, F, n_layers)
@@ -513,10 +557,15 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
     identical = torch.equal(kern[0], g) and all(
         torch.equal(a, torch.stack(b)) for a, b in zip(kern[1],
                                                        zip(*per_layer)))
+    if repeat:
+        with torch.no_grad():
+            again = enct_k.encoder_stack_bwd(params, saved, dy, *args)
+        identical = identical and torch.equal(kern[0], again[0]) and all(
+            torch.equal(a, b) for a, b in zip(kern[1], again[1]))
     flat = lambda o: [o[0]] + list(o[1])
     valids = [valid] + [None] * enct_k.N_PARAMS
     c = KernelCheck(
-        "encoder_stack_bwd", _label(p) + f"B={B} T={T} D={D}",
+        "encoder_stack_bwd", _label(p, D // h) + f"B={B} T={T} D={D}",
         _dtype_name(dtype),
         _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
                valids),

@@ -13,7 +13,10 @@ videos with no key), its TMA + wgmma path (bf16, d_k in {16, 32}) at T in
 whose output is known exactly, and its Function's gradients on both d_k,
 and the five training kernels (encoder stack forward, layer backward and
 whole-stack backward, MFN forward and reverse recurrence) at
-B=32, T in {160, 400}, fp32 and bf16, within the competitive bound
+B=32, T in {160, 400}, fp32 and bf16 (the encoder backward's bf16 wgmma
+path also at d_k in {16, 32}, T in {1, 137, 160, 400}, p in {0.1, 0},
+its bf16 FMA path at D = 16, d_k = 2, p in {0.1, 0}, both bit-identical
+when called again), within the competitive bound
 err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
 output tensor, the whole-stack backward also bit-identical to the layer
 backward called per layer, and the training kernels again at p = 0; the
@@ -148,6 +151,41 @@ def test_train_kernel_at_p0_within_bound(device, kernel, dtype):
     c = getattr(verify, check)(32, 160, DTYPES[dtype], device=device, reps=0,
                                p=0.0)
     assert c.ok, c.line()
+
+
+@pytest.mark.parametrize("p", [0.1, 0.0])
+@pytest.mark.parametrize("T", [1, 137, 160, 400])
+@pytest.mark.parametrize("d_k", [16, 32])
+@pytest.mark.parametrize("kernel", ["encoder_layer_bwd", "encoder_stack_bwd"])
+def test_encoder_bwd_wgmma_path_within_bound_and_bit_identical(device, kernel,
+                                                               d_k, T, p):
+    """Kernels 4 and 5's bf16 wgmma path at d_k = 16 (D = 128) and 32 (D =
+    256), one key to seven key tiles, both dropout rates: within the bound,
+    bit-identical when called again, and kernel 5 bit-identical to kernel 4
+    called for every layer."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder, verify
+    D = 8 * d_k
+    assert encoder.kernel_path(torch.bfloat16, d_k, D, 128) == \
+        encoder.PATH_WGMMA
+    _, _, check = TRAIN_KERNELS[kernel]
+    c = getattr(verify, check)(32, T, torch.bfloat16, device=device, reps=0,
+                               p=p, D=D, repeat=True)
+    assert c.identical and c.ok, c.line()
+
+
+@pytest.mark.parametrize("p", [0.1, 0.0])
+@pytest.mark.parametrize("kernel", ["encoder_layer_bwd", "encoder_stack_bwd"])
+def test_encoder_bwd_fma_path_bf16_within_bound(device, kernel, p):
+    """Kernels 4 and 5's bf16 FMA path (the emotient encoder's widths: D =
+    16, h = 8, d_k = 2) against the plain backward at its bf16 rounding
+    points: within the bound and bit-identical when called again."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder, verify
+    assert encoder.kernel_path(torch.bfloat16, 2, 16, 128) == \
+        encoder.PATH_FMA
+    _, _, check = TRAIN_KERNELS[kernel]
+    c = getattr(verify, check)(32, 160, torch.bfloat16, device=device,
+                               reps=0, p=p, D=16, repeat=True)
+    assert c.identical and c.ok, c.line()
 
 
 # the MFN variants (rows 8 and 9): (B, T, modalities) at the main path's

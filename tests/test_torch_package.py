@@ -150,8 +150,9 @@ def test_library_name_follows_the_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libmmtx_")
     assert {s.name for s in _build.sources()} == {
-        "encoder.cu", "mfn.cu", "encoder_train.cu", "mfn_train.cu",
-        "window_embed.cu", "flash_attention.cu", "mfn_variants.cu"}
+        "encoder.cu", "mfn.cu", "encoder_train.cu", "encoder_bwd.cu",
+        "mfn_train.cu", "window_embed.cu", "flash_attention.cu",
+        "mfn_variants.cu"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
