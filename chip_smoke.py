@@ -13,7 +13,9 @@ any failure exits nonzero:
    spill fails the run, and so does a build log without a spill report for
    each of its kernels), and whether their SASS holds HGMMA (and UTMALDG
    where they load by TMA): kernel A's and kernels 4 and 5's wgmma kernels
-   must, and the run fails when cuobjdump cannot read them;
+   must, and the run fails when cuobjdump cannot read them; likewise the
+   ptxas lines of kernel 7's stages (csrc/mfn_train.cu), where any spill
+   fails the run;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
@@ -68,8 +70,11 @@ any failure exits nonzero:
    and 32, T in {1, 137, 160, 400} and p in {0.1, 0}, and their bf16 FMA
    path at the emotient encoder's D = 16 (d_k = 2), T = 160, p in {0.1, 0}
    (kernel 5 on 2 layers), each on its path and bit-identical when called
-   again; then kernel 4's device ms at B=32, T=160 (torch.profiler), bf16
-   and fp32, with the events captured of each launch name;
+   again; kernel 7 (the MFN's reverse recurrence) bit-identical when
+   called again at every case, also at T=400 with p = 0 and at small
+   shapes with L alone and emotient+acoustic, both rates; then kernel 7's
+   device ms per stage and kernel 4's device ms per launch name at B=32,
+   T=160 (torch.profiler), bf16 and fp32;
 10. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
@@ -306,6 +311,17 @@ ENC_BWD_SASS = tuple((f"enc_bwd{len(k)}{k}", wanted) for k, wanted in (
     ("mid_kernel", ("HGMMA", "UTMALDG")), ("attn_dq_kernel", ("HGMMA", "UTMALDG")),
     ("attn_dkv_kernel", ("HGMMA", "UTMALDG")), ("back_kernel", ("HGMMA", "UTMALDG")),
     ("wgrad_kernel", ("HGMMA",))))
+# kernel 7's stages (csrc/mfn_train.cu, namespace mfnt; its GEMMs are
+# mfn_staged::ff_gemm_kernel instances on mfnt epilogues), by the kernels
+# whose ptxas report the spill gate requires
+MFN_TRAIN = "mfnt"
+MFN_TRAIN_KERNELS = ("prep_kernel", "cell_kernel", "attend_kernel",
+                     "mem_bwd_kernel", "attend_bwd_kernel", "lstm_bwd_kernel",
+                     "ff_gemm_kernel", "wgrad_kernel", "wgrad_sum_kernel")
+# kernel 7's checks besides the model's (B=32, T 160 and 400, p the model's
+# and 0): (B, T, modalities) at small shapes, L alone and emotient+acoustic
+# (H = 16, the narrowest), both rates
+MFN_BWD_SMALL = ((4, 9, ("linguistic",)), (3, 7, ("emotient", "acoustic")))
 # kernels 4 and 5's bf16 checks besides the model's (d_k 32 at T 160 and 400,
 # and at p = 0 at T 160): (T, d_k, p, path) at D = 8 d_k, bit-identical on
 # repeat; the wgmma path at both head widths and the FMA path at d_k 2
@@ -660,8 +676,19 @@ def run_train_kernel_checks(torch, device):
     for dtype in (torch.float32, torch.bfloat16):
         for T, p in cases:
             for fn in fns:
+                kw = ({"repeat": True} if fn is verify.check_mfn_train_bwd
+                      else {})
                 report(fn(32, T, dtype, device=device, p=p,
-                          reps=5 if (T, p) == (BENCH_T, None) else 0))
+                          reps=5 if (T, p) == (BENCH_T, None) else 0, **kw))
+        # kernel 7 also at T = 400 without dropout, and at small shapes
+        # with other modality sets, each bit-identical on repeat
+        report(verify.check_mfn_train_bwd(32, 400, dtype, device=device,
+                                          p=0.0, reps=0, repeat=True))
+        for B, T, mods in MFN_BWD_SMALL:
+            for p in (None, 0.0):
+                report(verify.check_mfn_train_bwd(B, T, dtype, device=device,
+                                                  mods=mods, p=p, reps=0,
+                                                  repeat=True))
     # kernels 4 and 5's bf16 wgmma path at both head widths, one key to
     # seven key tiles, both rates (kernel 5 on a stack of 2: the 6-layer
     # stack is checked above); then their bf16 FMA path at the emotient
@@ -678,6 +705,14 @@ def run_train_kernel_checks(torch, device):
         report(verify.check_encoder_stack_bwd(
             32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
             n_layers=2, repeat=True))
+    for dtype in (torch.bfloat16, torch.float32):
+        stages = verify.mfn_train_bwd_stage_ms(BENCH_B, BENCH_T, dtype,
+                                               device=device)
+        print(f"mfn_train_bwd stages, B={BENCH_B} T={BENCH_T} "
+              f"{str(dtype).split('.')[-1]}, device ms per call (torch."
+              "profiler): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in stages.items()),
+              flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         ms = verify.encoder_bwd_kernel_ms(BENCH_B, BENCH_T, dtype,
                                           device=device, calls=5)
@@ -1513,13 +1548,16 @@ def main() -> int:
     _build.load()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for symbol in (FLASH_WGMMA, MFN_STAGED, ENC_WGMMA, ENC_BWD):
+    for symbol in (FLASH_WGMMA, MFN_STAGED, MFN_TRAIN, ENC_WGMMA, ENC_BWD):
         for line in ptxas_lines(_build.build_log, symbol):
             print(f"ptxas {line}", flush=True)
     spills = spill_gate(_build.build_log, ENC_BWD,
                         [k for k, _ in ENC_BWD_SASS] + ["enc_bwd10sum_kernel"])
     if spills:
         raise SmokeFailure(f"kernels 4/5's wgmma path spills {spills} bytes")
+    spills = spill_gate(_build.build_log, MFN_TRAIN, MFN_TRAIN_KERNELS)
+    if spills:
+        raise SmokeFailure(f"kernel 7's stages spill {spills} bytes")
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
     for symbol, wanted in ENC_WGMMA_SASS + ENC_BWD_SASS:

@@ -19,14 +19,26 @@ of:
   `encoder_stack_bwd`, the encoder's training backward) at B=32, T in {160,
   137, 400} (the training batch, a ragged one, and the longest the training
   phase sends); D=256, h=8, F=128, p=0.1, kernel 4 on one layer, kernel 5
-  on a stack of 6 from kernel 3's saved inputs.
+  on a stack of 6 from kernel 3's saved inputs;
+- `mfn_bwd`: kernel 7 (`ops/cuda/mfn_train.py:mfn_train_bwd`, the MFN's
+  reverse recurrence) at B=32, T in {160, 400} (A+V+L) and B=4, T=9 (L
+  alone), from kernel 6's saved states and random cotangents at the
+  model's gamma dropout; then the device ms of each CUDA kernel name it
+  launches at B=32, T=160 (torch.profiler, events captured over 5 calls),
+  and, where the checkout's verify.py has `mfn_train_bwd_stage_ms`, the
+  device ms of each stage;
+- `step`: the bf16 mixed train step (forward, backward, Adam) of MFT A+V+L
+  and B3-MFN A+V+L at B=32, T=160 (lengths T - (i % 5), chip_smoke.py's
+  frames per window), from a batch on the card, the whole model at full
+  width from seeded random weights (`engine.Engine.train_step`).
 
-Seeded random weights and inputs, bf16 then fp32.  Each line is the median
-of 7 bursts of 5 calls (CUDA events); for `a` and `bwd` the host's time to
+Seeded random weights and inputs, bf16 then fp32 (`step`: bf16 only).  Each
+line is the median of 7 bursts of 5 calls (CUDA events; `step`: of 25 steps,
+with their least and most: the host sets the step's time, and it drifts); for `a`, `bwd` and `mfn_bwd` the host's time to
 enqueue one call follows (the wrapper and its launches, the card idle
 before it; median of 7, perf_counter).
 
-    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,bwd} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,bwd,mfn_bwd,step} [--tree DIR]
 """
 
 from __future__ import annotations
@@ -44,6 +56,9 @@ B_SHAPES = ((32, 160, AVL), (3, 7, ("linguistic", "acoustic")),
             (4, 9, ("emotient", "acoustic")), (2, 1120, AVL), (1, 37, AVL),
             (32, 1120, AVL))
 BWD_SHAPES = ((32, 160), (32, 137), (32, 400))
+MFN_BWD_SHAPES = ((32, 160, AVL), (32, 400, AVL), (4, 9, ("linguistic",)))
+STEP_FAMILIES = ("MFT", "B3-MFN")
+FRAMES = {"acoustic": 4, "image": 4, "linguistic": 32}
 P, H, LAYERS = 0.1, 8, 6
 
 
@@ -116,7 +131,72 @@ def bench_bwd(torch, verify, dev, dtype, dname):
                        f"{timed(torch, verify, call)}")
 
 
-BENCHES = {"a": bench_a, "b": bench_b, "bwd": bench_bwd}
+def _kernel_name(name: str):
+    """A CUDA kernel's name in the port's namespace, without its namespaces,
+    template arguments and parameters; None for any other event."""
+    if "mmtx::" not in name:
+        return None
+    return name.split("(", 1)[0].split("<", 1)[0].rsplit("::", 1)[-1]
+
+
+def bench_mfn_bwd(torch, verify, dev, dtype, dname):
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mt
+
+    ps = verify.MFN_PS
+    for B, T, mods in MFN_BWD_SHAPES:
+        gen, xps, whhs, gates, seeds = verify._mfn_train_case(B, T, dtype, dev,
+                                                              0, mods)
+        with torch.no_grad():
+            hs, cs, mems = mt.mfn_train_fwd(xps, whhs, gates, seeds, ps)
+            g_hs = torch.randn(hs.shape, generator=gen).to(dev)
+            g_mems = torch.randn(mems.shape, generator=gen).to(dev)
+            call = functools.partial(mt.mfn_train_bwd, xps, whhs, gates, seeds,
+                                     ps, hs, cs, mems, g_hs, g_mems)
+            yield (f"kernel 7 B={B} T={T} {'+'.join(m[0] for m in mods)} "
+                   f"{dname} {timed(torch, verify, call)}")
+            if (B, T) != (32, 160):
+                continue
+            seen = {}
+            ms = verify.kernel_device_ms(call, 5, _kernel_name, seen=seen)
+            yield (f"kernels {dname}, device ms per call (events captured): "
+                   + ", ".join(f"{k} {v:.4f} ({seen[k]})" for k, v in
+                               sorted(ms.items(), key=lambda kv: -kv[1])))
+    if hasattr(verify, "mfn_train_bwd_stage_ms"):
+        stages = verify.mfn_train_bwd_stage_ms(32, 160, dtype, device=dev)
+        yield f"stages {dname} " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in stages.items())
+
+
+def bench_step(torch, verify, dev, dtype, dname):
+    if dtype != torch.bfloat16:
+        return
+    import numpy as np
+
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+
+    B, T = 32, 160
+    lens = [T - (i % 5) for i in range(B)]
+    mask = (np.arange(T)[None, :, None] < np.array(lens)[:, None, None])
+    for family in STEP_FAMILIES:
+        cfg = default_config(family, AVL, mask_mode="key_query")
+        rs = np.random.RandomState(3)
+        batch = Batch(
+            {m: torch.from_numpy(rs.randn(B, T, FRAMES[m], cfg.mod_dimension[m])
+                                 .astype(np.float32)).to(dev, dtype)
+             for m in AVL},
+            torch.from_numpy(rs.randn(B, T, 1).astype(np.float32)).to(dev),
+            torch.from_numpy(mask.astype(np.float32)).to(dev, dtype), lens)
+        engine = Engine(cfg, seed=1, train_dtype=dtype, device=dev)
+        ms = verify.runs_ms(lambda: engine.train_step(batch), reps=25)
+        yield (f"train step {family} A+V+L B={B} T={T} {dname} mixed, card "
+               f"batch: {statistics.median(ms):.3f} ms/step (least "
+               f"{min(ms):.3f}, most {max(ms):.3f})")
+
+
+BENCHES = {"a": bench_a, "b": bench_b, "bwd": bench_bwd,
+           "mfn_bwd": bench_mfn_bwd, "step": bench_step}
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
-// The MFN recurrence's device code, shared by kernel B (csrc/mfn.cu, eval)
-// and kernels 6 and 7 (csrc/mfn_train.cu, training): the warp-grouped
-// matrix-vector products and the forward step loop.
+// The MFN recurrence's device code: the argument block of every MFN kernel
+// (kernel B in csrc/mfn.cu, kernels 6 and 7 in csrc/mfn_train.cu, rows 8
+// and 9 in csrc/mfn_variants.cu), and the warp-grouped matrix-vector
+// products and forward step loop of kernel 6 and rows 8 and 9.
 //
 // One thread block per video with a loop over t inside the kernel; h, c, mem
 // and every MLP activation live in shared memory.  A step is a chain of

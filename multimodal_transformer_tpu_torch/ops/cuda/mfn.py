@@ -272,8 +272,8 @@ def _kernel_args(xps, whhs, gates, what: str):
 
 def kernel_args(xps, whhs, gates, what: str):
     """`_kernel_args` for the kernels on the one-block-per-video scan
-    (kernels 6 and 7, rows 8 and 9), which also need its activations within
-    48 KB of shared memory."""
+    (kernel 6, rows 8 and 9), which also need its activations within 48 KB
+    of shared memory."""
     args = _kernel_args(xps, whhs, gates, what)
     mem, h1, h2, hg1, hg2, hid = args[3:]
     if smem_bytes(sum(hid), mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:

@@ -8,6 +8,14 @@ Counterpart of `multimodal_transformer_tpu/ops/pallas/mfn_train.py`
 runs `mfn_train_bwd` (kernel 7).  Both wrappers launch the CUDA kernel for a
 CUDA tensor and run their plain version for a CPU tensor.
 
+Kernel 7 is five stages: (S0) every step recomputed at once from the saved
+states; (S1) the memory's reverse scan, one block per video with the gamma
+MLPs' mem side in shared memory; (S2) the rest of the VJP over all rows;
+(S3) the LSTM's reverse scan, one block per (video, modality) with W_hh in
+shared memory; (S4) the parameter gradients as products over all rows.
+`mfn_train_bwd_staged_plain` computes the same stages in PyTorch, in that
+order.
+
 Arguments, batch-major as in ops/cuda/mfn.py:
   xps:   per modality [B, T, 4H_m], the hoisted x @ W_ih^T + b_ih + b_hh;
   whhs:  per modality W_hh [4H_m, H_m];
@@ -34,9 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from ..basic import dropout_with_idx, keep_threshold
-from ..dispatch import acc_dtype, check_kernel_dtype, use_kernel
+from ..dispatch import acc_dtype, use_kernel
 from . import _build
-from .mfn import MAX_MODS, kernel_args
+from .mfn import (_RING, MAX_MODS, MAX_ROW_TILES, MAX_THREADS, SMEM_OPT_IN,
+                  _kernel_args, _lanes_per_unit, _round_up, _staged_threads,
+                  kernel_args)
 
 # Launches since the last reset: kernel 6 and kernel 7 (one per recurrence).
 fwd_launches = 0
@@ -167,16 +177,185 @@ def mfn_train_bwd_plain(xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs,
     return d_xps, d_params[:len(hid)], d_params[len(hid):]
 
 
-def _device_seeds(seeds, T: int, device) -> torch.Tensor:
+def _prev(x: torch.Tensor, acc) -> torch.Tensor:
+    """x[:, t - 1] at every t, zeros at t = 0, in the accumulation dtype."""
+    x = x.to(acc)
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def mfn_train_bwd_staged_plain(xps, whhs, gates, seeds, ps, hs, cs, mems,
+                               g_hs, g_mems):
+    """Kernel 7's five stages in PyTorch, in the kernel's order: S0 every
+    step recomputed from the saved t-1 states at once, S1 the memory's
+    reverse scan, S2 the rest of the VJP over all rows, S3 the LSTM's reverse
+    scan, S4 the parameter gradients.  The same function as
+    `mfn_train_bwd_plain`; only the order of sums differs (gamma fc1's input
+    gradient is split into its attended and mem parts, and the two products
+    into d attended are one)."""
+    dtype = xps[0].dtype
+    acc = acc_dtype(dtype)
+    B, T = xps[0].shape[:2]
+    hid = [w.shape[1] for w in whhs]
+    th2 = 2 * sum(hid)
+    W = [w.to(acc) for w in whhs]
+    G = [g.to(acc) for g in gates]
+    seeds = torch.as_tensor(seeds).tolist()
+    g_hs, g_mems = g_hs.to(acc), g_mems.to(acc)
+    # S0: every row (b, t) from the saved states at t - 1
+    h_prev, c_prev, mem_prev = (_prev(v, acc) for v in (hs, cs, mems))
+    cells, c_new = [], []
+    for xp, w, hp, cp in zip(xps, W, _split(h_prev, hid), _split(c_prev, hid)):
+        H = w.shape[1]
+        z = xp.to(acc) + hp @ w.T
+        ig, fg = torch.sigmoid(z[..., :H]), torch.sigmoid(z[..., H:2 * H])
+        gg, og = torch.tanh(z[..., 2 * H:3 * H]), torch.sigmoid(z[..., 3 * H:])
+        c_new.append(fg * cp + ig * gg)
+        cells.append((ig, fg, gg, og, torch.tanh(c_new[-1]), cp))
+    c_star = torch.cat([c_prev] + c_new, dim=-1)
+    a_h = torch.relu(F.linear(c_star, G[0], G[1]))
+    att = torch.softmax(F.linear(a_h, G[2], G[3]), dim=-1)
+    attended = att * c_star
+    b_h = torch.relu(F.linear(attended, G[4], G[5]))
+    c_hat = torch.tanh(F.linear(b_h, G[6], G[7]))
+    both = torch.cat([attended, mem_prev], dim=-1)
+
+    def gamma_hidden(i, which, p):
+        hmid = torch.relu(F.linear(both, G[i], G[i + 1]))
+        if p > 0.0:
+            hmid = torch.stack([_gamma_drop(hmid[:, t], int(seeds[t][which]), p)
+                                for t in range(T)], dim=1)
+        return hmid
+
+    hid1, hid2 = gamma_hidden(8, 0, ps[0]), gamma_hidden(12, 1, ps[1])
+    gam1 = torch.sigmoid(F.linear(hid1, G[10], G[11]))
+    gam2 = torch.sigmoid(F.linear(hid2, G[14], G[15]))
+    # S1: the memory's cotangent, t from T-1 down
+    w_mem = torch.cat([G[8][:, th2:], G[12][:, th2:]], dim=0)
+    keep = (1.0 - ps[0], 1.0 - ps[1])
+    ds1, ds2, dchat, dp1, dp2 = (torch.empty_like(v) for v in
+                                 (gam1, gam2, c_hat, hid1, hid2))
+    dmemp = torch.zeros_like(gam1[:, 0])
+    dp = torch.zeros(B, w_mem.shape[0], dtype=acc, device=gam1.device)
+    for t in reversed(range(T)):
+        dm = g_mems[:, t] + (dmemp + dp @ w_mem)
+        g1, g2, ch = gam1[:, t], gam2[:, t], c_hat[:, t]
+        ds1[:, t] = dm * mem_prev[:, t] * g1 * (1 - g1)
+        ds2[:, t] = dm * ch * g2 * (1 - g2)
+        dchat[:, t] = dm * g2 * (1 - ch * ch)
+        dmemp = dm * g1
+        dp1[:, t] = torch.where(hid1[:, t] > 0, ds1[:, t] @ G[10] / keep[0], 0)
+        dp2[:, t] = torch.where(hid2[:, t] > 0, ds2[:, t] @ G[14] / keep[1], 0)
+        dp = torch.cat([dp1[:, t], dp2[:, t]], dim=-1)
+    # S2: the rest of the VJP, every row at once
+    dbpre = torch.where(b_h > 0, dchat @ G[6], 0)
+    d_attended = torch.cat([dbpre, dp1, dp2], dim=-1) @ torch.cat(
+        [G[4], G[8][:, :th2], G[12][:, :th2]], dim=0)
+    datt = d_attended * c_star
+    dlog = att * (datt - (datt * att).sum(-1, keepdim=True))
+    dapre = torch.where(a_h > 0, dlog @ G[2], 0)
+    dcs = d_attended * att + dapre @ G[0]
+    # S3: the LSTM's cotangents, t from T-1 down, one recurrence a modality
+    d_xps, dzs = [], []
+    for w, (ig, fg, gg, og, tc, cp), gh, dc_prev, dc_new in zip(
+            W, cells, _split(g_hs, hid), _split(dcs[..., :th2 // 2], hid),
+            _split(dcs[..., th2 // 2:], hid)):
+        H = w.shape[1]
+        dz = torch.empty(B, T, 4 * H, dtype=acc, device=gh.device)
+        dh_c = torch.zeros(B, H, dtype=acc, device=gh.device)
+        dc_c = torch.zeros_like(dh_c)
+        for t in reversed(range(T)):
+            dh = gh[:, t] + dh_c
+            dcf = dc_c + dc_new[:, t]
+            d_o = dh * tc[:, t]
+            dcf = dcf + dh * og[:, t] * (1 - tc[:, t] * tc[:, t])
+            dc_c = dcf * fg[:, t] + dc_prev[:, t]
+            i_, f_, g_, o_ = ig[:, t], fg[:, t], gg[:, t], og[:, t]
+            dz[:, t] = torch.cat([dcf * g_ * i_ * (1 - i_),
+                                  dcf * cp[:, t] * f_ * (1 - f_),
+                                  dcf * i_ * (1 - g_ * g_),
+                                  d_o * o_ * (1 - o_)], dim=-1)
+            dh_c = dz[:, t] @ w
+        d_xps.append(dz.to(dtype))
+        dzs.append(dz)
+    # S4: the parameter gradients over every row
+
+    def grad(g, x):
+        return (torch.einsum("btn,btk->nk", g, x), g.sum(dim=(0, 1)))
+
+    d_whhs = [torch.einsum("btn,btk->nk", dz, hp)
+              for dz, hp in zip(dzs, _split(h_prev, hid))]
+    d_gates = []
+    for g, x in ((dapre, c_star), (dlog, a_h), (dbpre, attended),
+                 (dchat, b_h), (dp1, both), (ds1, hid1), (dp2, both),
+                 (ds2, hid2)):
+        d_gates.extend(grad(g, x))
+    return d_xps, d_whhs, d_gates
+
+
+def _seed_table(seeds, T: int) -> torch.Tensor:
+    """The [T, 2] uint32 seeds as int32 bits in a host tensor."""
     s = np.asarray(torch.as_tensor(seeds).cpu(), dtype=np.int64)
     if s.shape != (T, 2):
         raise ValueError(f"MFN seeds must be [{T}, 2], got {s.shape}")
-    return torch.from_numpy(s.astype(np.uint32).view(np.int32)).to(device)
+    return torch.from_numpy(s.astype(np.uint32).view(np.int32))
+
+
+def _device_seeds(seeds, T: int, device) -> torch.Tensor:
+    return _seed_table(seeds, T).to(device)
 
 
 def _rates(ps):
     return (keep_threshold(ps[0]), keep_threshold(ps[1]), 1.0 - ps[0],
             1.0 - ps[1])
+
+
+# slots of the two scans' per-step records (csrc/mfn_train.cu LSlot, MSlot)
+_L_SLOTS, _M_SLOTS = 9, 5
+
+
+def bwd_smem_bytes(hid, mem: int, hg1: int, hg2: int, itemsize: int) -> dict:
+    """Shared memory of a block of kernel 7's two scans, weights in a
+    storage dtype of `itemsize` bytes (mirrors csrc/mfn_train.cu
+    LstmBwdLayout and MemBwdLayout): "lstm", W_hh of the widest modality
+    transposed and padded to a multiple of 4 rows per lane, dz twice and 8
+    steps of records; "memory", the mem columns of both gamma fc1 layers and
+    both gamma fc2 layers, transposed, dp, ds twice and 8 steps of records.
+    Both scans take kernel B's thread counts."""
+    th = _staged_threads(hid, mem, hg1, hg2)
+    lstm = 0
+    for H in hid:
+        g4p = _round_up(4 * H, 4 * _lanes_per_unit(H, th["lstm"]))
+        lstm = max(lstm, g4p * H * itemsize + 8 * g4p
+                   + 4 * _RING * _L_SLOTS * H)
+    R = hg1 + hg2
+    rp, memp = _round_up(R, 8), _round_up(mem, 8)
+    memory = ((mem * rp + R * memp) * itemsize + 4 * rp + 8 * memp
+              + 4 * _RING * (_M_SLOTS * mem + R))
+    return {"lstm": lstm, "memory": memory}
+
+
+def check_bwd_fit(hid, mem: int, hg1: int, hg2: int, itemsize: int, B: int,
+                  T: int, what: str) -> None:
+    """Raises, with the widths, for shapes kernel 7's stages cannot take: a
+    scan's block past SMEM_OPT_IN bytes or MAX_THREADS threads, or more rows
+    than the batched GEMMs' grid holds."""
+    need = bwd_smem_bytes(hid, mem, hg1, hg2, itemsize)
+    threads = _staged_threads(hid, mem, hg1, hg2)
+    bad = []
+    if need["lstm"] > SMEM_OPT_IN or threads["lstm"] > MAX_THREADS:
+        bad.append(f"the LSTM reverse scan needs {need['lstm']} bytes and "
+                   f"{threads['lstm']} threads for hidden widths {list(hid)}")
+    if need["memory"] > SMEM_OPT_IN or threads["memory"] > MAX_THREADS:
+        bad.append(f"the memory reverse scan needs {need['memory']} bytes "
+                   f"and {threads['memory']} threads for mem={mem}, gamma "
+                   f"hiddens {hg1}, {hg2}")
+    if _round_up(B * T, 64) // 64 > MAX_ROW_TILES:
+        bad.append(f"B={B}, T={T} gives more than {MAX_ROW_TILES} tiles of "
+                   "64 rows")
+    if bad:
+        raise ValueError(f"{what}: {'; '.join(bad)} (a block takes at most "
+                         f"{SMEM_OPT_IN} bytes of shared memory and "
+                         f"{MAX_THREADS} threads)")
 
 
 def mfn_train_fwd(xps, whhs, gates, seeds, ps):
@@ -219,8 +398,9 @@ def mfn_train_bwd(xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs, g_mems):
                                    g_hs, g_mems)
     global bwd_launches
     what = "mfn_train_bwd"
-    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = _kernel_args(
         xps, whhs, gates, what)
+    check_bwd_fit(hid, mem, hg1, hg2, x0.element_size(), B, T, what)
     total_h = sum(hid)
     for t, shape in ((hs, (B, T, total_h)), (cs, (B, T, total_h)),
                      (mems, (B, T, mem))):
@@ -232,7 +412,10 @@ def mfn_train_bwd(xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs, g_mems):
     g_mems = g_mems.to(device=x0.device, dtype=torch.float32).contiguous()
     if tuple(g_hs.shape) != (B, T, total_h) or tuple(g_mems.shape) != (B, T, mem):
         raise ValueError(f"{what}: cotangents must match hs and mems")
-    dseeds = _device_seeds(seeds, T, x0.device)
+    # from pinned memory without a stream sync: the host goes on enqueueing
+    # the rest of the backward while the card works
+    dseeds = _seed_table(seeds, T).pin_memory().to(x0.device,
+                                                   non_blocking=True)
     d_xps = [torch.empty_like(x) for x in xps]
     d_whhs = [torch.empty(w.shape, dtype=torch.float32, device=x0.device)
               for w in whhs]

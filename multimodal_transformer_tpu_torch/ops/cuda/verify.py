@@ -618,45 +618,87 @@ def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                      [*xps, *whhs, *gates, *kern]))
 
 
-def check_mfn_train_bwd(B: int, T: int, dtype: torch.dtype, *, device,
-                        seed: int = 0, mods=AVL, reps: int = 3,
-                        p: float | None = None) -> KernelCheck:
-    """Kernel 7: d_xps and every parameter grad, from kernel 6's saved
-    states (the same stored states feed all three versions) and random
-    cotangents."""
-    ps = MFN_PS if p is None else (p, p)
+def _mfn_train_bwd_case(B, T, dtype, device, seed, mods, ps):
+    """Kernel 7's arguments: kernel 6's saved states of a random MFN and
+    random cotangents, (xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs,
+    g_mems)."""
     gen, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
                                                    mods)
     with torch.no_grad():
         hs, cs, mems = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps)
     g_hs = torch.randn(hs.shape, generator=gen).to(device)
     g_mems = torch.randn(mems.shape, generator=gen).to(device)
-    saved = (hs, cs, mems, g_hs, g_mems)
+    return xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs, g_mems
+
+
+def check_mfn_train_bwd(B: int, T: int, dtype: torch.dtype, *, device,
+                        seed: int = 0, mods=AVL, reps: int = 3,
+                        p: float | None = None,
+                        repeat: bool = False) -> KernelCheck:
+    """Kernel 7: d_xps and every parameter grad, from kernel 6's saved
+    states (the same stored states feed all three versions) and random
+    cotangents; repeat: also call the kernel again and require the same
+    bits."""
+    ps = MFN_PS if p is None else (p, p)
+    args = _mfn_train_bwd_case(B, T, dtype, device, seed, mods, ps)
+    xps, whhs, gates, seeds, _, *saved = args
     ref = mfnt_k.mfn_train_bwd_plain(_double(xps), _double(whhs),
                                      _double(gates), seeds, ps,
                                      *_double(saved))
-    plain = mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds, ps, *saved)
+    plain = mfnt_k.mfn_train_bwd_plain(*args)
+    flat = lambda o: list(o[0]) + list(o[1]) + list(o[2])
     with torch.no_grad():
-        kern = mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, ps, *saved)
+        kern = mfnt_k.mfn_train_bwd(*args)
+        identical = None
+        if repeat:
+            identical = all(torch.equal(a, b) for a, b in
+                            zip(flat(kern), flat(mfnt_k.mfn_train_bwd(*args))))
     torch.cuda.synchronize()
     names = ([f"d_xp[{m}]" for m in mods] + [f"d_whh[{m}]" for m in mods]
              + [f"d_gate[{i}]" for i in range(16)])
-    flat = lambda o: list(o[0]) + list(o[1]) + list(o[2])
     valids = [None] * len(names)
     return KernelCheck(
-        "mfn_train_bwd", _label(p) + f"B={B} T={T} A+V+L",
+        "mfn_train_bwd",
+        _label(p) + f"B={B} T={T} {'+'.join(MOD_LETTER[m] for m in mods)}",
         _dtype_name(dtype),
         _parts(names, flat(kern), flat(plain), flat(ref), valids),
         _finite(flat(kern), valids),
-        time_ms(lambda: mfnt_k.mfn_train_bwd(xps, whhs, gates, seeds, ps,
-                                             *saved), reps, burst=KERNEL_BURST),
-        time_ms(lambda: mfnt_k.mfn_train_bwd_plain(xps, whhs, gates, seeds,
-                                                   ps, *saved),
-                min(reps, 1), warmup=0),
+        time_ms(lambda: mfnt_k.mfn_train_bwd(*args), reps, burst=KERNEL_BURST),
+        time_ms(lambda: mfnt_k.mfn_train_bwd_plain(*args), min(reps, 1),
+                warmup=0),
         # each step's forward recomputed from the saved states, and the two
         # products of the backward per forward product
         *bound_times({"fp32": 3 * B * T * mfn_step_ops(whhs, gates)},
-                     [*xps, *whhs, *gates, *saved, *flat(kern)]))
+                     [*xps, *whhs, *gates, *saved, *flat(kern)]),
+        identical=identical)
+
+
+# kernel 7's stages by the names of their CUDA kernels (csrc/mfn_train.cu),
+# in the order a name is matched: the two scans, S2's row kernel and GEMMs
+# (their epilogue is mfnt::Grad), S4's products and sums, the weights'
+# transposes, and the rest of the namespace (S0's row kernels and GEMMs)
+MFN_TRAIN_BWD_STAGES = (("S1 memory scan", "mem_bwd_kernel"),
+                        ("S3 LSTM scan", "lstm_bwd_kernel"),
+                        ("S2 rest of the VJP", "attend_bwd_kernel"),
+                        ("S2 rest of the VJP", "mfnt::Grad"),
+                        ("S4 parameter gradients", "wgrad_"),
+                        ("transposes", "transpose_kernel"),
+                        ("S0 recompute", "mfnt::"))
+
+
+def mfn_train_bwd_stage_ms(B: int, T: int, dtype: torch.dtype, *, device,
+                           seed: int = 0, mods=AVL, calls: int = 5
+                           ) -> Dict[str, float]:
+    """Device ms per call of each of kernel 7's stages over `calls` warm
+    calls at the model's gamma dropout."""
+    args = _mfn_train_bwd_case(B, T, dtype, device, seed, mods, MFN_PS)
+    with torch.no_grad():
+        out = kernel_device_ms(
+            lambda: mfnt_k.mfn_train_bwd(*args), calls,
+            lambda n: next((stage for stage, key in MFN_TRAIN_BWD_STAGES
+                            if key in n), None))
+    return {stage: out.get(stage, 0.0)
+            for stage in sorted({stage for stage, _ in MFN_TRAIN_BWD_STAGES})}
 
 
 def _window_embed_case(B, W, Fr, D, E, dtype, device, seed):

@@ -13,7 +13,9 @@ videos with no key), its TMA + wgmma path (bf16, d_k in {16, 32}) at T in
 whose output is known exactly, and its Function's gradients on both d_k,
 and the five training kernels (encoder stack forward, layer backward and
 whole-stack backward, MFN forward and reverse recurrence) at
-B=32, T in {160, 400}, fp32 and bf16 (the encoder backward's bf16 wgmma
+B=32, T in {160, 400}, fp32 and bf16 (the MFN reverse recurrence also
+with L alone, emotient+acoustic and B = T = 1, bit-identical when called
+again; the encoder backward's bf16 wgmma
 path also at d_k in {16, 32}, T in {1, 137, 160, 400}, p in {0.1, 0},
 its bf16 FMA path at D = 16, d_k = 2, p in {0.1, 0}, both bit-identical
 when called again), within the competitive bound
@@ -151,6 +153,28 @@ def test_train_kernel_at_p0_within_bound(device, kernel, dtype):
     c = getattr(verify, check)(32, 160, DTYPES[dtype], device=device, reps=0,
                                p=0.0)
     assert c.ok, c.line()
+
+
+MFN_BWD_CASES = {"AVL": (32, 160, ("acoustic", "image", "linguistic")),
+                 "AVL_T400": (32, 400, ("acoustic", "image", "linguistic")),
+                 "L": (4, 9, ("linguistic",)),
+                 "EA": (3, 7, ("emotient", "acoustic")),
+                 "T1": (1, 1, ("acoustic", "image", "linguistic"))}
+
+
+@pytest.mark.parametrize("p", [None, 0.0])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(MFN_BWD_CASES))
+def test_mfn_train_bwd_stages_within_bound_and_bit_identical(device, case,
+                                                            dtype, p):
+    """Kernel 7's five stages at the model's shapes and at small ones with
+    other modality sets, both rates: within the bound and bit-identical
+    when called again."""
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    B, T, mods = MFN_BWD_CASES[case]
+    c = verify.check_mfn_train_bwd(B, T, DTYPES[dtype], device=device,
+                                   mods=mods, reps=0, p=p, repeat=True)
+    assert c.identical and c.ok, c.line()
 
 
 @pytest.mark.parametrize("p", [0.1, 0.0])
