@@ -9,11 +9,14 @@ any failure exits nonzero:
 2. build: compiles the CUDA kernels from multimodal_transformer_tpu_torch/csrc
    and prints registers, shared memory and spills of kernel 11's wgmma path,
    kernel B's stages and kernel A's wgmma path (its row chain and attention
-   kernels) and of kernels 4 and 5's wgmma path (csrc/encoder_bwd.cu: any
-   spill fails the run, and so does a build log without a spill report for
-   each of its kernels), and whether their SASS holds HGMMA (and UTMALDG
-   where they load by TMA): kernel A's and kernels 4 and 5's wgmma kernels
-   must, and the run fails when cuobjdump cannot read them; likewise the
+   kernels) and of kernels 4 and 5's wgmma path (csrc/encoder_bwd.cu) and
+   kernel 3's (kernel A's row chain in its training instantiation, kernel
+   4's attention forward without row statistics): any spill in enc_wgmma
+   or enc_bwd fails the run, and so does a build log without a spill report
+   for each of their kernels; and whether their SASS holds HGMMA (and
+   UTMALDG where they load by TMA): kernel A's and kernels 3, 4 and 5's
+   wgmma kernels must, and the run fails when cuobjdump cannot read them;
+   likewise the
    ptxas lines of kernel 7's stages (csrc/mfn_train.cu), where any spill
    fails the run;
 3. kernels: each serving kernel against its plain PyTorch version on the
@@ -66,15 +69,16 @@ any failure exits nonzero:
    (the dropout-free route) at T=160, fp32 and bf16, the bound applied to
    every output tensor (dx and each gradient included), the whole-stack
    backward (kernel 5) also bit-identical to six calls of the layer
-   backward (kernel 4); kernels 4 and 5's bf16 wgmma path also at d_k 16
-   and 32, T in {1, 137, 160, 400} and p in {0.1, 0}, and their bf16 FMA
-   path at the emotient encoder's D = 16 (d_k = 2), T = 160, p in {0.1, 0}
-   (kernel 5 on 2 layers), each on its path and bit-identical when called
-   again; kernel 7 (the MFN's reverse recurrence) bit-identical when
+   backward (kernel 4), the stack forward (kernel 3) bit-identical when
+   called again; kernels 3, 4 and 5's bf16 wgmma path also at d_k 16 and
+   32, T in {1, 137, 160, 400} and p in {0.1, 0}, and their bf16 FMA path
+   at the emotient encoder's D = 16 (d_k = 2), T = 160, p in {0.1, 0}
+   (kernels 3 and 5 on 2 layers), each on its path and bit-identical when
+   called again; kernel 7 (the MFN's reverse recurrence) bit-identical when
    called again at every case, also at T=400 with p = 0 and at small
    shapes with L alone and emotient+acoustic, both rates; then kernel 7's
-   device ms per stage and kernel 4's device ms per launch name at B=32,
-   T=160 (torch.profiler), bf16 and fp32;
+   device ms per stage and kernel 3's and kernel 4's device ms per launch
+   name at B=32, T=160 (torch.profiler), bf16 and fp32;
 10. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
@@ -118,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import logging
 import math
@@ -243,7 +248,7 @@ SOURCES = {
     "mfn_scan_fused": ("multimodal_transformer_tpu_torch/csrc/mfn.cu",
                        "multimodal_transformer_tpu/ops/pallas/mfn_kernel.py:145"),
     "encoder_stack_train_fwd": (
-        "multimodal_transformer_tpu_torch/csrc/encoder_train.cu",
+        "multimodal_transformer_tpu_torch/csrc/encoder.cu",
         "multimodal_transformer_tpu/ops/pallas/encoder.py:1179"),
     "encoder_layer_bwd": (
         "multimodal_transformer_tpu_torch/csrc/encoder_train.cu",
@@ -282,8 +287,13 @@ class SmokeFailure(Exception):
     pass
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Starts a phase: its name and the seconds since the script started
+    (the run has a time limit; the stamps show which phase spends it)."""
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -303,6 +313,15 @@ MFN_STAGED = "mfn_staged"
 ENC_WGMMA = "enc_wgmma"
 ENC_WGMMA_SASS = (("enc_wgmma12chain_kernel", ("HGMMA",)),
                   ("enc_wgmma16attention_kernel", ("HGMMA", "UTMALDG")))
+# kernel 3's bf16 wgmma path: kernel A's row chain in its training
+# instantiation (csrc/encoder.cu) and kernel 4's attention forward without
+# its row statistics (csrc/encoder_bwd.cu), by their mangled names
+ENC_TRAIN_FWD_CHAINS = tuple(f"enc_wgmma12chain_kernelILi{D}ELi128ELb1E"
+                             for D in (128, 256))
+ENC_TRAIN_FWD_ATTN = tuple(f"enc_bwd15attn_fwd_kernelILi{dk}ELb0E"
+                           for dk in (16, 32))
+ENC_TRAIN_FWD_SASS = tuple((k, ("HGMMA", "UTMALDG"))
+                           for k in ENC_TRAIN_FWD_CHAINS + ENC_TRAIN_FWD_ATTN)
 # kernels 4 and 5's bf16 wgmma path (csrc/encoder_bwd.cu), by namespace and
 # kernel: each product kernel (the sums kernel has none)
 ENC_BWD = "enc_bwd"
@@ -322,7 +341,7 @@ MFN_TRAIN_KERNELS = ("prep_kernel", "cell_kernel", "attend_kernel",
 # and 0): (B, T, modalities) at small shapes, L alone and emotient+acoustic
 # (H = 16, the narrowest), both rates
 MFN_BWD_SMALL = ((4, 9, ("linguistic",)), (3, 7, ("emotient", "acoustic")))
-# kernels 4 and 5's bf16 checks besides the model's (d_k 32 at T 160 and 400,
+# kernels 3, 4 and 5's bf16 checks besides the model's (d_k 32 at T 160 and 400,
 # and at p = 0 at T 160): (T, d_k, p, path) at D = 8 d_k, bit-identical on
 # repeat; the wgmma path at both head widths and the FMA path at d_k 2
 ENC_BWD_CASES = tuple(
@@ -383,18 +402,29 @@ def find_cuobjdump():
     return found[0] if found else shutil.which("cuobjdump")
 
 
-def sass_check(lib_path, symbol: str, wanted=("HGMMA", "UTMALDG")) -> str:
-    """Whether the SASS of each kernel whose symbol contains `symbol` holds
-    each of `wanted`, or "not checked" without cuobjdump."""
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path) -> tuple:
+    """(the library's SASS, or None, and why not): one cuobjdump a library
+    (each takes ~20 s, and the build phase reads many kernels)."""
     tool = find_cuobjdump()
     if tool is None:
-        return "not checked (no cuobjdump)"
+        return None, "not checked (no cuobjdump)"
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
-        return f"not checked (cuobjdump failed: {out.stderr.strip()[:200]})"
+        return None, (f"not checked (cuobjdump failed: "
+                      f"{out.stderr.strip()[:200]})")
+    return out.stdout, ""
+
+
+def sass_check(lib_path, symbol: str, wanted=("HGMMA", "UTMALDG")) -> str:
+    """Whether the SASS of each kernel whose symbol contains `symbol` holds
+    each of `wanted`, or "not checked" without cuobjdump."""
+    sass, why_not = _sass(lib_path)
+    if sass is None:
+        return why_not
     found = []
-    for fn in out.stdout.split("Function : ")[1:]:
+    for fn in sass.split("Function : ")[1:]:
         name = fn.split(None, 1)[0]
         if symbol in name:
             found.append(name + ": " + ", ".join(
@@ -676,7 +706,8 @@ def run_train_kernel_checks(torch, device):
     for dtype in (torch.float32, torch.bfloat16):
         for T, p in cases:
             for fn in fns:
-                kw = ({"repeat": True} if fn is verify.check_mfn_train_bwd
+                kw = ({"repeat": True} if fn in (verify.check_mfn_train_bwd,
+                                                  verify.check_encoder_train_fwd)
                       else {})
                 report(fn(32, T, dtype, device=device, p=p,
                           reps=5 if (T, p) == (BENCH_T, None) else 0, **kw))
@@ -689,16 +720,20 @@ def run_train_kernel_checks(torch, device):
                 report(verify.check_mfn_train_bwd(B, T, dtype, device=device,
                                                   mods=mods, p=p, reps=0,
                                                   repeat=True))
-    # kernels 4 and 5's bf16 wgmma path at both head widths, one key to
-    # seven key tiles, both rates (kernel 5 on a stack of 2: the 6-layer
-    # stack is checked above); then their bf16 FMA path at the emotient
-    # encoder's widths (D = 16, d_k = 2); all bit-identical on repeat
+    # kernels 3, 4 and 5's bf16 wgmma path at both head widths, one key to
+    # seven key tiles, both rates (kernels 3 and 5 on a stack of 2: the
+    # 6-layer stack is checked above); then their bf16 FMA path at the
+    # emotient encoder's widths (D = 16, d_k = 2); all bit-identical on
+    # repeat
     for T, d_k, p, path in ENC_BWD_CASES:
         D = 8 * d_k
         want = {"wgmma": enc_k.PATH_WGMMA, "fma": enc_k.PATH_FMA}[path]
         if enc_k.kernel_path(torch.bfloat16, d_k, D, 128) != want:
-            raise SmokeFailure(f"encoder backward d_k={d_k} D={D}: not on "
-                               f"the {path} path")
+            raise SmokeFailure(f"encoder training kernels d_k={d_k} D={D}: "
+                               f"not on the {path} path")
+        report(verify.check_encoder_train_fwd(
+            32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
+            n_layers=2, repeat=True))
         report(verify.check_encoder_layer_bwd(
             32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
             repeat=True))
@@ -714,6 +749,14 @@ def run_train_kernel_checks(torch, device):
                                         for k, v in stages.items()),
               flush=True)
     for dtype in (torch.bfloat16, torch.float32):
+        ms = verify.encoder_train_fwd_kernel_ms(BENCH_B, BENCH_T, dtype,
+                                                device=device, calls=5)
+        print(f"encoder_stack_train_fwd kernels, B={BENCH_B} T={BENCH_T} "
+              f"{str(dtype).split('.')[-1]}, device ms per stack (torch."
+              f"profiler, events captured over 5 calls), "
+              f"{sum(v for v, _ in ms.values()):.4f} in all: "
+              + ", ".join(f"{k} {v:.4f} ({n})" for k, (v, n) in ms.items()),
+              flush=True)
         ms = verify.encoder_bwd_kernel_ms(BENCH_B, BENCH_T, dtype,
                                           device=device, calls=5)
         print(f"encoder_layer_bwd kernels, B={BENCH_B} T={BENCH_T} "
@@ -1552,15 +1595,21 @@ def main() -> int:
         for line in ptxas_lines(_build.build_log, symbol):
             print(f"ptxas {line}", flush=True)
     spills = spill_gate(_build.build_log, ENC_BWD,
-                        [k for k, _ in ENC_BWD_SASS] + ["enc_bwd10sum_kernel"])
+                        [k for k, _ in ENC_BWD_SASS] + ["enc_bwd10sum_kernel"]
+                        + list(ENC_TRAIN_FWD_ATTN))
     if spills:
-        raise SmokeFailure(f"kernels 4/5's wgmma path spills {spills} bytes")
+        raise SmokeFailure(f"kernels 3/4/5's enc_bwd kernels spill {spills} "
+                           "bytes")
+    spills = spill_gate(_build.build_log, ENC_WGMMA, ENC_TRAIN_FWD_CHAINS)
+    if spills:
+        raise SmokeFailure(f"kernels A/3's enc_wgmma kernels spill {spills} "
+                           "bytes")
     spills = spill_gate(_build.build_log, MFN_TRAIN, MFN_TRAIN_KERNELS)
     if spills:
         raise SmokeFailure(f"kernel 7's stages spill {spills} bytes")
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
-    for symbol, wanted in ENC_WGMMA_SASS + ENC_BWD_SASS:
+    for symbol, wanted in ENC_WGMMA_SASS + ENC_BWD_SASS + ENC_TRAIN_FWD_SASS:
         sass = sass_check(lib_path, symbol, wanted)
         print(f"SASS of {symbol}: {sass}", flush=True)
         if " NO" in sass or sass.startswith(("not checked", "no function")):

@@ -10,11 +10,16 @@ of:
 - `a`: kernel A (`ops/cuda/encoder.py:encoder_stack_fused`) at the serving
   batch, B=32 at T in {160, 137, 544}, and one video (per-video
   evaluation), B=1 at T in {37, 512}; D=256, h=8, F=128, 6 layers, varied
-  lengths in a batch (one whole video at B=1);
+  lengths in a batch (one whole video at B=1); then the device ms of each
+  CUDA kernel name it launches at B=32, T=160;
 - `b`: kernel B (`ops/cuda/mfn.py:mfn_scan_fused`) at the shapes
   chip_smoke.py checks it at, plus B=32, T=1,120; where the checkout's
   verify.py has `mfn_stage_ms`, the device time of each stage at B=32,
   T=160 follows;
+- `fwd`: kernel 3 (`ops/cuda/encoder_train.py:encoder_stack_train_fwd`, the
+  encoder's training forward) at B=32, T in {160, 137, 400}; D=256, h=8,
+  F=128, p=0.1, 6 layers; then the device ms of each CUDA kernel name it
+  launches at B=32, T=160 (torch.profiler, events captured over 5 calls);
 - `bwd`: kernels 4 and 5 (`ops/cuda/encoder_train.py:encoder_layer_bwd` and
   `encoder_stack_bwd`, the encoder's training backward) at B=32, T in {160,
   137, 400} (the training batch, a ragged one, and the longest the training
@@ -27,18 +32,37 @@ of:
   launches at B=32, T=160 (torch.profiler, events captured over 5 calls),
   and, where the checkout's verify.py has `mfn_train_bwd_stage_ms`, the
   device ms of each stage;
-- `step`: the bf16 mixed train step (forward, backward, Adam) of MFT A+V+L
-  and B3-MFN A+V+L at B=32, T=160 (lengths T - (i % 5), chip_smoke.py's
+- `serve`: the bf16 serving forward of MFT A+V+L at B=32, T=160 (the
+  forward chip_smoke.py's slice phase times: `ValencePredictor`'s module
+  from seeded random weights), timed alone between two events as the slice
+  phase times it (the host's enqueue included) and in bursts of 5, then
+  its device-busy ms a call (torch.profiler over 5 calls), which the
+  host's speed does not move;
+- `step`: the bf16 mixed train step (forward, backward, Adam) of MFT A+V+L,
+  B3-MFN A+V+L and B2-Trans A+V+L (the step that follows the card and
+  runs kernel 3 once) at B=32, T=160 (lengths T - (i % 5), chip_smoke.py's
   frames per window), from a batch on the card, the whole model at full
-  width from seeded random weights (`engine.Engine.train_step`).
+  width from seeded random weights (`engine.Engine.train_step`); then its
+  device-busy ms a step, as for `serve`.
 
-Seeded random weights and inputs, bf16 then fp32 (`step`: bf16 only).  Each
+`outputs` times nothing: it saves kernel A's bf16 output at B=32, T in {160,
+544} (D=256) and B=1, T=37 (D=128), and kernel 3's bf16 outputs (out and
+saved) at B=32, T=160, D=256, p=0.1; T=137, D=128, p=0.1; T=400, D=256,
+p=0, to `--save FILE`; `outputs --compare A B` says, for each, whether two
+such files hold the same bits.  Run it once per checkout, each in its own
+process (two builds of the library do not mix in one process).
+
+Seeded random weights and inputs, bf16 then fp32 (`serve`, `step`,
+`outputs`: bf16 only).  Each
 line is the median of 7 bursts of 5 calls (CUDA events; `step`: of 25 steps,
-with their least and most: the host sets the step's time, and it drifts); for `a`, `bwd` and `mfn_bwd` the host's time to
-enqueue one call follows (the wrapper and its launches, the card idle
+with their least and most: the host sets the step's time, and it drifts);
+for `a`, `fwd`, `bwd` and `mfn_bwd` the host's time to enqueue one call
+follows (the wrapper and its launches, the card idle
 before it; median of 7, perf_counter).
 
-    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,bwd,mfn_bwd,step} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,fwd,bwd,mfn_bwd,serve,step} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py outputs [--tree DIR] --save FILE
+    python multimodal_transformer_tpu_torch/bench_kernels.py outputs --compare FILE FILE
 """
 
 from __future__ import annotations
@@ -57,7 +81,7 @@ B_SHAPES = ((32, 160, AVL), (3, 7, ("linguistic", "acoustic")),
             (32, 1120, AVL))
 BWD_SHAPES = ((32, 160), (32, 137), (32, 400))
 MFN_BWD_SHAPES = ((32, 160, AVL), (32, 400, AVL), (4, 9, ("linguistic",)))
-STEP_FAMILIES = ("MFT", "B3-MFN")
+STEP_FAMILIES = ("MFT", "B3-MFN", "B2-Trans")
 FRAMES = {"acoustic": 4, "image": 4, "linguistic": 32}
 P, H, LAYERS = 0.1, 8, 6
 
@@ -91,6 +115,8 @@ def bench_a(torch, verify, dev, dtype, dname):
         with torch.no_grad():
             call = functools.partial(encoder.encoder_stack_fused, enc, x, mask)
             yield f"kernel A B={B} T={T} {dname} {timed(torch, verify, call)}"
+            if (B, T) == (32, 160):
+                yield _device_ms(verify, call, dname)
 
 
 def bench_b(torch, verify, dev, dtype, dname):
@@ -106,6 +132,20 @@ def bench_b(torch, verify, dev, dtype, dname):
         stages = verify.mfn_stage_ms(32, 160, dtype, device=dev)
         yield f"stages {dname} " + ", ".join(f"{k} {v:.4f}"
                                             for k, v in stages.items())
+
+
+def bench_fwd(torch, verify, dev, dtype, dname):
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
+
+    for B, T in BWD_SHAPES:
+        _, params, x, kmask, seeds = verify._encoder_train_case(
+            B, T, dtype, dev, 0, 256, 128, LAYERS)
+        with torch.no_grad():
+            call = functools.partial(et.encoder_stack_train_fwd, params, x,
+                                     kmask, seeds, P, H)
+            yield f"kernel 3 B={B} T={T} {dname} {timed(torch, verify, call)}"
+            if (B, T) == (32, 160):
+                yield _device_ms(verify, call, dname)
 
 
 def bench_bwd(torch, verify, dev, dtype, dname):
@@ -139,6 +179,41 @@ def _kernel_name(name: str):
     return name.split("(", 1)[0].split("<", 1)[0].rsplit("::", 1)[-1]
 
 
+def _device_ms(verify, call, dname) -> str:
+    """The device ms per call of each CUDA kernel name of call
+    (torch.profiler, events captured over 5 calls)."""
+    seen = {}
+    ms = verify.kernel_device_ms(call, 5, _kernel_name, seen=seen)
+    return (f"kernels {dname}, device ms per call (events captured): "
+            + ", ".join(f"{k} {v:.4f} ({seen[k]})" for k, v in
+                        sorted(ms.items(), key=lambda kv: -kv[1])))
+
+
+def _busy_ms(torch, call, calls: int = 5) -> str:
+    """The device-busy ms per call of call: the union of the intervals in
+    which one of its kernels or copies ran (torch.profiler over `calls`
+    calls after a warm one; user annotations left out), which the host's
+    speed does not move, and the device events captured per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (f"device busy {busy / 1e3 / calls:.4f} ms a call "
+            f"({len(spans) / calls:.1f} events a call)")
+
+
 def bench_mfn_bwd(torch, verify, dev, dtype, dname):
     from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mt
 
@@ -156,15 +231,34 @@ def bench_mfn_bwd(torch, verify, dev, dtype, dname):
                    f"{dname} {timed(torch, verify, call)}")
             if (B, T) != (32, 160):
                 continue
-            seen = {}
-            ms = verify.kernel_device_ms(call, 5, _kernel_name, seen=seen)
-            yield (f"kernels {dname}, device ms per call (events captured): "
-                   + ", ".join(f"{k} {v:.4f} ({seen[k]})" for k, v in
-                               sorted(ms.items(), key=lambda kv: -kv[1])))
+            yield _device_ms(verify, call, dname)
     if hasattr(verify, "mfn_train_bwd_stage_ms"):
         stages = verify.mfn_train_bwd_stage_ms(32, 160, dtype, device=dev)
         yield f"stages {dname} " + ", ".join(f"{k} {v:.4f}"
                                             for k, v in stages.items())
+
+
+def bench_serve(torch, verify, dev, dtype, dname):
+    if dtype != torch.bfloat16:
+        return
+    from multimodal_transformer_tpu_torch import (ValencePredictor, build_model,
+                                                  default_config)
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    predictor = ValencePredictor(cfg, module, device=dev, bf16=True)
+    gen = torch.Generator().manual_seed(1)
+    inputs = {m: torch.randn(32, 160, FRAMES[m], cfg.mod_dimension[m],
+                             generator=gen).to(device=dev, dtype=dtype)
+              for m in AVL}
+    mask = torch.ones(32, 160, 1, device=dev, dtype=dtype)
+    fwd = lambda: predictor.module(inputs, mask, mask_mode="key_query")
+    with torch.inference_mode():
+        alone = verify.time_ms(fwd, reps=9)
+        burst = verify.time_ms(fwd, reps=7, burst=5)
+        busy = _busy_ms(torch, fwd)
+    yield (f"serving forward MFT A+V+L B=32 T=160 {dname}: {alone:.3f} ms a "
+           f"call alone, {burst:.3f} ms a call in bursts of 5, {busy}")
 
 
 def bench_step(torch, verify, dev, dtype, dname):
@@ -190,24 +284,57 @@ def bench_step(torch, verify, dev, dtype, dname):
             torch.from_numpy(mask.astype(np.float32)).to(dev, dtype), lens)
         engine = Engine(cfg, seed=1, train_dtype=dtype, device=dev)
         ms = verify.runs_ms(lambda: engine.train_step(batch), reps=25)
+        busy = _busy_ms(torch, lambda: engine.train_step(batch))
         yield (f"train step {family} A+V+L B={B} T={T} {dname} mixed, card "
                f"batch: {statistics.median(ms):.3f} ms/step (least "
-               f"{min(ms):.3f}, most {max(ms):.3f})")
+               f"{min(ms):.3f}, most {max(ms):.3f}), {busy}")
 
 
-BENCHES = {"a": bench_a, "b": bench_b, "bwd": bench_bwd,
-           "mfn_bwd": bench_mfn_bwd, "step": bench_step}
+def outputs(torch, verify, dev) -> dict:
+    """Kernel A's and kernel 3's bf16 outputs at fixed shapes, on the host."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
+
+    bf16, out = torch.bfloat16, {}
+    with torch.no_grad():
+        for B, T, D in ((32, 160, 256), (32, 544, 256), (1, 37, 128)):
+            enc, x, mask = verify._encoder_case(B, T, bf16, dev, 0, D, 128,
+                                                LAYERS)
+            out[f"kernel A B={B} T={T} D={D}"] = (
+                encoder.encoder_stack_fused(enc, x, mask).cpu(),)
+        for T, D, p in ((160, 256, P), (137, 128, P), (400, 256, 0.0)):
+            _, params, x, kmask, seeds = verify._encoder_train_case(
+                32, T, bf16, dev, 0, D, 128, LAYERS)
+            o, saved = et.encoder_stack_train_fwd(params, x, kmask, seeds, p, H)
+            out[f"kernel 3 B=32 T={T} D={D} p={p}"] = (o.cpu(), saved.cpu())
+    return out
+
+
+BENCHES = {"a": bench_a, "b": bench_b, "fwd": bench_fwd, "bwd": bench_bwd,
+           "mfn_bwd": bench_mfn_bwd, "serve": bench_serve, "step": bench_step}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=sorted(BENCHES))
+    ap.add_argument("kernel", choices=sorted(BENCHES) + ["outputs"])
     ap.add_argument("--tree", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--save", help="outputs: the file to save them to")
+    ap.add_argument("--compare", nargs=2, metavar="FILE",
+                    help="outputs: compare two saved files")
     args = ap.parse_args()
+    if (args.kernel == "outputs") != bool(args.save or args.compare):
+        ap.error("outputs takes --save or --compare, and only it does")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
+
+    if args.compare:
+        a, b = (torch.load(f) for f in args.compare)
+        for k in a:
+            same = all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+            print(f"{k}: bit-identical: {same}", flush=True)
+        return 0
 
     from multimodal_transformer_tpu_torch.ops.cuda import verify
 
@@ -218,6 +345,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = os.path.basename(tree)
+    if args.kernel == "outputs":
+        torch.save(outputs(torch, verify, dev), args.save)
+        print(f"[{name}] outputs saved to {args.save}", flush=True)
+        return 0
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         for line in BENCHES[args.kernel](torch, verify, dev, dtype, dname):

@@ -1,5 +1,6 @@
-// Shared device helpers for the port's kernels: dtype conversion and warp
-// reductions.  Every kernel reads fp32 or bf16 storage and computes in fp32.
+// Shared device helpers for the port's kernels: dtype conversion, warp
+// reductions, the fmix32 dropout bit.  Every kernel reads fp32 or bf16
+// storage and computes in fp32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,33 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// murmur3 fmix32 over the position counter with the seed injected up front:
+// the same bits as the JAX package's ops/basic.py hash_keep_mask.  uint32
+// arithmetic wraps exactly as the JAX uint32 ops do.
+__device__ __forceinline__ uint32_t fmix_hash(uint32_t idx, uint32_t seed) {
+  uint32_t h = idx * 0x9E3779B1u + seed;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// Dropout of one value on the wgmma paths: keep (the fmix32 bit at its
+// position) ? v scale : 0, with scale = 1 / keep_p in fp32 (a multiply, not
+// a division per value).
+struct Drop {
+  uint32_t seed, threshold;
+  float scale;
+  __device__ __forceinline__ bool keep(uint32_t idx) const {
+    return fmix_hash(idx, seed) >= threshold;
+  }
+  __device__ __forceinline__ float apply(float v, uint32_t idx) const {
+    return keep(idx) ? v * scale : 0.f;
+  }
+};
 
 // Asynchronous global -> shared copy of BYTES (4, 8 or 16) bytes, aligned
 // to BYTES on both sides; zero-fills when !pred.

@@ -58,7 +58,14 @@
 //     B*T = 5,120 rows make 80 row chains (one an SM: 227 KB of shared
 //     memory) and 768 attention blocks.  No atomics: the same inputs give
 //     the same bits.
+//   * Kernel 3, the training forward (C entry in encoder_train.cu), takes
+//     this path's row chain as chain_kernel<D, F, true>: the same products
+//     at the same rounding points, its dropout drawn in the epilogues, each
+//     layer's fp32 input kept in `saved` and the last layer's output in
+//     fp32 without the final norm; its attention is kernel 4's forward
+//     (csrc/encoder_bwd.cu), which streams K and V and so takes any T.
 
+#include "encoder_train_fwd.cuh"
 #include "rows.cuh"
 
 namespace mmtx {
@@ -411,6 +418,26 @@ __device__ __forceinline__ void add_residual(const float (&acc)[64], const float
   }
 }
 
+// The residual rows (res at the pass's first column col0) += dropout(acc +
+// bias), the keep bit at the flat position of the [M, width] site.
+__device__ __forceinline__ void add_residual_drop(const float (&acc)[64], const float2 (&bv)[16],
+                                                  float* res, int RS, const Rows& rw,
+                                                  const Drop& s, int m0, int width, int col0) {
+  float* x0 = res + rw.r0 * RS + 2 * rw.t;
+  float* x1 = x0 + 8 * RS;
+  const uint32_t i0 = flat(m0 + rw.r0, width, col0 + 2 * rw.t), i1 = i0 + 8 * width;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float2* p0 = reinterpret_cast<float2*>(x0 + 8 * j);
+    float2* p1 = reinterpret_cast<float2*>(x1 + 8 * j);
+    const float2 o0 = *p0, o1 = *p1;
+    *p0 = make_float2(o0.x + s.apply(acc[4 * j] + bv[j].x, i0 + 8 * j),
+                      o0.y + s.apply(acc[4 * j + 1] + bv[j].y, i0 + 8 * j + 1));
+    *p1 = make_float2(o1.x + s.apply(acc[4 * j + 2] + bv[j].x, i1 + 8 * j),
+                      o1.y + s.apply(acc[4 * j + 3] + bv[j].y, i1 + 8 * j + 1));
+  }
+}
+
 // One 128-column pass of values in the accumulator layout, rounded to
 // bf16, out through the staging tile as 16-byte row pieces: out[m0 + r,
 // 0 : 128] (out at the pass's first column), rows past M skipped.
@@ -454,6 +481,10 @@ struct ChainArgs {
   bf16* out;              // [M, D]: the stack's output (last)
   int M;
   int mode;               // ChainMode
+  // the training chain (chain_kernel<D, F, true>) only
+  float* xout;            // [M, D]: the residual rows' destination, the next
+                          // layer's saved input or (last) the stack's output
+  Drop s1, s2, s3;        // the layer's out-projection, FFN-hidden, FFN-output dropout
 };
 
 // Weight piece i of a chain, in the order it multiplies: the out
@@ -499,7 +530,14 @@ __device__ __forceinline__ const Weight& chain_piece(const ChainArgs& c, int i, 
 // fragment lies and rounds straight into A fragments in registers; FFN1's
 // ReLU output is FFN2's A fragments without leaving registers; outputs
 // leave through the staging tile as 16-byte rows.
-template <int D, int F>
+//
+// kTrain: kernel 3's chain, the same with the layer's dropout in the
+// epilogues (site 1 on the out projection, 2 on FFN1's ReLU output, 3 on
+// FFN2), the residual rows read from the layer's saved input (xres) and
+// stored to xout (the next layer's saved input), and on the last layer no
+// final norm: the residual rows in fp32 are the output.  Layer 0's chain
+// writes x to xres as in eval: there xres is saved[0].
+template <int D, int F, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const __grid_constant__ ChainArgs c) {
   constexpr int NP = D / 128, RS = D + 4;
@@ -588,12 +626,23 @@ chain_kernel(const __grid_constant__ ChainArgs c) {
       load_bias(bv, c.wo.bias + 128 * p, rw.t);
       mma_piece_ss<D / 16>(acc, base + kTileOff, ready());
       release();
-      add_residual(acc, bv, res + 128 * p, RS, rw);
+      if constexpr (kTrain)
+        add_residual_drop(acc, bv, res + 128 * p, RS, rw, c.s1, m0, D, 128 * p);
+      else
+        add_residual(acc, bv, res + 128 * p, RS, rw);
     }
     read_rows(v, res, RS, rw);  // LN2 (the thread's own values)
     layer_norm(v, c.ln2a, c.ln2b, rw.t);
     to_frags(v, a);
-    uint32_t h[F / 16][4];  // FFN1's ReLU output: FFN2's A fragments
+    uint32_t h[F / 16][4];  // FFN1's ReLU output (dropped): FFN2's A fragments
+    // relu(v), in training dropped at the flat position of (row rr, column
+    // 128 q + 8 j + 2 t + e) of the [M, F] site
+    auto hidden = [&](float y, int q, int j, int rr, int e) {
+      y = fmaxf(y, 0.f);
+      if constexpr (kTrain)
+        y = c.s2.apply(y, flat(m0 + rw.r0 + 8 * rr, F, 128 * q + 8 * j + 2 * rw.t + e));
+      return y;
+    };
 #pragma unroll
     for (int q = 0; q < F / 128; ++q) {
       load_bias(bv, c.w1.bias + 128 * q, rw.t);
@@ -601,10 +650,10 @@ chain_kernel(const __grid_constant__ ChainArgs c) {
       release();
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        h[8 * q + j / 2][2 * (j % 2)] = pack_bf16(fmaxf(acc[4 * j] + bv[j].x, 0.f),
-                                                  fmaxf(acc[4 * j + 1] + bv[j].y, 0.f));
-        h[8 * q + j / 2][2 * (j % 2) + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + bv[j].x, 0.f),
-                                                      fmaxf(acc[4 * j + 3] + bv[j].y, 0.f));
+        h[8 * q + j / 2][2 * (j % 2)] = pack_bf16(hidden(acc[4 * j] + bv[j].x, q, j, 0, 0),
+                                                  hidden(acc[4 * j + 1] + bv[j].y, q, j, 0, 1));
+        h[8 * q + j / 2][2 * (j % 2) + 1] = pack_bf16(hidden(acc[4 * j + 2] + bv[j].x, q, j, 1, 0),
+                                                      hidden(acc[4 * j + 3] + bv[j].y, q, j, 1, 1));
       }
     }
 #pragma unroll
@@ -612,17 +661,23 @@ chain_kernel(const __grid_constant__ ChainArgs c) {
       load_bias(bv, c.w2.bias + 128 * p, rw.t);
       mma_piece(acc, h, ready());
       release();
-      add_residual(acc, bv, res + 128 * p, RS, rw);
+      if constexpr (kTrain)
+        add_residual_drop(acc, bv, res + 128 * p, RS, rw, c.s3, m0, D, 128 * p);
+      else
+        add_residual(acc, bv, res + 128 * p, RS, rw);
     }
-    if (c.mode == kMiddle) {  // the residual rows back to xres, 16 bytes a thread
+    // the residual rows to xres (training: xout), 16 bytes a thread
+    if (kTrain || c.mode == kMiddle) {
+      float* dst = kTrain ? c.xout : c.xres;
       __syncthreads();
       for (int i = threadIdx.x; i < BM * D / 4; i += kThreads) {
         const int r = i / (D / 4), ch = i % (D / 4);
         if (m0 + r < M)
-          *reinterpret_cast<float4*>(c.xres + (size_t)(m0 + r) * D + 4 * ch) =
+          *reinterpret_cast<float4*>(dst + (size_t)(m0 + r) * D + 4 * ch) =
               *reinterpret_cast<const float4*>(res + r * RS + 4 * ch);
       }
     }
+    if (kTrain && c.mode == kLast) return;  // no final norm
   }
   read_rows(v, res, RS, rw);  // the next LN1, or the final norm
   layer_norm(v, c.ln_a, c.ln_b, rw.t);
@@ -868,9 +923,9 @@ int allow_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, int F>
+template <int D, int F, bool kTrain>
 int launch_chain(const ChainArgs& c, cudaStream_t st) {
-  const auto kernel = chain_kernel<D, F>;
+  const auto kernel = chain_kernel<D, F, kTrain>;
   static int setup = -1;  // cudaError_t of the one-time set-up
   if (setup < 0) setup = allow_smem(kernel, chain_smem(D));
   if (setup != 0) return setup;
@@ -878,8 +933,9 @@ int launch_chain(const ChainArgs& c, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <bool kTrain>
 int chain(int D, const ChainArgs& c, cudaStream_t st) {
-  return D == 128 ? launch_chain<128, 128>(c, st) : launch_chain<256, 128>(c, st);
+  return D == 128 ? launch_chain<128, 128, kTrain>(c, st) : launch_chain<256, 128, kTrain>(c, st);
 }
 
 template <int DK, int NT>
@@ -908,6 +964,35 @@ int attention(int nt, const CUtensorMap& tm, const bf16* qkv, const float* kmask
   }
 }
 
+// A layer's parameters in a chain's arguments.  lp: 16 a layer, ln1a ln1b
+// wq bq wk bk wv bv wo bo ln2a ln2b w1 b1 w2 b2; a weight's bias follows it.
+inline const bf16* param(const void* const* lp, int l, int i) {
+  return static_cast<const bf16*>(lp[16 * l + i]);
+}
+inline bool weight(Weight* w, const void* const* lp, int l, int i, int rows, int K) {
+  w->bias = param(lp, l, i + 1);
+  return tile_map(&w->map, param(lp, l, i), rows, K, 128);
+}
+// Layer l's LN1 and QKV, which a chain computes for the layer after it.
+inline bool next_layer(ChainArgs& c, const void* const* lp, int l, int D) {
+  c.ln_a = param(lp, l, 0);
+  c.ln_b = param(lp, l, 1);
+  bool ok = true;
+  for (int m = 0; m < 3; ++m) ok = weight(&c.next[m], lp, l, 2 + 2 * m, D, D) && ok;
+  return ok;
+}
+// Layer l's out projection, LN2 and FFN.
+inline bool layer_body(ChainArgs& c, const void* const* lp, int l, int D, int F) {
+  c.ln2a = param(lp, l, 10);
+  c.ln2b = param(lp, l, 11);
+  return weight(&c.wo, lp, l, 8, D, D) && weight(&c.w1, lp, l, 12, F, D) &&
+         weight(&c.w2, lp, l, 14, D, F);
+}
+inline bool takes(int D, int H, int F) {
+  const int dk = D / H;
+  return dk * H == D && (dk == 16 || dk == 32) && (D == 128 || D == 256) && F == 128;
+}
+
 // One stack in 2 N + 1 launches: layer 0's chain (LN1 + QKV), then per
 // layer the attention and the row chain.  nt: 64-key boxes per score tile
 // (1..4, the wrapper's key_tiles).
@@ -916,54 +1001,88 @@ int run_stack(const bf16* x, const float* kmask, bf16* out, const void* const* l
               bf16* attn, int B, int T, int D, int H, int F, int nt, cudaStream_t st) {
   const int M = B * T;
   const int dk = D / H;
-  if (dk * H != D || (dk != 16 && dk != 32) || (D != 128 && D != 256) || F != 128 ||
-      nt < 1 || nt > 4)
-    return (int)cudaErrorInvalidValue;
+  if (!takes(D, H, F) || nt < 1 || nt > 4) return (int)cudaErrorInvalidValue;
   if (n_layers == 0) {
     enc::ln_rows<bf16, bf16, bf16>(x, fa, fb, out, nullptr, M, D, st);
     return (int)cudaGetLastError();
   }
   CUtensorMap tm;
   if (!heads_map(&tm, qkv, B, T, 3 * D, dk)) return (int)cudaErrorInvalidValue;
-  // p: ln1a ln1b wq bq wk bk wv bv wo bo ln2a ln2b w1 b1 w2 b2
-  auto param = [&](int l, int i) { return static_cast<const bf16*>(lp[16 * l + i]); };
-  auto weight = [&](Weight* w, int l, int i, int rows, int K) {  // p[i + 1] is its bias
-    w->bias = param(l, i + 1);
-    return tile_map(&w->map, param(l, i), rows, K, 128);
-  };
   ChainArgs c{};
   c.xres = xres;
   c.q_scale = 1.0f / sqrtf((float)dk);
   c.qkv = qkv;
   c.out = out;
   c.M = M;
-  auto next_layer = [&](int l) {  // its LN1 and QKV
-    c.ln_a = param(l, 0);
-    c.ln_b = param(l, 1);
-    bool ok = true;
-    for (int m = 0; m < 3; ++m) ok = weight(&c.next[m], l, 2 + 2 * m, D, D) && ok;
-    return ok;
-  };
   c.mode = kFirst;
   c.in = x;
-  int rc = next_layer(0) ? chain(D, c, st) : (int)cudaErrorInvalidValue;
+  int rc = next_layer(c, lp, 0, D) ? chain<false>(D, c, st) : (int)cudaErrorInvalidValue;
   for (int l = 0; l < n_layers && rc == 0; ++l) {
     rc = dk == 32 ? attention<32>(nt, tm, qkv, kmask, attn, B, T, D, H, st)
                   : attention<16>(nt, tm, qkv, kmask, attn, B, T, D, H, st);
     if (rc != 0) break;
     c.mode = l + 1 == n_layers ? kLast : kMiddle;
     c.in = attn;
-    c.ln2a = param(l, 10);
-    c.ln2b = param(l, 11);
-    bool ok = weight(&c.wo, l, 8, D, D) && weight(&c.w1, l, 12, F, D) &&
-              weight(&c.w2, l, 14, D, F);
+    bool ok = layer_body(c, lp, l, D, F);
     if (c.mode == kLast) {
       c.ln_a = fa;
       c.ln_b = fb;
     } else {
-      ok = next_layer(l + 1) && ok;
+      ok = next_layer(c, lp, l + 1, D) && ok;
     }
-    rc = ok ? chain(D, c, st) : (int)cudaErrorInvalidValue;
+    rc = ok ? chain<false>(D, c, st) : (int)cudaErrorInvalidValue;
+  }
+  return rc;
+}
+
+// Kernel 3's workspace: qkv [M, 3D], then the attention output [M, D] from
+// a 256-byte boundary, both bf16.
+inline size_t train_attn_offset(int B, int T, int D) {
+  return ((size_t)B * T * 3 * D * 2 + 255) / 256 * 256;
+}
+long long train_workspace_bytes(int B, int T, int D) {
+  return (long long)(train_attn_offset(B, T, D) + (size_t)B * T * D * 2);
+}
+
+// Kernel 3, one stack in 2 N + 1 launches as run_stack's: the training
+// chain (chain_kernel<D, F, true>) and kernel 4's attention forward with
+// the site-0 dropout, which streams K and V and so takes any T.  Layer l's
+// input goes to saved[l] (layer 0's chain writes x there), the last
+// layer's residual rows to out, with no final norm; seeds: 4 a layer.
+int train_fwd(const bf16* x, const float* kmask, float* out, float* saved,
+              const void* const* lp, int n_layers, const uint32_t* seeds, uint32_t thr,
+              float kp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st) {
+  // layer 0's chain reads x by 16-byte cp.async, the attention qkv by TMA
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (!takes(D, H, F) || n_layers < 1 || misaligned(x) || misaligned(ws))
+    return (int)cudaErrorInvalidValue;
+  const size_t M = (size_t)B * T;
+  bf16* qkv = static_cast<bf16*>(ws);
+  bf16* attn = reinterpret_cast<bf16*>(static_cast<char*>(ws) + train_attn_offset(B, T, D));
+  CUtensorMap tm;
+  if (!heads_map(&tm, qkv, B, T, 3 * D, D / H)) return (int)cudaErrorInvalidValue;
+  const auto drop = [&](int i) { return Drop{seeds[i], thr, 1.f / kp}; };
+  ChainArgs c{};
+  c.xres = saved;
+  c.q_scale = 1.0f / sqrtf((float)(D / H));
+  c.qkv = qkv;
+  c.M = (int)M;
+  c.mode = kFirst;
+  c.in = x;
+  int rc = next_layer(c, lp, 0, D) ? chain<true>(D, c, st) : (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n_layers && rc == 0; ++l) {
+    rc = enc_bwd::train_attention(tm, qkv, kmask, attn, B, T, D, H, drop(4 * l), st);
+    if (rc != 0) break;
+    c.mode = l + 1 == n_layers ? kLast : kMiddle;
+    c.in = attn;
+    c.xres = saved + l * M * D;
+    c.xout = c.mode == kLast ? out : saved + (l + 1) * M * D;
+    c.s1 = drop(4 * l + 1);
+    c.s2 = drop(4 * l + 2);
+    c.s3 = drop(4 * l + 3);
+    bool ok = layer_body(c, lp, l, D, F);
+    if (c.mode != kLast) ok = next_layer(c, lp, l + 1, D) && ok;
+    rc = ok ? chain<true>(D, c, st) : (int)cudaErrorInvalidValue;
   }
   return rc;
 }

@@ -71,6 +71,7 @@
 // warpgroup each, and the launches wait for one another.
 
 #include "encoder_bwd.cuh"
+#include "encoder_train_fwd.cuh"
 #include "gemm.cuh"
 #include "rows.cuh"
 
@@ -92,19 +93,6 @@ constexpr int kStages = 4;          // the weight-gradient product's cp.async st
 constexpr int kF = 128;             // the FFN width the path takes
 
 enum P : int { LN1A, LN1B, WQ, BQ, WK, BK, WV, BV, WO, BO, LN2A, LN2B, W1, B1, W2, B2 };
-
-// Dropout of one value: keep (the fmix32 bit at its position) ? v scale :
-// 0, with scale = 1 / keep_p in fp32 (a multiply, not a division per value).
-struct Drop {
-  uint32_t seed, threshold;
-  float scale;
-  __device__ __forceinline__ bool keep(uint32_t idx) const {
-    return fmix_hash(idx, seed) >= threshold;
-  }
-  __device__ __forceinline__ float apply(float v, uint32_t idx) const {
-    return keep(idx) ? v * scale : 0.f;
-  }
-};
 
 // ------------------------------------------------------------- the ring
 
@@ -330,10 +318,6 @@ __device__ __forceinline__ void ln_bwd_coef(float var, float sgad, float sga, fl
   mdd = (sga * inv + coef * sd) / D;
 }
 
-__device__ __forceinline__ uint32_t flat(int m, int width, int col) {
-  return (uint32_t)m * (uint32_t)width + (uint32_t)col;
-}
-
 // Dynamic shared memory from a 1024-byte aligned base.
 __device__ __forceinline__ uint8_t* aligned_smem(uint32_t* base) {
   extern __shared__ uint8_t smem_raw[];
@@ -534,8 +518,9 @@ __device__ __forceinline__ bool word_bit(const uint32_t (&w)[2], int j, int t, i
   return (w[j >> 2] >> (8 * (j & 3) + 2 * t + e)) & 1u;
 }
 
-// 2. The attention forward with dropout: o and each row's max and sum.
-template <int DK>
+// 2. The attention forward with dropout: o and, with kStats, each row's
+// max and sum (kernel 4 rebuilds P from them; kernel 3 needs o alone).
+template <int DK, bool kStats>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const __grid_constant__ AttnArgs c) {
   using A = AttnTile<DK>;
   const A at;
@@ -630,7 +615,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const __grid_constan
   // P = 2^(s log2 e - m log2 e) / l rebuilds the probabilities, as the
   // last tile computed p (a video with no key too, whose every score is the
   // max -1e9)
-  if (at.t == 0) {
+  if (kStats && at.t == 0) {
     if (r0 < T) c.rowstat[pbase + r0] = make_float2(m0 * kLog2e, 1.f / l0);
     if (r1 < T) c.rowstat[pbase + r1] = make_float2(m1 * kLog2e, 1.f / l1);
   }
@@ -1446,7 +1431,7 @@ int run_layer(const float* x, const float* dy, const float* kmask, const bf16* c
   const int qt = (T + 63) / 64;
   const dim3 heads(qt, H, B);
   int rc = launch<front_kernel<D>>(dim3(blocks), front_smem<D>(), fa, st);
-  if (rc == 0) rc = launch<attn_fwd_kernel<DK>>(heads, attn_smem(DK), aa, st);
+  if (rc == 0) rc = launch<attn_fwd_kernel<DK, true>>(heads, attn_smem(DK), aa, st);
   if (rc == 0) rc = launch<mid_kernel<D, F>>(dim3(blocks), MidSmem<D, F>::bytes, ma, st);
   if (rc == 0) rc = launch<attn_dq_kernel<DK>>(heads, attn_smem(DK), aa, st);
   if (rc == 0) rc = launch<attn_dkv_kernel<DK>>(heads, attn_smem(DK), aa, st);
@@ -1524,6 +1509,24 @@ int stack_bwd(const float* saved, const float* dy, const float* kmask, const voi
     g_out = d_in;
   }
   return (int)cudaGetLastError();
+}
+
+// Kernel 3's attention: kernel 4's attention forward without the row
+// statistics, on qkv [B, T, 3D] through its heads map tm, into o [B, T, D].
+int train_attention(const CUtensorMap& tm, const bf16* qkv, const float* kmask, bf16* o,
+                    int B, int T, int D, int H, Drop site, cudaStream_t st) {
+  AttnArgs aa{};
+  aa.qkv = tm;
+  aa.qkv_p = qkv;
+  aa.kmask = kmask;
+  aa.o = o;
+  aa.site = site;
+  aa.T = T;
+  aa.D = D;
+  aa.H = H;
+  const dim3 heads((T + 63) / 64, H, B);
+  return D / H == 32 ? launch<attn_fwd_kernel<32, false>>(heads, attn_smem(32), aa, st)
+                     : launch<attn_fwd_kernel<16, false>>(heads, attn_smem(16), aa, st);
 }
 
 }  // namespace enc_bwd

@@ -16,7 +16,16 @@
 // accumulation, LN / softmax / residual in fp32.  Kernel A (csrc/encoder.cu)
 // computes the same layers without dropout in its own kernels: running it
 // through this file's generic strided GEMM and dropout-aware attention made
-// it ~19% slower on the card.
+// it ~19% slower on the card.  So kernel 3 shares pieces, not kernels, and
+// has two paths, chosen by the C entry (`mmtx_encoder_train_fwd_path`, the
+// wrapper's kernel_path):
+//   * bf16 at d_k in {16, 32}, D in {128, 256} and F = 128: kernel A's
+//     wgmma row chain with the three row sites' dropout in its epilogues
+//     and the residual rows stored to `saved` (csrc/encoder.cu,
+//     chain_kernel<D, F, true>), around kernel 4's attention forward with
+//     the site-0 dropout (csrc/encoder_bwd.cu): 2 N + 1 launches a stack;
+//   * fp32, and bf16 at other widths: the FMA code below, ~10 launches a
+//     layer.
 //
 // Dropout: every site draws the JAX package's fmix32 keep bit of the
 // position in the unpadded JAX tensor, ((b*h + head)*T + tq)*T + tk for the
@@ -56,6 +65,7 @@
 // are bit-identical to N kernel-4 calls on both paths.
 
 #include "encoder_bwd.cuh"
+#include "encoder_train_fwd.cuh"
 #include "gemm.cuh"
 
 namespace mmtx {
@@ -848,8 +858,9 @@ extern "C" long long mmtx_encoder_train_workspace(int dtype, int B, int T, int D
   using namespace mmtx;
   Carver c{nullptr};
   const int M = B * T;
-  if (backward && enc_bwd::takes(dtype, D, H, F))
-    return enc_bwd::workspace_bytes(B, T, D, H, F, backward == 2);
+  if (enc_bwd::takes(dtype, D, H, F))
+    return backward ? enc_bwd::workspace_bytes(B, T, D, H, F, backward == 2)
+                    : enc_wgmma::train_workspace_bytes(B, T, D);
   if (dtype == kBF16) {
     if (backward == 2) enct::StackBwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
     else if (backward) enct::Bwd<__nv_bfloat16>::carve(c, B, T, D, H, F);
@@ -879,6 +890,9 @@ extern "C" int mmtx_encoder_train_fwd(int dtype, const void* x, const void* kmas
   const float* km = static_cast<const float*>(kmask);
   float* o = static_cast<float*>(out);
   float* sv = static_cast<float*>(saved);
+  if (enc_bwd::takes(dtype, D, H, F))
+    return enc_wgmma::train_fwd(static_cast<const __nv_bfloat16*>(x), km, o, sv, lp, n_layers,
+                                sd, threshold, keep_p, workspace, B, T, D, H, F, st);
   if (dtype == kF32)
     return enct::train_fwd<float>(static_cast<const float*>(x), km, o, sv, lp, n_layers, sd,
                                   threshold, keep_p, workspace, B, T, D, H, F, st);
@@ -893,6 +907,13 @@ extern "C" int mmtx_encoder_train_fwd(int dtype, const void* x, const void* kmas
 // kernel_path chooses it: 1 (wgmma, csrc/encoder_bwd.cu) for bf16 at d_k
 // in {16, 32}, D in {128, 256} and F = 128, else 0 (the FMA code here).
 extern "C" int mmtx_encoder_bwd_path(int dtype, int D, int H, int F) {
+  return mmtx::enc_bwd::takes(dtype, D, H, F) ? 1 : 0;
+}
+
+// The path kernel 3 takes, likewise: 1 (wgmma: kernel A's row chain with
+// the dropout, csrc/encoder.cu, around kernel 4's attention forward) for
+// the shapes of kernels 4 and 5's wgmma path, else 0 (the FMA code here).
+extern "C" int mmtx_encoder_train_fwd_path(int dtype, int D, int H, int F) {
   return mmtx::enc_bwd::takes(dtype, D, H, F) ? 1 : 0;
 }
 

@@ -1,6 +1,7 @@
 // Building blocks of the training kernels (csrc/encoder_train.cu,
-// csrc/mfn_train.cu): the fmix32 keep bit, a strided FMA GEMM with a fused
-// epilogue, a deterministic split-K reduction and a deterministic column sum.
+// csrc/mfn_train.cu): dropout by the fmix32 keep bit, a strided FMA GEMM
+// with a fused epilogue, a deterministic split-K reduction and a
+// deterministic column sum.
 //
 // Determinism: Hopper blocks run in any order, so no block ever adds into
 // memory that another block writes.  A product whose reduction axis is long
@@ -15,19 +16,6 @@
 #include "common.cuh"
 
 namespace mmtx {
-
-// murmur3 fmix32 over the position counter with the seed injected up front:
-// the same bits as the JAX package's ops/basic.py hash_keep_mask.  uint32
-// arithmetic wraps exactly as the JAX uint32 ops do.
-__device__ __forceinline__ uint32_t fmix_hash(uint32_t idx, uint32_t seed) {
-  uint32_t h = idx * 0x9E3779B1u + seed;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 // Dropout of one value: keep (hash >= threshold) ? v / keep_p : 0.  The
 // threshold is min(round(p * 2^32), 2^32 - 1), computed on the host; p = 0

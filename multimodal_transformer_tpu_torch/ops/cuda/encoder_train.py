@@ -29,13 +29,17 @@ ds before the dk product; the parameters' gradients come back unrounded.
 In float32 and float64 every rounding is the identity, as before.  There is
 no final norm: the caller applies it, so autograd owns its parameters.
 
-Kernels 4 and 5 have kernel A's two paths, chosen by `kernel_path(dtype,
+Kernels 3, 4 and 5 have kernel A's two paths, chosen by `kernel_path(dtype,
 d_k, D, F)` (ops/cuda/encoder.py) and checked against the C entries' own
-choice: wgmma (bf16 at d_k in {16, 32}, D in {128, 256} and F = 128:
-csrc/encoder_bwd.cu, at the rounding points above) and the FMA pipes
-(float32, and bf16 at other widths: csrc/encoder_train.cu, ds kept in
-float32).  None stands in for another: a path that fails to build or launch
-raises.
+choice (`mmtx_encoder_train_fwd_path`, `mmtx_encoder_bwd_path`): wgmma
+(bf16 at d_k in {16, 32}, D in {128, 256} and F = 128, at the rounding
+points above: kernel 3 is kernel A's row chain with the dropout in its
+epilogues around kernel 4's attention forward, csrc/encoder.cu and
+csrc/encoder_bwd.cu; kernels 4 and 5 are csrc/encoder_bwd.cu) and the FMA
+pipes (float32, and bf16 at other widths: csrc/encoder_train.cu, where the
+backward keeps ds in float32).  The wgmma path loads by TMA and 16-byte
+cp.async, so it refuses an x or parameters that are not 16-byte aligned.
+None stands in for another: a path that fails to build or launch raises.
 
 Dropout sites per layer (seed column): 0 attention probabilities, flat index
 over [B, h, T, T]; 1 attention output, 2 FFN hidden, 3 FFN output, flat
@@ -237,17 +241,18 @@ def _seed_array(seeds) -> ctypes.Array:
     return (ctypes.c_uint32 * len(vals))(*vals)
 
 
-def _check_backward_path(lib, dtype_code, params, D, h, F, what) -> None:
-    """Raises unless the C entries take kernel_path's path for the shape;
-    the wgmma path loads parameters by TMA, so it also needs them 16-byte
-    aligned."""
-    path = kernel_path(params[2].dtype, D // h, D, F, what=what)
-    if lib.mmtx_encoder_bwd_path(dtype_code, D, h, F) != path:
+def _check_path(query, dtype_code, tensors, D, h, F, what) -> None:
+    """Raises unless the C side (`query`, the library's path entry) takes
+    kernel_path's path for the tensors' dtype and the shape; the wgmma
+    path loads by TMA and cp.async, so it also needs `tensors` (the
+    parameters, and kernel 3's x) 16-byte aligned."""
+    path = kernel_path(tensors[0].dtype, D // h, D, F, what=what)
+    if query(dtype_code, D, h, F) != path:
         raise RuntimeError(f"{what}: the library's path for D={D}, h={h}, "
                            f"F={F} is not kernel_path's {path}")
-    if path == PATH_WGMMA and any(t.data_ptr() % 16 for t in params):
+    if path == PATH_WGMMA and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: the wgmma path needs 16-byte aligned "
-                         "parameters")
+                         "inputs")
 
 
 def _workspace(lib, dtype_code, B, T, D, h, F, backward: bool, device):
@@ -276,6 +281,8 @@ def encoder_stack_train_fwd(params, x, kmask, seeds, p: float, h: int):
     if tuple(km.shape) != (B, T):
         raise ValueError(f"{what}: kmask must be [{B}, {T}]")
     lib = _build.load()
+    _check_path(lib.mmtx_encoder_train_fwd_path, dtype_code, [x, *params], D,
+                h, F, what)
     out = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
     saved = torch.empty((n_layers, B, T, D), dtype=torch.float32,
                         device=x.device)
@@ -319,7 +326,7 @@ def encoder_layer_bwd(lp, x_l, dy, kmask, seeds, p: float, h: int):
     F = lp[12].shape[0]
     km = kmask.to(device=x_l.device, dtype=torch.float32).contiguous()
     lib = _build.load()
-    _check_backward_path(lib, dtype_code, lp, D, h, F, what)
+    _check_path(lib.mmtx_encoder_bwd_path, dtype_code, lp, D, h, F, what)
     dx = torch.empty_like(x_l)
     grads = [torch.empty(t.shape, dtype=torch.float32, device=x_l.device)
              for t in lp]
@@ -386,7 +393,7 @@ def encoder_stack_bwd(params, saved, dy, kmask, seeds, p: float, h: int):
     dtype_code, n_layers, B, T, D, F, km = _stack_bwd_args(
         params, saved, dy, kmask, seeds, h, what)
     lib = _build.load()
-    _check_backward_path(lib, dtype_code, params, D, h, F, what)
+    _check_path(lib.mmtx_encoder_bwd_path, dtype_code, params, D, h, F, what)
     dx = torch.empty_like(dy)
     grads = [torch.empty((n_layers,) + tuple(t.shape), dtype=torch.float32,
                          device=saved.device) for t in params[:N_PARAMS]]

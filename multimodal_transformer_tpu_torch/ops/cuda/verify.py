@@ -302,6 +302,15 @@ def encoder_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _launch_name(name: str):
+    """A profiler event's launch name: a kernel of the port's namespace with
+    its template arguments, device-to-device copies as "Memcpy DtoD", else
+    None (left out)."""
+    if "mmtx::" in name:
+        return name.split("mmtx::", 1)[1].split("(", 1)[0]
+    return "Memcpy DtoD" if "Memcpy DtoD" in name else None
+
+
 def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
                           seed: int = 0, calls: int = 5, p: float = ENC_P
                           ) -> Dict[str, Tuple[float, int]]:
@@ -320,12 +329,31 @@ def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
     with torch.no_grad():
         out = kernel_device_ms(
             lambda: enct_k.encoder_layer_bwd(lp, x, dy, kmask, seeds[0], p, 8),
-            calls,
-            lambda n: (n.split("mmtx::", 1)[1].split("(", 1)[0]
-                       if "mmtx::" in n else
-                       "Memcpy DtoD" if "Memcpy DtoD" in n else None),
+            calls, _launch_name,
             per_launch=enc_k.kernel_path(dtype, 32, 256, 128)
             == enc_k.PATH_WGMMA, seen=seen)
+    return {k: (v, seen[k]) for k, v in sorted(out.items(),
+                                               key=lambda kv: -kv[1])}
+
+
+@torch.no_grad()
+def encoder_train_fwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
+                                seed: int = 0, calls: int = 5,
+                                p: float = ENC_P
+                                ) -> Dict[str, Tuple[float, int]]:
+    """(device ms per call, events captured) of each launch name of kernel
+    3 (template arguments included; device-to-device copies as "Memcpy
+    DtoD") over `calls` warm calls at D=256, h=8, F=128, 6 layers.  A name's
+    events are summed over the calls, so an event the profiler drops lowers
+    its reading: on the wgmma path each call launches 7 row chains and 6
+    attentions, and the counts show it."""
+    _, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
+                                                     seed, 256, 128,
+                                                     TRAIN_LAYERS)
+    seen: Dict[str, int] = {}
+    out = kernel_device_ms(
+        lambda: enct_k.encoder_stack_train_fwd(params, x, kmask, seeds, p, 8),
+        calls, _launch_name, seen=seen)
     return {k: (v, seen[k]) for k, v in sorted(out.items(),
                                                key=lambda kv: -kv[1])}
 
@@ -443,9 +471,10 @@ def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
 def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, n_layers: int = TRAIN_LAYERS,
-                            reps: int = 5,
-                            p: float | None = None) -> KernelCheck:
-    """Kernel 3: the stack's output and every layer's saved input."""
+                            reps: int = 5, p: float | None = None,
+                            repeat: bool = False) -> KernelCheck:
+    """Kernel 3: the stack's output and every layer's saved input; repeat:
+    also call the kernel again and require the same bits."""
     rate = ENC_P if p is None else p
     _, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                      seed, D, F, n_layers)
@@ -455,12 +484,17 @@ def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                                                x.double(), *args)
     plain = enct_k.encoder_stack_train_fwd_plain(params, x, *args)
     kern = enct_k.encoder_stack_train_fwd(params, x, *args)
+    identical = None
+    if repeat:
+        again = enct_k.encoder_stack_train_fwd(params, x, *args)
+        identical = torch.equal(kern[0], again[0]) and torch.equal(kern[1],
+                                                                   again[1])
     torch.cuda.synchronize()
     names = ["out"] + [f"saved[{l}]" for l in range(1, n_layers)]
     split = lambda o: [o[0]] + [o[1][l] for l in range(1, n_layers)]
     valids = [valid] * n_layers
     return KernelCheck(
-        "encoder_stack_train_fwd", _label(p) + f"B={B} T={T} D={D}",
+        "encoder_stack_train_fwd", _label(p, D // h) + f"B={B} T={T} D={D}",
         _dtype_name(dtype),
         _parts(names, split(kern), split(plain), split(ref), valids),
         _finite(split(kern), valids),
@@ -470,7 +504,8 @@ def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                                                              *args), reps),
         *bound_times({_ops_type(dtype): n_layers * encoder_layer_ops(B, T, D,
                                                                      F)},
-                     [x, kmask, *params, kern[0], kern[1][1:]]))
+                     [x, kmask, *params, kern[0], kern[1][1:]]),
+        identical=identical)
 
 
 GRAD_NAMES = ("ln1.a", "ln1.b", "q.w", "q.b", "k.w", "k.b", "v.w", "v.b",

@@ -212,6 +212,25 @@ def test_encoder_bwd_fma_path_bf16_within_bound(device, kernel, p):
     assert c.identical and c.ok, c.line()
 
 
+@pytest.mark.parametrize("p", [0.1, 0.0])
+@pytest.mark.parametrize("T,d_k", [(T, d_k) for T in (1, 137, 160, 400)
+                                   for d_k in (16, 32)] + [(160, 2)])
+def test_encoder_train_fwd_paths_within_bound_and_bit_identical(device, T,
+                                                                d_k, p):
+    """Kernel 3 in bf16 on a stack of 2 at D = 8 d_k: the wgmma path at d_k
+    16 and 32, one key to seven key tiles, and the FMA path at the emotient
+    encoder's d_k = 2, both dropout rates: within the bound and bit-identical
+    when called again."""
+    from multimodal_transformer_tpu_torch.ops.cuda import encoder, verify
+    D = 8 * d_k
+    want = encoder.PATH_FMA if d_k == 2 else encoder.PATH_WGMMA
+    assert encoder.kernel_path(torch.bfloat16, d_k, D, 128) == want
+    c = verify.check_encoder_train_fwd(32, T, torch.bfloat16, device=device,
+                                       reps=0, p=p, D=D, n_layers=2,
+                                       repeat=True)
+    assert c.identical and c.ok, c.line()
+
+
 # the MFN variants (rows 8 and 9): (B, T, modalities) at the main path's
 # shape, a ragged one and one with the emotient modality (H = 16)
 MFN_VARIANT_SHAPES = {
