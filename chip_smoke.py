@@ -17,7 +17,8 @@ any failure exits nonzero:
    UTMALDG where they load by TMA): kernel A's and kernels 3, 4 and 5's
    wgmma kernels must, and the run fails when cuobjdump cannot read them;
    likewise the
-   ptxas lines of kernel 7's stages (csrc/mfn_train.cu), where any spill
+   ptxas lines of kernel 7's stages (csrc/mfn_train.cu) and of kernel 6's
+   (the training instantiations of kernel B's two scans), where any spill
    fails the run;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
@@ -74,11 +75,13 @@ any failure exits nonzero:
    32, T in {1, 137, 160, 400} and p in {0.1, 0}, and their bf16 FMA path
    at the emotient encoder's D = 16 (d_k = 2), T = 160, p in {0.1, 0}
    (kernels 3 and 5 on 2 layers), each on its path and bit-identical when
-   called again; kernel 7 (the MFN's reverse recurrence) bit-identical when
-   called again at every case, also at T=400 with p = 0 and at small
-   shapes with L alone and emotient+acoustic, both rates; then kernel 7's
-   device ms per stage and kernel 3's and kernel 4's device ms per launch
-   name at B=32, T=160 (torch.profiler), bf16 and fp32;
+   called again; kernels 6 and 7 (the MFN's forward and reverse
+   recurrence) bit-identical when called again at every case, also at
+   T=400 with p = 0 and at small shapes with L alone and
+   emotient+acoustic, both rates, and kernel 6 at B=1, T=37 and B=2,
+   T=1,120; then kernels 6 and 7's device ms per stage and kernel 3's and
+   kernel 4's device ms per launch name at B=32, T=160 (torch.profiler),
+   bf16 and fp32;
 10. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
@@ -337,10 +340,18 @@ MFN_TRAIN = "mfnt"
 MFN_TRAIN_KERNELS = ("prep_kernel", "cell_kernel", "attend_kernel",
                      "mem_bwd_kernel", "attend_bwd_kernel", "lstm_bwd_kernel",
                      "ff_gemm_kernel", "wgrad_kernel", "wgrad_sum_kernel")
-# kernel 7's checks besides the model's (B=32, T 160 and 400, p the model's
-# and 0): (B, T, modalities) at small shapes, L alone and emotient+acoustic
-# (H = 16, the narrowest), both rates
+# kernel 6's stages: the training instantiations of kernel B's two scans
+# (csrc/mfn.cu, c_t stored, gamma dropout), by their mangled names, whose
+# ptxas report the spill gate requires
+MFN_TRAIN_FWD_SCANS = tuple(f"{k}I{t}Lb1E" for k in ("16lstm_scan_kernel",
+                                                     "15mem_scan_kernel")
+                            for t in ("f", "13__nv_bfloat16"))
+# kernels 6 and 7's checks besides the model's (B=32, T 160 and 400, p the
+# model's and 0): (B, T, modalities) at small shapes, L alone and
+# emotient+acoustic (H = 16, the narrowest), both rates; kernel 6 also at
+# kernel B's long-video bucket and one video, at the model's rate
 MFN_BWD_SMALL = ((4, 9, ("linguistic",)), (3, 7, ("emotient", "acoustic")))
+MFN_FWD_MORE = ((1, 37, AVL), (2, 1120, AVL))
 # kernels 3, 4 and 5's bf16 checks besides the model's (d_k 32 at T 160 and 400,
 # and at p = 0 at T 160): (T, d_k, p, path) at D = 8 d_k, bit-identical on
 # repeat; the wgmma path at both head widths and the FMA path at d_k 2
@@ -691,6 +702,7 @@ def run_train_kernel_checks(torch, device):
     fns = (verify.check_encoder_train_fwd, verify.check_encoder_layer_bwd,
            verify.check_encoder_stack_bwd, verify.check_mfn_train_fwd,
            verify.check_mfn_train_bwd)
+    mfn_fns = (verify.check_mfn_train_fwd, verify.check_mfn_train_bwd)
     checks = []
     # (T, dropout rate): the model's rates at both T, timed at the main
     # path's shape only; p = 0 at T = 160, the dropout-free training route
@@ -706,20 +718,23 @@ def run_train_kernel_checks(torch, device):
     for dtype in (torch.float32, torch.bfloat16):
         for T, p in cases:
             for fn in fns:
-                kw = ({"repeat": True} if fn in (verify.check_mfn_train_bwd,
-                                                  verify.check_encoder_train_fwd)
-                      else {})
+                kw = ({"repeat": True} if fn in mfn_fns
+                      + (verify.check_encoder_train_fwd,) else {})
                 report(fn(32, T, dtype, device=device, p=p,
                           reps=5 if (T, p) == (BENCH_T, None) else 0, **kw))
-        # kernel 7 also at T = 400 without dropout, and at small shapes
-        # with other modality sets, each bit-identical on repeat
-        report(verify.check_mfn_train_bwd(32, 400, dtype, device=device,
-                                          p=0.0, reps=0, repeat=True))
-        for B, T, mods in MFN_BWD_SMALL:
-            for p in (None, 0.0):
-                report(verify.check_mfn_train_bwd(B, T, dtype, device=device,
-                                                  mods=mods, p=p, reps=0,
-                                                  repeat=True))
+        # kernels 6 and 7 also at T = 400 without dropout, and at small
+        # shapes with other modality sets, kernel 6 also at B=1, T=37 and
+        # B=2, T=1,120; each bit-identical on repeat
+        for fn in mfn_fns:
+            report(fn(32, 400, dtype, device=device, p=0.0, reps=0,
+                      repeat=True))
+            for B, T, mods in MFN_BWD_SMALL:
+                for p in (None, 0.0):
+                    report(fn(B, T, dtype, device=device, mods=mods, p=p,
+                              reps=0, repeat=True))
+        for B, T, mods in MFN_FWD_MORE:
+            report(verify.check_mfn_train_fwd(B, T, dtype, device=device,
+                                              mods=mods, reps=0, repeat=True))
     # kernels 3, 4 and 5's bf16 wgmma path at both head widths, one key to
     # seven key tiles, both rates (kernels 3 and 5 on a stack of 2: the
     # 6-layer stack is checked above); then their bf16 FMA path at the
@@ -741,13 +756,15 @@ def run_train_kernel_checks(torch, device):
             32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
             n_layers=2, repeat=True))
     for dtype in (torch.bfloat16, torch.float32):
-        stages = verify.mfn_train_bwd_stage_ms(BENCH_B, BENCH_T, dtype,
-                                               device=device)
-        print(f"mfn_train_bwd stages, B={BENCH_B} T={BENCH_T} "
-              f"{str(dtype).split('.')[-1]}, device ms per call (torch."
-              "profiler): " + ", ".join(f"{k} {v:.4f}"
-                                        for k, v in stages.items()),
-              flush=True)
+        for name, stage_ms in (("mfn_train_fwd", verify.mfn_train_fwd_stage_ms),
+                               ("mfn_train_bwd",
+                                verify.mfn_train_bwd_stage_ms)):
+            stages = stage_ms(BENCH_B, BENCH_T, dtype, device=device)
+            print(f"{name} stages, B={BENCH_B} T={BENCH_T} "
+                  f"{str(dtype).split('.')[-1]}, device ms per call (torch."
+                  "profiler): " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in stages.items()),
+                  flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         ms = verify.encoder_train_fwd_kernel_ms(BENCH_B, BENCH_T, dtype,
                                                 device=device, calls=5)
@@ -1607,6 +1624,10 @@ def main() -> int:
     spills = spill_gate(_build.build_log, MFN_TRAIN, MFN_TRAIN_KERNELS)
     if spills:
         raise SmokeFailure(f"kernel 7's stages spill {spills} bytes")
+    spills = sum(spill_gate(_build.build_log, k, [k])
+                 for k in MFN_TRAIN_FWD_SCANS)
+    if spills:
+        raise SmokeFailure(f"kernel 6's scans spill {spills} bytes")
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
     for symbol, wanted in ENC_WGMMA_SASS + ENC_BWD_SASS + ENC_TRAIN_FWD_SASS:

@@ -25,6 +25,14 @@ of:
   137, 400} (the training batch, a ragged one, and the longest the training
   phase sends); D=256, h=8, F=128, p=0.1, kernel 4 on one layer, kernel 5
   on a stack of 6 from kernel 3's saved inputs;
+- `mfn_fwd`: kernel 6 (`ops/cuda/mfn_train.py:mfn_train_fwd`, the MFN's
+  training forward) at B=32, T in {160, 400} (A+V+L) and B=4, T=9 (L
+  alone), at the model's gamma dropout; at B=32, T=160 also the host's ms
+  to enqueue one call behind ~20 ms of queued card work (a call that
+  synchronises with the card waits it out), and the device ms of each CUDA
+  kernel name it launches (torch.profiler, events captured over 5 calls);
+  then, where the checkout's verify.py has `mfn_train_fwd_stage_ms`, the
+  device ms of each stage;
 - `mfn_bwd`: kernel 7 (`ops/cuda/mfn_train.py:mfn_train_bwd`, the MFN's
   reverse recurrence) at B=32, T in {160, 400} (A+V+L) and B=4, T=9 (L
   alone), from kernel 6's saved states and random cotangents at the
@@ -46,9 +54,10 @@ of:
   device-busy ms a step, as for `serve`.
 
 `outputs` times nothing: it saves kernel A's bf16 output at B=32, T in {160,
-544} (D=256) and B=1, T=37 (D=128), and kernel 3's bf16 outputs (out and
+544} (D=256) and B=1, T=37 (D=128), kernel 3's bf16 outputs (out and
 saved) at B=32, T=160, D=256, p=0.1; T=137, D=128, p=0.1; T=400, D=256,
-p=0, to `--save FILE`; `outputs --compare A B` says, for each, whether two
+p=0, and kernel B's outputs (hs and mems), bf16 and fp32, at the shapes `b`
+times but B=32, T=1,120, to `--save FILE`; `outputs --compare A B` says, for each, whether two
 such files hold the same bits.  Run it once per checkout, each in its own
 process (two builds of the library do not mix in one process).
 
@@ -56,11 +65,11 @@ Seeded random weights and inputs, bf16 then fp32 (`serve`, `step`,
 `outputs`: bf16 only).  Each
 line is the median of 7 bursts of 5 calls (CUDA events; `step`: of 25 steps,
 with their least and most: the host sets the step's time, and it drifts);
-for `a`, `fwd`, `bwd` and `mfn_bwd` the host's time to enqueue one call
+for `a`, `fwd`, `bwd`, `mfn_fwd` and `mfn_bwd` the host's time to enqueue one call
 follows (the wrapper and its launches, the card idle
 before it; median of 7, perf_counter).
 
-    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,fwd,bwd,mfn_bwd,serve,step} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,fwd,bwd,mfn_fwd,mfn_bwd,serve,step} [--tree DIR]
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs [--tree DIR] --save FILE
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs --compare FILE FILE
 """
@@ -171,6 +180,23 @@ def bench_bwd(torch, verify, dev, dtype, dname):
                        f"{timed(torch, verify, call)}")
 
 
+def queued_host_ms(torch, call, busy_ms: float = 20.0) -> str:
+    """The host's median ms to enqueue one call while the card still has
+    ~busy_ms of work queued (torch.cuda._sleep, clocked by the card's SM
+    clock): a call that waits for the card takes at least what is left."""
+    clock_khz = torch.cuda.get_device_properties(0).clock_rate
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(busy_ms * clock_khz))
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return (f"host {statistics.median(times):.4f} ms behind {busy_ms:.0f} ms "
+            "of queued card work")
+
+
 def _kernel_name(name: str):
     """A CUDA kernel's name in the port's namespace, without its namespaces,
     template arguments and parameters; None for any other event."""
@@ -212,6 +238,26 @@ def _busy_ms(torch, call, calls: int = 5) -> str:
             end = b
     return (f"device busy {busy / 1e3 / calls:.4f} ms a call "
             f"({len(spans) / calls:.1f} events a call)")
+
+
+def bench_mfn_fwd(torch, verify, dev, dtype, dname):
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mt
+
+    for B, T, mods in MFN_BWD_SHAPES:
+        _, xps, whhs, gates, seeds = verify._mfn_train_case(B, T, dtype, dev,
+                                                            0, mods)
+        with torch.no_grad():
+            call = functools.partial(mt.mfn_train_fwd, xps, whhs, gates,
+                                     seeds, verify.MFN_PS)
+            yield (f"kernel 6 B={B} T={T} {'+'.join(m[0] for m in mods)} "
+                   f"{dname} {timed(torch, verify, call)}")
+            if (B, T) == (32, 160):
+                yield f"kernel 6 {dname} {queued_host_ms(torch, call)}"
+                yield _device_ms(verify, call, dname)
+    if hasattr(verify, "mfn_train_fwd_stage_ms"):
+        stages = verify.mfn_train_fwd_stage_ms(32, 160, dtype, device=dev)
+        yield f"stages {dname} " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in stages.items())
 
 
 def bench_mfn_bwd(torch, verify, dev, dtype, dname):
@@ -291,9 +337,11 @@ def bench_step(torch, verify, dev, dtype, dname):
 
 
 def outputs(torch, verify, dev) -> dict:
-    """Kernel A's and kernel 3's bf16 outputs at fixed shapes, on the host."""
+    """Kernel A's, kernel 3's and kernel B's outputs at fixed shapes, on the
+    host."""
     from multimodal_transformer_tpu_torch.ops.cuda import encoder
     from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn
 
     bf16, out = torch.bfloat16, {}
     with torch.no_grad():
@@ -307,11 +355,19 @@ def outputs(torch, verify, dev) -> dict:
                 32, T, bf16, dev, 0, D, 128, LAYERS)
             o, saved = et.encoder_stack_train_fwd(params, x, kmask, seeds, p, H)
             out[f"kernel 3 B=32 T={T} D={D} p={p}"] = (o.cpu(), saved.cpu())
+        for dtype in (bf16, torch.float32):
+            for B, T, mods in B_SHAPES[:-1]:
+                _, xps, whhs, gates = verify._mfn_case(B, T, dtype, dev, 0,
+                                                       mods)
+                out[f"kernel B B={B} T={T} {'+'.join(m[0] for m in mods)} "
+                    f"{dtype}"] = tuple(
+                        t.cpu() for t in mfn.mfn_scan_fused(xps, whhs, gates))
     return out
 
 
 BENCHES = {"a": bench_a, "b": bench_b, "fwd": bench_fwd, "bwd": bench_bwd,
-           "mfn_bwd": bench_mfn_bwd, "serve": bench_serve, "step": bench_step}
+           "mfn_fwd": bench_mfn_fwd, "mfn_bwd": bench_mfn_bwd,
+           "serve": bench_serve, "step": bench_step}
 
 
 def main() -> int:

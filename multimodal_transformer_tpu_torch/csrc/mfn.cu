@@ -1,17 +1,25 @@
-// Kernel B: the whole T-step Memory Fusion Network recurrence, eval mode, as
-// three stages launched in order on one stream from one C entry.
+// Kernels B and 6: the whole T-step Memory Fusion Network recurrence as
+// three stages launched in order on one stream, eval mode (kernel B, C entry
+// mmtx_mfn_scan) and training mode (kernel 6, C entry mmtx_mfn_train_fwd in
+// csrc/mfn_train.cu, which calls launch() below).
 //
 // Replaces: multimodal_transformer_tpu/ops/pallas/mfn_kernel.py
-//   mfn_scan_pallas (body _mfn_kernel).
+//   mfn_scan_pallas (body _mfn_kernel), and
+//   multimodal_transformer_tpu/ops/pallas/mfn_train.py _fwd_call (body
+//   _fwd_kernel).
 //
 // Per step t, for each modality: LSTMCell hidden-to-hidden with gates i,f,g,o
 // on top of the hoisted input projection xp[b, t] (x @ W_ih^T + b_ih + b_hh,
 // computed outside); then c* = [c_{t-1}; c_t], att1 (Linear-ReLU-Linear, softmax
 // over the FEATURE axis), attended = att * c*, c^ = tanh(att2(attended)),
 // gamma1/gamma2 = sigmoid(MLP([attended; mem])), mem = g1 * mem + g2 * c^.
+// In training (kernel 6) the two gamma hiddens take hash dropout after their
+// ReLU (element (b, c) of the [B, width] hidden kept when fmix32(b * width +
+// c, seeds[t, k]) >= threshold, a kept value divided by keep_p) and every c_t
+// is stored beside h_t and mem_t.
 // State, workspace and arithmetic are fp32; weights and xp are read in their
-// storage dtype; the per-step hidden concat and memory are written in that
-// dtype.
+// storage dtype; the per-step hidden concat, c_t and memory are written in
+// that dtype.
 //
 // Only two quantities carry state from step to step: the LSTM state (h, c),
 // through W_hh, and the memory, which enters only through the mem columns
@@ -27,7 +35,10 @@
 //      (attend_kernel);
 //   3. the memory scan (mem_scan_kernel): one block per video loops over t
 //      with the mem side of both gamma MLPs in shared memory; a step is two
-//      barrier phases.
+//      barrier phases.  Kernel 6's dropout sits in its first phase; the keep
+//      bits do not depend on the data, so step t + 1's are hashed during
+//      step t from a seed loaded a step earlier, and no step waits on a
+//      load for them.
 // The only change in the order of operations against a step-by-step
 // recurrence: gamma fc1's sum is split into its attended part (stage 2) and
 // its mem part (stage 3).
@@ -37,7 +48,9 @@
 // shared-memory reads (a warp's broadcast float4 read of h or mem costs as
 // many cycles as a full one), the shuffles that join a row's lanes, the cell's
 // or gates' exponentials and divisions, and the barrier; about 1.3 us a step
-// for stage 1 and 1.5 for stage 3 at the MFT's widths.  Stage 2 holds ~75% of
+// for stage 1 and 1.5 for stage 3 at the MFT's widths; kernel 6's stage 3
+// takes ~0.3 us a step more, mostly for the IEEE division of each kept
+// hidden by keep_p on its chain.  Stage 2 holds ~75% of
 // the multiply-adds; it runs on the fp32 FMA pipes (the activations are fp32,
 // so the tensor cores would change the rounding) and is bound by its shared
 // reads, four float4 reads per 16 FMAs a thread.
@@ -50,7 +63,10 @@
 // serves four rows and the cell update needs no phase of its own; h is
 // double-buffered; the xp rows of the next steps arrive through cp.async into
 // a ring in shared memory.  Stage 3 loads P and c^ of step t+1 while step t
-// computes.  No atomics: the same inputs give the same bits.
+// computes (and kernel 6's seed of step t+2).  Each stage's eval and
+// training instantiations differ only in the store of c_t (stage 1) and the
+// dropout (stage 3): kernel B's code is unchanged.  No atomics: the same
+// inputs give the same bits.
 
 #include "mfn_staged.cuh"
 
@@ -82,13 +98,24 @@ struct LstmLayout {
   }
 };
 
+// Threads a stage-1 block may have: 1,024, or 512 in fp32, where every
+// width that would want more (H > 128) already passes the shared memory
+// with W_hh alone; the lower bound leaves the fp32 sums 128 registers a
+// thread instead of 64, so they stay out of local memory.
+template <typename T>
+constexpr int lstm_max_threads() {
+  return sizeof(T) == sizeof(float) ? 512 : kMaxThreads;
+}
+
 // Block (b, m): video b, modality m.  Thread j S + part sums the part-th
 // slice of the four gate rows (i, f, g, o) of hidden unit j; the S lanes of
 // a unit are joined by shuffles and lane j S updates the cell.  Writes
 // hs[b, t, off_m + j] in the storage dtype and c_t to cs[b, t + 1, off_m + j]
-// in fp32, with cs[b, 0] = c_{-1} = 0.  xp rows must be 16-byte aligned.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads) lstm_scan_kernel(Args a, float* cs) {
+// in fp32, with cs[b, 0] = c_{-1} = 0; kStoreC (kernel 6): also c_t to
+// a.cs[b, t, off_m + j] in the storage dtype.  xp rows must be 16-byte
+// aligned.
+template <typename T, bool kStoreC>
+__global__ void __launch_bounds__(lstm_max_threads<T>()) lstm_scan_kernel(Args a, float* cs) {
   using V = typename Vec4<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x, m = blockIdx.y;
@@ -125,6 +152,7 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_scan_kernel(Args a, float* c
   for (int t = 0; t < kRing - 1; ++t) fetch(t);
   T* hs = static_cast<T*>(a.hs) + (size_t)b * T_ * TH + off;
   float* csb = cs + (size_t)b * (T_ + 1) * TH + off;
+  T* cs_out = kStoreC ? static_cast<T*>(a.cs) + (size_t)b * T_ * TH + off : nullptr;
   if (owner) csb[j] = 0.f;
   const V* w = reinterpret_cast<const V*>(smem_raw) + tid;
   float c = 0.f;
@@ -156,6 +184,7 @@ __global__ void __launch_bounds__(kMaxThreads) lstm_scan_kernel(Args a, float* c
       hbuf[((t + 1) & 1) * Hp + j] = h;
       hs[(size_t)t * TH + j] = from_f<T>(h);
       csb[(size_t)(t + 1) * TH + j] = c;
+      if (kStoreC) cs_out[(size_t)t * TH + j] = from_f<T>(c);
     }
     cp_async_wait<kRing - 2>();
     __syncthreads();
@@ -192,6 +221,11 @@ struct MemArgs {
   const float* chat;  // [rows, MEM]
   void* mems;         // [B, T, MEM]
   int T, TH2, mem, hg1, hg2;
+  // kernel 6's gamma-hidden dropout: the seeds [T, 2] (gamma1, gamma2 of
+  // each step), and each hidden's threshold and keep probability
+  const uint32_t* seeds;
+  uint32_t thr[2];
+  float keep[2];
 };
 
 // Shared memory of a stage-3 block, in bytes at the offsets: wa
@@ -225,8 +259,12 @@ inline int mem_threads(int mem, int hg1, int hg2) {
 // mem), the two halves of the mem axis joined by a shuffle.  Phase b, thread
 // i = 2r + k (r < MEM): g_k[r] = sigmoid(fc2_k[r, :] . g_kh + bias), joined
 // by a shuffle; thread 2r then updates mem[r] = g1 mem + g2 c^.  P and c^ of
-// step t + 1 are loaded while step t computes.
-template <typename T>
+// step t + 1 are loaded while step t computes.  kDrop (kernel 6): in phase
+// a, thread 2r drops hidden row r of gamma k (r < hg1: k = 1, position b hg1
+// + r; else k = 2, position b hg2 + r - hg1) by its keep bit under seeds[t,
+// k]; the bit of step t + 1 is hashed during step t, from the seed loaded
+// during step t - 1.
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kMaxThreads) mem_scan_kernel(MemArgs a) {
   using V = typename Vec4<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -274,18 +312,49 @@ __global__ void __launch_bounds__(kMaxThreads) mem_scan_kernel(MemArgs a) {
   float* gh_out = gh + (r < hg1 ? r : L.HGp + r - hg1);
   float p_next = take_p ? P[0] : 0.f, c_next = take_c ? chat[0] : 0.f;
   float mem_r = 0.f;
+  // kDrop: this row's gamma (gk = k - 1), position, threshold, keep
+  // probability and seeds column; keep_next holds the keep bit of step t + 1
+  // (of step 0 before the loop), seed_next the seed of step t + 2 (of step 1)
+  const int gk = r < hg1 ? 0 : 1;
+  const uint32_t pos = (uint32_t)(gk ? b * hg2 + r - hg1 : b * hg1 + r);
+  const uint32_t* seed = nullptr;
+  uint32_t thr = 0, seed_next = 0;
+  float keep_p = 1.f;
+  bool keep_next = true;
+  if constexpr (kDrop) {
+    if (take_p) {
+      seed = a.seeds + gk;
+      thr = a.thr[gk];
+      keep_p = a.keep[gk];
+      keep_next = fmix_hash(pos, seed[0]) >= thr;
+      if (T_ > 1) seed_next = seed[2];
+    }
+  }
   __syncthreads();
 
   for (int t = 0; t < T_; ++t) {
     const float p_cur = p_next, c_cur = c_next;
+    [[maybe_unused]] const bool keep_cur = keep_next;
     if (t + 1 < T_) {
       if (take_p) p_next = P[(size_t)(t + 1) * L.Ra];
       if (take_c) c_next = chat[(size_t)(t + 1) * MEM];
+      if constexpr (kDrop) {
+        if (take_p) {
+          keep_next = fmix_hash(pos, seed_next) >= thr;
+          if (t + 2 < T_) seed_next = seed[2 * (t + 2)];
+        }
+      }
     }
     // phase a: the gamma hiddens
     float s = in_a ? dot4(wa_v, Ra2, mem_in, half / 4) : 0.f;
     s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (take_p) *gh_out = fmaxf(p_cur + s, 0.f);
+    if (take_p) {
+      const float v = fmaxf(p_cur + s, 0.f);
+      if constexpr (kDrop)
+        *gh_out = keep_cur ? v / keep_p : 0.f;
+      else
+        *gh_out = v;
+    }
     __syncthreads();
     // phase b: gamma1, gamma2 and the memory update
     float g = 0.f;
@@ -338,6 +407,9 @@ inline size_t lstm_block(const Args& a, size_t esize, int* threads) {
 template <typename T>
 int run(const Args& a, void* ws, cudaStream_t st) {
   const size_t es = sizeof(T);
+  // kernel 6: every c_t stored, and the dropout unless both rates are 0
+  const bool store_c = a.cs != nullptr;
+  const bool drop = a.seeds != nullptr && (a.thr1 != 0u || a.thr2 != 0u);
   Carver c{static_cast<char*>(ws)};
   const Work w = Work::carve(c, a);
   const int TH = a.total_h, TH2 = 2 * TH;
@@ -347,10 +419,11 @@ int run(const Args& a, void* ws, cudaStream_t st) {
   // stage 1
   int th1 = 0;
   const size_t sm1 = lstm_block(a, es, &th1);
-  cudaError_t err = cudaFuncSetAttribute(lstm_scan_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
+  void (*lstm)(Args, float*) = store_c ? lstm_scan_kernel<T, true> : lstm_scan_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(lstm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
   if (err != cudaSuccess) return (int)err;
-  lstm_scan_kernel<T><<<dim3(a.B, a.n_mods), th1, sm1, st>>>(a, w.cs);
+  lstm<<<dim3(a.B, a.n_mods), th1, sm1, st>>>(a, w.cs);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // stage 2: row m of A is c* = the 2TH floats at cs + m TH
@@ -370,32 +443,40 @@ int run(const Args& a, void* ws, cudaStream_t st) {
 
   // stage 3
   const MemArgs ma{{a.g[8], a.g[12]}, {a.g[10], a.g[14]}, {a.g[11], a.g[15]}, w.P, w.chat,
-                   a.mems, a.T, TH2, a.mem, a.h_g1, a.h_g2};
+                   a.mems, a.T, TH2, a.mem, a.h_g1, a.h_g2, a.seeds, {a.thr1, a.thr2},
+                   {a.keep1, a.keep2}};
   const int th3 = mem_threads(a.mem, a.h_g1, a.h_g2);
   const MemLayout L(a.mem, a.h_g1, a.h_g2, es);
-  err = cudaFuncSetAttribute(mem_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  void (*mem_scan)(MemArgs) = drop ? mem_scan_kernel<T, true> : mem_scan_kernel<T, false>;
+  err = cudaFuncSetAttribute(mem_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  mem_scan_kernel<T><<<a.B, th3, L.total, st>>>(ma);
+  mem_scan<<<a.B, th3, L.total, st>>>(ma);
   return (int)cudaGetLastError();
 }
 
+int launch(const Args& a, int dtype, void* ws, cudaStream_t st) {
+  return dtype == kF32 ? run<float>(a, ws, st) : run<__nv_bfloat16>(a, ws, st);
+}
+
 // Whether the stages take these widths: a block of at most 1,024 threads per
-// scan, each scan's shared memory within the opt-in limit, and a GEMM grid
-// within 65,535 row tiles.
+// scan (512 for the fp32 LSTM scan), each scan's shared memory within the
+// opt-in limit, and a GEMM grid within 65,535 row tiles.
 inline bool fits(const Args& a, size_t esize) {
   int th1 = 0;
   const size_t sm1 = lstm_block(a, esize, &th1);
   const long long M = (long long)a.B * (a.T + 1) - 1;
-  if (th1 > kMaxThreads || sm1 > kSmemMax || mem_threads(a.mem, a.h_g1, a.h_g2) > kMaxThreads)
+  const int max1 = esize == sizeof(float) ? lstm_max_threads<float>()
+                                          : lstm_max_threads<__nv_bfloat16>();
+  if (th1 > max1 || sm1 > kSmemMax || mem_threads(a.mem, a.h_g1, a.h_g2) > kMaxThreads)
     return false;
   const MemLayout L(a.mem, a.h_g1, a.h_g2, esize);
   return L.total <= kSmemMax && (M + FBM - 1) / FBM <= 65535;
 }
 
-inline bool parse(Args& a, int dtype, const void* xp, const void* whh, const void* hid,
-                  int n_mods, const void* gates, int B, int T, int mem, int h_att1, int h_att2,
-                  int h_g1, int h_g2) {
+bool parse(Args& a, int dtype, const void* xp, const void* whh, const void* hid, int n_mods,
+           const void* gates, int B, int T, int mem, int h_att1, int h_att2, int h_g1,
+           int h_g2) {
   if (dtype != kF32 && dtype != kBF16) return false;
   if (!mfn::fill_args(a, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2, h_g1, h_g2))
     return false;
@@ -410,7 +491,8 @@ inline bool parse(Args& a, int dtype, const void* xp, const void* whh, const voi
 }  // namespace mfn_staged
 }  // namespace mmtx
 
-// Bytes of fp32 workspace mmtx_mfn_scan needs, or -1 for shapes it refuses.
+// Bytes of fp32 workspace mmtx_mfn_scan and mmtx_mfn_train_fwd need, or -1
+// for shapes they refuse.
 // hid: host array of n_mods hidden sizes.
 extern "C" long long mmtx_mfn_scan_workspace(int dtype, const void* hid, int n_mods, int B,
                                              int T, int mem, int h_att1, int h_att2, int h_g1,
@@ -443,7 +525,5 @@ extern "C" int mmtx_mfn_scan(int dtype, const void* xp, const void* whh, const v
     return (int)cudaErrorInvalidValue;
   a.hs = hs;
   a.mems = mems;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return mfn_staged::run<float>(a, ws, st);
-  return mfn_staged::run<__nv_bfloat16>(a, ws, st);
+  return mfn_staged::launch(a, dtype, ws, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,8 @@
-// The staged MFN kernels' shared pieces: kernel B's stages (csrc/mfn.cu)
-// and kernel 7's (csrc/mfn_train.cu) read their weights through these
-// vector loads, lay them out in shared memory with gather(), and run their
-// batched products with ff_gemm_kernel, an fp32 FMA GEMM whose epilogue
-// each caller supplies.
+// The staged MFN kernels' shared pieces: kernel B's stages (csrc/mfn.cu,
+// also kernel 6's) and kernel 7's (csrc/mfn_train.cu) read their weights
+// through these vector loads, lay them out in shared memory with gather(),
+// and run their batched products with ff_gemm_kernel, an fp32 FMA GEMM whose
+// epilogue each caller supplies.
 #pragma once
 
 #include "mfn_common.cuh"
@@ -208,6 +208,17 @@ ff_gemm_kernel(const float* __restrict__ A, int lda, int M, int K, FfJobs<T, Epi
     }
   }
 }
+
+// Defined in csrc/mfn.cu, for its C entries and kernel 6's
+// (csrc/mfn_train.cu).  parse fills a's shapes from the C arguments, or
+// returns false for shapes the stages refuse.  launch runs the three stages
+// on the stream and returns the first CUDA error: kernel B, or with a.cs set
+// kernel 6 (every c_t stored; the gamma-hidden dropout unless both
+// thresholds are 0).  ws: mmtx_mfn_scan_workspace bytes.
+bool parse(mfn::Args& a, int dtype, const void* xp, const void* whh, const void* hid,
+           int n_mods, const void* gates, int B, int T, int mem, int h_att1, int h_att2,
+           int h_g1, int h_g2);
+int launch(const mfn::Args& a, int dtype, void* ws, cudaStream_t st);
 
 template <typename T, typename Epi>
 void ff_gemm(const float* A, int lda, int M, int K, const FfJob<T, Epi>* jobs, int n_jobs,

@@ -5,12 +5,11 @@
 //   kernel 6  _fwd_call (body _fwd_kernel);
 //   kernel 7  _bwd_call (body _bwd_kernel).
 //
-// Kernel 6 is the one-block-per-video step loop (mfn_common.cuh scan_kernel)
-// with the gamma1/gamma2 hiddens dropped by the JAX package's fmix32 keep
-// bit of position b * width + c under the step's seeds, and c_t written
-// beside h_t and mem_t, all three in the storage dtype.  Each step is a
-// chain of ~8 barrier-separated matrix-vector phases with the weights read
-// from L2, so it is bound by that chain's latency, T steps in series.
+// Kernel 6 is kernel B's three stages (csrc/mfn.cu, mfn_staged::launch):
+// the LSTM scan also stores every c_t in the storage dtype beside h_t, and
+// the memory scan drops the gamma1/gamma2 hiddens by the JAX package's
+// fmix32 keep bit of position b * width + c under the step's seeds, hashed a
+// step ahead of its use.  Its note there says what bounds it and why.
 //
 // Kernel 7 is five stages launched in order on one stream.  Only two
 // quantities carry state backwards in time: the memory's cotangent (through
@@ -957,15 +956,13 @@ int train_bwd(const BwdArgs& a, void* const* dwhh, void* const* dgates, void* ws
   return (int)cudaGetLastError();
 }
 
-// The shapes of the C entries' arguments, or false for shapes that kernel 7
-// (bwd) or kernel 6 cannot take.
+// The shapes of kernel 7's C arguments, or false for shapes it cannot take.
 inline bool parse(Args& a, int dtype, const void* xp, const void* whh, const void* hid,
                   int n_mods, const void* gates, int B, int T, int mem, int h_att1, int h_att2,
-                  int h_g1, int h_g2, bool bwd) {
+                  int h_g1, int h_g2) {
   if (dtype != kF32 && dtype != kBF16) return false;
   if (!mfn::fill_args(a, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2, h_g1, h_g2))
     return false;
-  if (!bwd) return widths_ok(a);
   return bwd_fits(a, dtype == kF32 ? sizeof(float) : sizeof(__nv_bfloat16));
 }
 
@@ -974,32 +971,27 @@ inline bool parse(Args& a, int dtype, const void* xp, const void* whh, const voi
 
 // Kernel 6.  As mmtx_mfn_scan, plus cs (every c_t, storage dtype), the
 // per-step seeds [T, 2] uint32 on the device, and the gamma1/gamma2 drop
-// thresholds and keep probabilities.
+// thresholds and keep probabilities; ws: mmtx_mfn_scan_workspace bytes.
+// Launches kernel B's three stages in their training instantiations on the
+// stream; returns the first CUDA error, or cudaErrorInvalidValue for shapes
+// the stages refuse.
 extern "C" int mmtx_mfn_train_fwd(int dtype, const void* xp, const void* whh,
                                   const void* hid, int n_mods, const void* gates,
                                   const void* seeds, unsigned thr1, unsigned thr2,
                                   float keep1, float keep2, void* hs, void* cs,
-                                  void* mems, int B, int T, int mem, int h_att1,
+                                  void* mems, void* ws, int B, int T, int mem, int h_att1,
                                   int h_att2, int h_g1, int h_g2, void* stream) {
   using namespace mmtx;
   mfn::Args a;
-  if (!mfnt::parse(a, dtype, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2, h_g1,
-                   h_g2, false))
+  if (!mfn_staged::parse(a, dtype, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2,
+                         h_g1, h_g2))
     return (int)cudaErrorInvalidValue;
   a.hs = hs;
   a.mems = mems;
   a.cs = cs;
   a.seeds = static_cast<const uint32_t*>(seeds);
   a.thr1 = thr1; a.thr2 = thr2; a.keep1 = keep1; a.keep2 = keep2;
-  const size_t smem = mfn::smem_floats(a) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    mfn::scan_kernel<float, true><<<B, mfn::kThreads, smem, st>>>(a);
-  } else {
-    mfn::scan_kernel<__nv_bfloat16, true><<<B, mfn::kThreads, smem, st>>>(a);
-  }
-  return (int)cudaGetLastError();
+  return mfn_staged::launch(a, dtype, ws, static_cast<cudaStream_t>(stream));
 }
 
 // Workspace bytes of kernel 7, or -1 for shapes it refuses.
@@ -1011,7 +1003,7 @@ extern "C" long long mmtx_mfn_train_workspace(int dtype, const void* hid, int n_
   const void* none[mfn::kMaxMods] = {nullptr, nullptr, nullptr, nullptr};
   const void* g16[16] = {};
   if (!mfnt::parse(a, dtype, none, none, hid, n_mods, g16, B, T, mem, h_att1, h_att2, h_g1,
-                   h_g2, true))
+                   h_g2))
     return -1;
   const mfnt::Widths w = mfnt::Widths::make(a.total_h, mem, h_att1, h_att2, h_g1, h_g2);
   Carver c{nullptr};
@@ -1041,7 +1033,7 @@ extern "C" int mmtx_mfn_train_bwd(int dtype, const void* xp, const void* whh,
   using namespace mmtx;
   mfnt::BwdArgs a;
   if (!mfnt::parse(a.f, dtype, xp, whh, hid, n_mods, gates, B, T, mem, h_att1, h_att2, h_g1,
-                   h_g2, true))
+                   h_g2))
     return (int)cudaErrorInvalidValue;
   a.f.seeds = static_cast<const uint32_t*>(seeds);
   a.f.thr1 = thr1; a.f.thr2 = thr2; a.f.keep1 = keep1; a.f.keep2 = keep2;

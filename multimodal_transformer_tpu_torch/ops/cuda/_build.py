@@ -52,7 +52,7 @@ _SIGNATURES = {
     "mmtx_encoder_bwd_path": [_I, _I, _I, _I],
     "mmtx_encoder_train_fwd_path": [_I, _I, _I, _I],
     "mmtx_mfn_train_fwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
-                           _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmtx_mfn_train_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     "mmtx_mfn_train_bwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,5 +1,6 @@
 """Kernel B: the MFN recurrence as three stages from one C entry
-(csrc/mfn.cu).
+(csrc/mfn.cu).  Kernel 6 (ops/cuda/mfn_train.py, the training forward)
+runs the same stages.
 
 Counterpart of `multimodal_transformer_tpu/ops/pallas/mfn_kernel.py`
 `mfn_scan_pallas` (the recurrence; the input projections and the output
@@ -34,13 +35,15 @@ from ..dispatch import acc_dtype, check_kernel_dtype, check_no_grad, use_kernel
 from . import _build
 
 MAX_MODS = 4
-# the one-block-per-video scan of csrc/mfn_common.cuh (kernel 6's forward,
-# rows 8 and 9) keeps its activations in static-size shared memory
+# the one-block-per-video scans of rows 8 and 9 (csrc/mfn_variants.cu) keep
+# their activations in static-size shared memory
 _SMEM_LIMIT = 48 * 1024
 # kernel B's serial stages: shared memory a block may opt in to on sm_90,
-# threads a block may have, and row tiles a GEMM grid may have
+# threads a block may have (the fp32 LSTM scan's: csrc/mfn.cu
+# lstm_max_threads), and row tiles a GEMM grid may have
 SMEM_OPT_IN = 232448
 MAX_THREADS = 1024
+MAX_LSTM_THREADS_FP32 = 512
 MAX_ROW_TILES = 65535
 
 # Number of kernel launches (one per recurrence) since the last reset.
@@ -93,13 +96,13 @@ def mfn_scan_fused_plain(xps, whhs, gates):
             torch.stack(mem_out, dim=1).to(dtype))
 
 
-def mfn_scan_staged_plain(xps, whhs, gates):
+def staged_plain(xps, whhs, gates, drop=None):
     """Kernel B's three stages in PyTorch, in the kernel's order: the LSTM
     scan, the feed-forward part batched over all B*T rows, the memory scan.
-    The same function as `mfn_scan_fused_plain`; gamma fc1's sum is split
-    into its attended and mem parts."""
-    dtype = xps[0].dtype
-    acc = acc_dtype(dtype)
+    drop(t, k, x), where given, returns gamma k's hidden x [B, width] of
+    step t after its ReLU, dropped (kernel 6).  Returns (hs, cs, mems) in
+    the accumulation dtype."""
+    acc = acc_dtype(xps[0].dtype)
     B, T = xps[0].shape[:2]
     dev = xps[0].device
     th2 = 2 * sum(w.shape[1] for w in whhs)
@@ -136,14 +139,23 @@ def mfn_scan_staged_plain(xps, whhs, gates):
     mem = torch.zeros(B, G[6].shape[0], dtype=acc, device=dev)
     mems = []
     for t in range(T):
-        g1 = torch.sigmoid(F.linear(torch.relu(p1[:, t] + mem @ w1.T),
-                                    G[10], G[11]))
-        g2 = torch.sigmoid(F.linear(torch.relu(p2[:, t] + mem @ w2.T),
-                                    G[14], G[15]))
+        h1 = torch.relu(p1[:, t] + mem @ w1.T)
+        h2 = torch.relu(p2[:, t] + mem @ w2.T)
+        if drop is not None:
+            h1, h2 = drop(t, 0, h1), drop(t, 1, h2)
+        g1 = torch.sigmoid(F.linear(h1, G[10], G[11]))
+        g2 = torch.sigmoid(F.linear(h2, G[14], G[15]))
         mem = g1 * mem + g2 * c_hat[:, t]
         mems.append(mem)
-    return (torch.cat(hs, dim=2).to(dtype),
-            torch.stack(mems, dim=1).to(dtype))
+    return torch.cat(hs, dim=2), c_all, torch.stack(mems, dim=1)
+
+
+def mfn_scan_staged_plain(xps, whhs, gates):
+    """Kernel B's three stages in PyTorch (`staged_plain`), in the kernel's
+    order.  The same function as `mfn_scan_fused_plain`; gamma fc1's sum is
+    split into its attended and mem parts."""
+    hs, _, mems = staged_plain(xps, whhs, gates)
+    return hs.to(xps[0].dtype), mems.to(xps[0].dtype)
 
 
 def _check_shapes(xps, whhs, gates):
@@ -178,8 +190,8 @@ def _check_shapes(xps, whhs, gates):
 
 def smem_bytes(total_h: int, mem: int, h1: int, h2: int, hg1: int,
                hg2: int) -> int:
-    """Shared memory of one block of the one-block-per-video scan (kernel
-    6's forward, rows 8 and 9; mirrors csrc/mfn_common.cuh smem_floats)."""
+    """Shared memory of one block of the one-block-per-video scan of rows 8
+    and 9 (mirrors csrc/mfn_variants.cu smem_floats at unpadded widths)."""
     return 4 * (12 * total_h + h1 + mem + h2 + hg1 + hg2 + 3 * mem + 2)
 
 
@@ -233,14 +245,17 @@ def staged_smem_bytes(hid, mem: int, hg1: int, hg2: int,
 def check_staged_fit(hid, mem: int, hg1: int, hg2: int, itemsize: int,
                      B: int, T: int, what: str) -> None:
     """Raises, with the widths, for shapes kernel B's stages cannot take: a
-    serial stage's block past SMEM_OPT_IN bytes or MAX_THREADS threads, or
-    more rows than the batched GEMMs' grid holds."""
+    serial stage's block past SMEM_OPT_IN bytes or MAX_THREADS threads
+    (MAX_LSTM_THREADS_FP32 for the fp32 LSTM scan), or more rows than the
+    batched GEMMs' grid holds."""
     need = staged_smem_bytes(hid, mem, hg1, hg2, itemsize)
     threads = _staged_threads(hid, mem, hg1, hg2)
+    lstm_max = MAX_LSTM_THREADS_FP32 if itemsize == 4 else MAX_THREADS
     bad = []
-    if need["lstm"] > SMEM_OPT_IN or threads["lstm"] > MAX_THREADS:
+    if need["lstm"] > SMEM_OPT_IN or threads["lstm"] > lstm_max:
         bad.append(f"the LSTM scan needs {need['lstm']} bytes and "
-                   f"{threads['lstm']} threads for hidden widths {list(hid)}")
+                   f"{threads['lstm']} threads (at most {lstm_max}) for "
+                   f"hidden widths {list(hid)}")
     if need["memory"] > SMEM_OPT_IN or threads["memory"] > MAX_THREADS:
         bad.append(f"the memory scan needs {need['memory']} bytes and "
                    f"{threads['memory']} threads for mem={mem}, gamma "
@@ -271,15 +286,39 @@ def _kernel_args(xps, whhs, gates, what: str):
 
 
 def kernel_args(xps, whhs, gates, what: str):
-    """`_kernel_args` for the kernels on the one-block-per-video scan
-    (kernel 6, rows 8 and 9), which also need its activations within 48 KB
-    of shared memory."""
+    """`_kernel_args` for rows 8 and 9, one block per video, which also need
+    their activations within 48 KB of shared memory."""
     args = _kernel_args(xps, whhs, gates, what)
     mem, h1, h2, hg1, hg2, hid = args[3:]
     if smem_bytes(sum(hid), mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:
         raise ValueError(f"{what}: widths need more than 48 KB of shared "
                          "memory per block")
     return args
+
+
+def staged_args(xps, whhs, gates, what: str):
+    """`_kernel_args` for kernel B's stages (kernels B and 6): also raises,
+    with the widths, where a scan cannot take them (`check_staged_fit`), and
+    where an xp does not start on a 16-byte boundary (the LSTM scan copies
+    xp rows 16 bytes at a time)."""
+    args = _kernel_args(xps, whhs, gates, what)
+    B, T, mem, _, _, hg1, hg2, hid = args[1:]
+    check_staged_fit(hid, mem, hg1, hg2, xps[0].element_size(), B, T, what)
+    if any(x.data_ptr() % 16 for x in xps):
+        raise ValueError(f"{what}: the kernel copies xp rows 16 bytes at a "
+                         "time; every xp must start on a 16-byte boundary")
+    return args
+
+
+def staged_workspace(lib, args, device, what: str) -> torch.Tensor:
+    """The fp32 workspace of kernel B's stages for `staged_args`' args."""
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = args
+    hid_arr = (ctypes.c_int * len(hid))(*hid)
+    n_ws = lib.mmtx_mfn_scan_workspace(dtype_code, hid_arr, len(hid), B, T,
+                                       mem, h1, h2, hg1, hg2)
+    if n_ws < 0:
+        raise ValueError(f"{what}: shapes refused by the kernel")
+    return torch.empty(n_ws // 4, dtype=torch.float32, device=device)
 
 
 def mfn_scan_fused(xps, whhs, gates):
@@ -292,20 +331,12 @@ def mfn_scan_fused(xps, whhs, gates):
     global launches
     what = "mfn_scan_fused"
     check_no_grad(what, *xps, *whhs, *gates)
-    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = _kernel_args(
-        xps, whhs, gates, what)
-    check_staged_fit(hid, mem, hg1, hg2, x0.element_size(), B, T, what)
-    if any(x.data_ptr() % 16 for x in xps):
-        raise ValueError(f"{what}: the kernel copies xp rows 16 bytes at a "
-                         "time; every xp must start on a 16-byte boundary")
+    args = staged_args(xps, whhs, gates, what)
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = args
     total_h = sum(hid)
     hid_arr = (ctypes.c_int * len(hid))(*hid)
     lib = _build.load()
-    n_ws = lib.mmtx_mfn_scan_workspace(dtype_code, hid_arr, len(hid), B, T,
-                                       mem, h1, h2, hg1, hg2)
-    if n_ws < 0:
-        raise ValueError(f"{what}: shapes refused by the kernel")
-    ws = torch.empty(n_ws // 4, dtype=torch.float32, device=x0.device)
+    ws = staged_workspace(lib, args, x0.device, what)
     hs = torch.empty((B, T, total_h), dtype=x0.dtype, device=x0.device)
     mems = torch.empty((B, T, mem), dtype=x0.dtype, device=x0.device)
     xp_ptrs = _build.pointer_array([t.data_ptr() for t in xps])

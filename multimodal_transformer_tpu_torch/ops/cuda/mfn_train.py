@@ -8,6 +8,12 @@ Counterpart of `multimodal_transformer_tpu/ops/pallas/mfn_train.py`
 runs `mfn_train_bwd` (kernel 7).  Both wrappers launch the CUDA kernel for a
 CUDA tensor and run their plain version for a CPU tensor.
 
+Kernel 6 is kernel B's three stages (csrc/mfn.cu, ops/cuda/mfn.py) in
+their training instantiations: the LSTM scan also stores every c_t, and the
+memory scan drops the gamma hiddens.  `mfn_train_fwd_staged_plain` computes
+the same stages in PyTorch, in that order; `mfn_train_fwd_plain` is the
+step-by-step recurrence (the model's CPU path).
+
 Kernel 7 is five stages: (S0) every step recomputed at once from the saved
 states; (S1) the memory's reverse scan, one block per video with the gamma
 MLPs' mem side in shared memory; (S2) the rest of the VJP over all rows;
@@ -46,7 +52,7 @@ from ..dispatch import acc_dtype, use_kernel
 from . import _build
 from .mfn import (_RING, MAX_MODS, MAX_ROW_TILES, MAX_THREADS, SMEM_OPT_IN,
                   _kernel_args, _lanes_per_unit, _round_up, _staged_threads,
-                  kernel_args)
+                  staged_args, staged_plain, staged_workspace)
 
 # Launches since the last reset: kernel 6 and kernel 7 (one per recurrence).
 fwd_launches = 0
@@ -126,6 +132,18 @@ def mfn_train_fwd_plain(xps, whhs, gates, seeds, ps):
         cs.append(torch.cat(c, dim=1))
         mems.append(mem)
     return tuple(torch.stack(v, dim=1).to(dtype) for v in (hs, cs, mems))
+
+
+def mfn_train_fwd_staged_plain(xps, whhs, gates, seeds, ps):
+    """Kernel 6's stages in PyTorch, in the kernel's order: kernel B's
+    (`ops/cuda/mfn.py:staged_plain`) with the gamma dropout in the memory
+    loop.  The same function as `mfn_train_fwd_plain`; gamma fc1's sum is
+    split into its attended and mem parts.  Returns (hs, cs, mems) in the
+    storage dtype."""
+    seeds = torch.as_tensor(seeds).tolist()
+    out = staged_plain(xps, whhs, gates,
+                       lambda t, k, x: _gamma_drop(x, int(seeds[t][k]), ps[k]))
+    return tuple(v.to(xps[0].dtype) for v in out)
 
 
 def mfn_train_bwd_plain(xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs,
@@ -301,7 +319,9 @@ def _seed_table(seeds, T: int) -> torch.Tensor:
 
 
 def _device_seeds(seeds, T: int, device) -> torch.Tensor:
-    return _seed_table(seeds, T).to(device)
+    """The seed table on the card, from pinned memory without a stream sync:
+    the host goes on enqueueing while the card works."""
+    return _seed_table(seeds, T).pin_memory().to(device, non_blocking=True)
 
 
 def _rates(ps):
@@ -359,14 +379,15 @@ def check_bwd_fit(hid, mem: int, hg1: int, hg2: int, itemsize: int, B: int,
 
 
 def mfn_train_fwd(xps, whhs, gates, seeds, ps):
-    """Kernel 6.  Returns (hs, cs, mems) in the storage dtype."""
+    """Kernel 6.  Returns (hs, cs, mems) in the storage dtype.  Raises, with
+    the widths, for shapes its stages cannot take."""
     x0 = xps[0]
     if not use_kernel(x0):
         return mfn_train_fwd_plain(xps, whhs, gates, seeds, ps)
     global fwd_launches
     what = "mfn_train_fwd"
-    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
-        xps, whhs, gates, what)
+    args = staged_args(xps, whhs, gates, what)
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = args
     total_h = sum(hid)
     hs = torch.empty((B, T, total_h), dtype=x0.dtype, device=x0.device)
     cs = torch.empty_like(hs)
@@ -377,12 +398,14 @@ def mfn_train_fwd(xps, whhs, gates, seeds, ps):
     gate_ptrs = _build.pointer_array([t.data_ptr() for t in gates])
     hid_arr = (ctypes.c_int * len(hid))(*hid)
     lib = _build.load()
+    ws = staged_workspace(lib, args, x0.device, what)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mmtx_mfn_train_fwd(
             dtype_code, xp_ptrs, whh_ptrs, hid_arr, len(xps), gate_ptrs,
             dseeds.data_ptr(), *_rates(ps), hs.data_ptr(), cs.data_ptr(),
-            mems.data_ptr(), B, T, mem, h1, h2, hg1, hg2, stream)
+            mems.data_ptr(), ws.data_ptr(), B, T, mem, h1, h2, hg1, hg2,
+            stream)
     _build.check(rc, what)
     fwd_launches += 1
     return hs, cs, mems
@@ -412,10 +435,7 @@ def mfn_train_bwd(xps, whhs, gates, seeds, ps, hs, cs, mems, g_hs, g_mems):
     g_mems = g_mems.to(device=x0.device, dtype=torch.float32).contiguous()
     if tuple(g_hs.shape) != (B, T, total_h) or tuple(g_mems.shape) != (B, T, mem):
         raise ValueError(f"{what}: cotangents must match hs and mems")
-    # from pinned memory without a stream sync: the host goes on enqueueing
-    # the rest of the backward while the card works
-    dseeds = _seed_table(seeds, T).pin_memory().to(x0.device,
-                                                   non_blocking=True)
+    dseeds = _device_seeds(seeds, T, x0.device)
     d_xps = [torch.empty_like(x) for x in xps]
     d_whhs = [torch.empty(w.shape, dtype=torch.float32, device=x0.device)
               for w in whhs]

@@ -411,9 +411,10 @@ def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
                            seed, mods, reps, repeat=True)
 
 
-# kernel B's stages by the names of their CUDA kernels (csrc/mfn.cu), in
-# the order a name is matched: the LSTM scan, the memory scan, then the rest
-# of the namespace (the GEMMs with kernel B's epilogue and the softmax)
+# kernel B's stages (and kernel 6's) by the names of their CUDA kernels
+# (csrc/mfn.cu), in the order a name is matched: the LSTM scan, the memory
+# scan, then the rest of the namespace (the GEMMs with kernel B's epilogue
+# and the softmax)
 MFN_STAGES = (("stage 1, LSTM scan", "lstm_scan_kernel"),
               ("stage 3, memory scan", "mem_scan_kernel"),
               ("stage 2, batched", "mfn_staged"))
@@ -629,8 +630,10 @@ def _double(ts):
 @torch.no_grad()
 def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                         seed: int = 0, mods=AVL, reps: int = 5,
-                        p: float | None = None) -> KernelCheck:
-    """Kernel 6: hs, cs and mems."""
+                        p: float | None = None,
+                        repeat: bool = False) -> KernelCheck:
+    """Kernel 6: hs, cs and mems; repeat: also call the kernel again and
+    require the same bits."""
     ps = MFN_PS if p is None else (p, p)
     _, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
                                                  mods)
@@ -638,10 +641,15 @@ def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                                      _double(gates), seeds, ps)
     plain = mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds, ps)
     kern = mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps)
+    identical = None
+    if repeat:
+        identical = all(torch.equal(a, b) for a, b in zip(
+            kern, mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps)))
     torch.cuda.synchronize()
     valids = [None] * 3
     return KernelCheck(
-        "mfn_train_fwd", _label(p) + f"B={B} T={T} A+V+L",
+        "mfn_train_fwd",
+        _label(p) + f"B={B} T={T} {'+'.join(MOD_LETTER[m] for m in mods)}",
         _dtype_name(dtype),
         _parts(["hs", "cs", "mems"], kern, plain, ref, valids),
         _finite(kern, valids),
@@ -650,7 +658,23 @@ def check_mfn_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
         time_ms(lambda: mfnt_k.mfn_train_fwd_plain(xps, whhs, gates, seeds,
                                                    ps), reps, warmup=1),
         *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
-                     [*xps, *whhs, *gates, *kern]))
+                     [*xps, *whhs, *gates, *kern]), identical=identical)
+
+
+@torch.no_grad()
+def mfn_train_fwd_stage_ms(B: int, T: int, dtype: torch.dtype, *, device,
+                           seed: int = 0, mods=AVL, calls: int = 5,
+                           p: float | None = None) -> Dict[str, float]:
+    """Device ms per call of each of kernel 6's stages (kernel B's, by the
+    names in MFN_STAGES) over `calls` warm calls, at the model's gamma
+    dropout unless p is given."""
+    ps = MFN_PS if p is None else (p, p)
+    _, xps, whhs, gates, seeds = _mfn_train_case(B, T, dtype, device, seed,
+                                                 mods)
+    out = kernel_device_ms(
+        lambda: mfnt_k.mfn_train_fwd(xps, whhs, gates, seeds, ps), calls,
+        lambda n: next((stage for stage, key in MFN_STAGES if key in n), None))
+    return {stage: out.get(stage, 0.0) for stage, _ in sorted(MFN_STAGES)}
 
 
 def _mfn_train_bwd_case(B, T, dtype, device, seed, mods, ps):

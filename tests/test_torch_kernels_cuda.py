@@ -26,7 +26,10 @@ MFN's packed and aligned variants (rows 8 and 9) at the main path's shape,
 a ragged one and one with the emotient modality; and the routes: kernel A
 up to T = 512, kernel 11 layer by layer past it, the plain encoder in
 "query" mode, kernel 5 in place of kernel 4 on the "stack" training route,
-kernels 3/4 and 6/7 at p = 0 for gradients without seeds.
+kernels 3/4 and 6/7 at p = 0 for gradients without seeds.  Kernel 6
+(kernel B's stages in training) also at L alone, emotient+acoustic, B=2,
+T=1,120, B=1, T=37 and B = T = 1, both rates, bit-identical when called
+again, and at p = 0 bit-identical to kernel B on hs and mems.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  On the card, where JAX
 (which tests/conftest.py sets up) is not installed:
@@ -160,6 +163,46 @@ MFN_BWD_CASES = {"AVL": (32, 160, ("acoustic", "image", "linguistic")),
                  "L": (4, 9, ("linguistic",)),
                  "EA": (3, 7, ("emotient", "acoustic")),
                  "T1": (1, 1, ("acoustic", "image", "linguistic"))}
+
+
+# kernel 6 at kernel 7's cases and at kernel B's long-video bucket and one
+# video
+MFN_FWD_CASES = dict(MFN_BWD_CASES,
+                     T1120=(2, 1120, ("acoustic", "image", "linguistic")),
+                     B1=(1, 37, ("acoustic", "image", "linguistic")))
+
+
+@pytest.mark.parametrize("p", [None, 0.0])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(MFN_FWD_CASES))
+def test_mfn_train_fwd_stages_within_bound_and_bit_identical(device, case,
+                                                            dtype, p):
+    """Kernel 6 on kernel B's three stages at the model's shapes and at
+    small ones with other modality sets, both rates: within the bound on
+    hs, cs and mems, and bit-identical when called again."""
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_train, verify
+    B, T, mods = MFN_FWD_CASES[case]
+    before = mfn_train.fwd_launches
+    c = verify.check_mfn_train_fwd(B, T, DTYPES[dtype], device=device,
+                                   mods=mods, reps=0, p=p, repeat=True)
+    assert mfn_train.fwd_launches == before + 2
+    assert c.identical and c.ok, c.line()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mfn_train_fwd_at_p0_is_kernel_b(device, dtype):
+    """Without dropout kernel 6 runs kernel B's memory scan and its LSTM
+    scan with the c_t store added: hs and mems are kernel B's bits."""
+    import torch
+
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn, mfn_train, verify
+    _, xps, whhs, gates, seeds = verify._mfn_train_case(
+        32, 160, DTYPES[dtype], device, 0, verify.AVL)
+    with torch.no_grad():
+        hs, _, mems = mfn_train.mfn_train_fwd(xps, whhs, gates, seeds,
+                                              (0.0, 0.0))
+        want_hs, want_mems = mfn.mfn_scan_fused(xps, whhs, gates)
+    assert torch.equal(hs, want_hs) and torch.equal(mems, want_mems)
 
 
 @pytest.mark.parametrize("p", [None, 0.0])
