@@ -18,8 +18,10 @@ any failure exits nonzero:
    wgmma kernels must, and the run fails when cuobjdump cannot read them;
    likewise the
    ptxas lines of kernel 7's stages (csrc/mfn_train.cu) and of kernel 6's
-   (the training instantiations of kernel B's two scans), where any spill
-   fails the run;
+   (the training instantiations of kernel B's two scans), and of kernel
+   10's wgmma route (namespace wembed_tc, every instantiated width) and its
+   fp32 160-channel tile, where any spill fails the run; kernel 10's wgmma
+   route must hold HGMMA and UTMALDG;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card, at the main path's shapes, fp32 and bf16, within the competitive
    bound err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6:
@@ -33,8 +35,12 @@ any failure exits nonzero:
    shape, with the emotient modality, at B=2, T=1,120 and at B=1, T=37,
    bit-identical when called again, and each of its three stages' device
    time at B=32, T=160 from torch.profiler) and its packed and aligned
-   variants (also at the ragged and emotient shapes), the window embed at the front end's four shapes plus the
-   gradients of its autograd Function, and flash attention (kernel 11) at
+   variants (also at the ragged and emotient shapes), the window embed at
+   the front end's four shapes (bf16 on the wgmma route, bit-identical when
+   called again, each with its device ms per launch from torch.profiler
+   beside its burst time; also at B=1, T=37) and a ragged one (the tiles
+   route), plus the gradients of its autograd Function (bf16 forward on the
+   wgmma route), and flash attention (kernel 11) at
    the long-video buckets' shapes, a ragged case with d_k = 2 and videos
    with no key, and its Function's gradients;
 4. slice: ValencePredictor at full MFT A+V+L widths (random weights from a
@@ -176,6 +182,10 @@ WINDOW_EMBED_SHAPES = ((4, 88, 88), (4, 88, 256), (4, 1000, 256),
 # copies)
 WINDOW_EMBED_RAGGED = (3, 7, 200, 33, 45)
 MFT_WINDOW_EMBED = ((4, 88, 88), (4, 1000, 256), (32, 300, 300))
+# (B, T) of the long-video phase's front ends: LONG_VIDEOS videos padded to
+# 1,120 windows, where kernel 10's wgmma route runs a block's tiles in more
+# than one group (all but MFT's acoustic front end)
+WINDOW_EMBED_LONG = (16, 1120)
 # The serving configurations of the families phase: (name, family,
 # modalities, variant, kernel launches per batch, tolerance of the bf16
 # kernel path against the plain fp32 forward, absolute, on outputs of
@@ -291,11 +301,13 @@ class SmokeFailure(Exception):
 
 
 _START = time.perf_counter()
+_PHASE = ["start"]  # the running phase, named in a failure's last line
 
 
 def phase(name: str) -> None:
     """Starts a phase: its name and the seconds since the script started
     (the run has a time limit; the stamps show which phase spends it)."""
+    _PHASE[0] = name
     print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
@@ -346,6 +358,17 @@ MFN_TRAIN_KERNELS = ("prep_kernel", "cell_kernel", "attend_kernel",
 MFN_TRAIN_FWD_SCANS = tuple(f"{k}I{t}Lb1E" for k in ("16lstm_scan_kernel",
                                                      "15mem_scan_kernel")
                             for t in ("f", "13__nv_bfloat16"))
+# kernel 10's wgmma route (csrc/window_embed.cu, namespace wembed_tc), by
+# the instantiations whose ptxas report the spill gate requires, and its
+# tiles route (namespace wembed), whose fp32 tile of 160 channels once spilled
+# past 255 registers on hoisted weight addresses
+WE_WGMMA = "wembed_tc"
+WE_WGMMA_KERNELS = tuple(f"window_embed_wgmma_kernelILi{nc}E"
+                         for nc in (1, 2, 3, 8, 10))
+WE_TILES = "window_embed_kernelI"
+WE_TILES_KERNELS = tuple(f"window_embed_kernelIfLi{en}E"
+                         for en in (96, 128, 160)) + (
+    "window_embed_kernelI13__nv_bfloat16Li128E",)
 # kernels 6 and 7's checks besides the model's (B=32, T 160 and 400, p the
 # model's and 0): (B, T, modalities) at small shapes, L alone and
 # emotient+acoustic (H = 16, the narrowest), both rates; kernel 6 also at
@@ -486,6 +509,7 @@ def read_counters() -> dict:
 def run_kernel_checks(torch, device):
     from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
     from multimodal_transformer_tpu_torch.ops.cuda import verify
+    from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we_k
 
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -517,15 +541,40 @@ def run_kernel_checks(torch, device):
                 checks.append(check(B, T, dtype, device=device, mods=mods,
                                     reps=3 if kernel_b else 0))
                 print(checks[-1].line(), flush=True)
+        front = "wgmma" if bf16 else "tiles"
+        grouped = 0
         for Fr, D, E in WINDOW_EMBED_SHAPES:
-            checks.append(verify.check_window_embed(BENCH_B, BENCH_T, Fr, D, E,
-                                                    dtype, device=device))
-            print(checks[-1].line(), flush=True)
-        checks.append(verify.check_window_embed(*WINDOW_EMBED_RAGGED, dtype,
-                                                device=device, reps=0))
+            sizes = ((BENCH_B, BENCH_T, 7), (1, 37, 0))
+            if bf16:
+                sizes += ((*WINDOW_EMBED_LONG, 0),)
+            for B, T, reps in sizes:
+                with window_embed_route(front):
+                    checks.append(verify.check_window_embed(
+                        B, T, Fr, D, E, dtype, device=device, reps=reps,
+                        repeat=True))
+                line = checks[-1].line()
+                if reps:
+                    ms = verify.window_embed_kernel_ms(B, T, Fr, D, E, dtype,
+                                                       device=device)
+                    line += " device ms: " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in ms.items())
+                if bf16:
+                    plan = we_k.tiled_plan(B * T, Fr, D, E)
+                    grouped += plan["group"] < plan["tiles_per_block"]
+                    line += (f" plan: {plan['tiles_per_block']} tiles a block"
+                             f" in groups of {plan['group']}")
+                print(line, flush=True)
+        if bf16 and not grouped:
+            raise SmokeFailure("kernel 10: no checked shape ran a block's "
+                               "tiles in more than one group")
+        with window_embed_route("tiles"):
+            checks.append(verify.check_window_embed(*WINDOW_EMBED_RAGGED,
+                                                    dtype, device=device,
+                                                    reps=0, repeat=True))
         print(checks[-1].line(), flush=True)
-        checks.append(verify.check_window_embed_grad(4, 20, 32, 300, 300,
-                                                     dtype, device=device))
+        with window_embed_route(front):
+            checks.append(verify.check_window_embed_grad(
+                4, 20, 32, 300, 300, dtype, device=device))
         print(checks[-1].line(), flush=True)
         for B, h, T, d_k, all_masked in FLASH_SHAPES:
             checks.append(verify.check_flash_attention(
@@ -558,6 +607,27 @@ def plain_front_end():
         yield
     finally:
         frontend.use_kernel = use_kernel
+
+
+@contextlib.contextmanager
+def window_embed_route(route: str):
+    """Fails unless every kernel-10 launch inside took `route`."""
+    from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we_k
+    before = dict(we_k.launches_by_route)
+    yield
+    got = {k: v - before[k] for k, v in we_k.launches_by_route.items()}
+    if got[route] < 1 or sum(got.values()) != got[route]:
+        raise SmokeFailure(f"kernel 10: launches by route {got}, expected "
+                           f"every one on the {route} route")
+
+
+def check_front_end_routes(name: str) -> None:
+    """A bf16 serving phase's front ends: each kernel-10 launch since the
+    counters' reset took the wgmma route."""
+    from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we_k
+    if we_k.launches_by_route["wgmma"] != we_k.launches:
+        raise SmokeFailure(f"{name}: kernel 10 launches by route "
+                           f"{we_k.launches_by_route}, expected all wgmma")
 
 
 def run_slice(torch, np, device):
@@ -595,6 +665,7 @@ def run_slice(torch, np, device):
           f"(first use, {expected} batches); launches {got}", flush=True)
     if got != want:
         raise SmokeFailure(f"expected launches {want} on the main path")
+    check_front_end_routes("slice")
 
     for (data, lens), traces in zip(requests, answers):
         for tr, n in zip(traces, lens):
@@ -1284,6 +1355,7 @@ def run_families(torch, np, device):
         want = {k: n * batches for k, n in per_batch.items()}
         if got != want:
             raise SmokeFailure(f"{name}: launches {got}, expected {want}")
+        check_front_end_routes(name)
         for tr, n in zip(traces, lens):
             if tr.shape != (int(n),) or not np.isfinite(tr).all():
                 raise SmokeFailure(f"{name}: trace of length {tr.shape} for a "
@@ -1380,6 +1452,7 @@ def run_long_videos(torch, np, device):
         if got != want:
             raise SmokeFailure(f"{name}, long videos: launches {got}, "
                                f"expected {want}")
+        check_front_end_routes(f"{name}, long videos")
         if mft_counts is None:
             mft_counts = got
             print(f"profile of the {name} long-video request:", flush=True)
@@ -1608,7 +1681,8 @@ def main() -> int:
     _build.load()
     print(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for symbol in (FLASH_WGMMA, MFN_STAGED, MFN_TRAIN, ENC_WGMMA, ENC_BWD):
+    for symbol in (FLASH_WGMMA, MFN_STAGED, MFN_TRAIN, ENC_WGMMA, ENC_BWD,
+                   WE_WGMMA, WE_TILES):
         for line in ptxas_lines(_build.build_log, symbol):
             print(f"ptxas {line}", flush=True)
     spills = spill_gate(_build.build_log, ENC_BWD,
@@ -1628,9 +1702,17 @@ def main() -> int:
                  for k in MFN_TRAIN_FWD_SCANS)
     if spills:
         raise SmokeFailure(f"kernel 6's scans spill {spills} bytes")
+    spills = spill_gate(_build.build_log, WE_WGMMA, WE_WGMMA_KERNELS)
+    if spills:
+        raise SmokeFailure(f"kernel 10's wgmma route spills {spills} bytes")
+    spills = spill_gate(_build.build_log, WE_TILES, WE_TILES_KERNELS)
+    if spills:
+        raise SmokeFailure(f"kernel 10's tiles route spills {spills} bytes")
     print(f"SASS of {FLASH_WGMMA}: {sass_check(lib_path, FLASH_WGMMA)}",
           flush=True)
-    for symbol, wanted in ENC_WGMMA_SASS + ENC_BWD_SASS + ENC_TRAIN_FWD_SASS:
+    for symbol, wanted in (ENC_WGMMA_SASS + ENC_BWD_SASS + ENC_TRAIN_FWD_SASS
+                           + (("window_embed_wgmma_kernel",
+                               ("HGMMA", "UTMALDG")),)):
         sass = sass_check(lib_path, symbol, wanted)
         print(f"SASS of {symbol}: {sass}", flush=True)
         if " NO" in sass or sass.startswith(("not checked", "no function")):
@@ -1692,5 +1774,14 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as e:
-        print(f"FAIL: {e}", file=sys.stderr)
+        print(f"FAIL in phase {_PHASE[0]!r}: {e}", file=sys.stderr)
+        sys.exit(1)
+    except Exception:
+        # a CUDA error's device-side messages can fill the end of stderr:
+        # the phase goes last, after the traceback
+        import traceback
+        traceback.print_exc()
+        print(f"FAIL in phase {_PHASE[0]!r} at "
+              f"{time.perf_counter() - _START:.1f} s (traceback above)",
+              file=sys.stderr, flush=True)
         sys.exit(1)

@@ -40,6 +40,12 @@ of:
   launches at B=32, T=160 (torch.profiler, events captured over 5 calls),
   and, where the checkout's verify.py has `mfn_train_bwd_stage_ms`, the
   device ms of each stage;
+- `wembed`: kernel 10 (`ops/cuda/window_embed.py:window_embed_highway`,
+  the front end's window embed) at chip_smoke.py's five shapes: B=32,
+  T=160 at (F, D, E) = (4, 88, 88), (4, 88, 256), (4, 1000, 256) and (32,
+  300, 300), and the ragged (3, 7, 200, 33, 45); each with the device ms
+  per launch of its CUDA kernel and the device-busy ms of a call
+  (torch.profiler over 5 calls), which the host's speed does not move;
 - `serve`: the bf16 serving forward of MFT A+V+L at B=32, T=160 (the
   forward chip_smoke.py's slice phase times: `ValencePredictor`'s module
   from seeded random weights), timed alone between two events as the slice
@@ -65,11 +71,11 @@ Seeded random weights and inputs, bf16 then fp32 (`serve`, `step`,
 `outputs`: bf16 only).  Each
 line is the median of 7 bursts of 5 calls (CUDA events; `step`: of 25 steps,
 with their least and most: the host sets the step's time, and it drifts);
-for `a`, `fwd`, `bwd`, `mfn_fwd` and `mfn_bwd` the host's time to enqueue one call
+for `a`, `fwd`, `bwd`, `mfn_fwd`, `mfn_bwd` and `wembed` the host's time to enqueue one call
 follows (the wrapper and its launches, the card idle
 before it; median of 7, perf_counter).
 
-    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,fwd,bwd,mfn_fwd,mfn_bwd,serve,step} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,fwd,bwd,mfn_fwd,mfn_bwd,wembed,serve,step} [--tree DIR]
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs [--tree DIR] --save FILE
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs --compare FILE FILE
 """
@@ -91,6 +97,9 @@ B_SHAPES = ((32, 160, AVL), (3, 7, ("linguistic", "acoustic")),
 BWD_SHAPES = ((32, 160), (32, 137), (32, 400))
 MFN_BWD_SHAPES = ((32, 160, AVL), (32, 400, AVL), (4, 9, ("linguistic",)))
 STEP_FAMILIES = ("MFT", "B3-MFN", "B2-Trans")
+WEMBED_SHAPES = ((32, 160, 4, 88, 88), (32, 160, 4, 88, 256),
+                 (32, 160, 4, 1000, 256), (32, 160, 32, 300, 300),
+                 (3, 7, 200, 33, 45))
 FRAMES = {"acoustic": 4, "image": 4, "linguistic": 32}
 P, H, LAYERS = 0.1, 8, 6
 
@@ -284,6 +293,22 @@ def bench_mfn_bwd(torch, verify, dev, dtype, dname):
                                             for k, v in stages.items())
 
 
+def bench_wembed(torch, verify, dev, dtype, dname):
+    from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we
+
+    for B, T, Fr, D, E in WEMBED_SHAPES:
+        x, params = verify._window_embed_case(B, T, Fr, D, E, dtype, dev, 0)
+        with torch.no_grad():
+            call = functools.partial(we.window_embed_highway, x, *params)
+            seen = {}
+            ms = verify.kernel_device_ms(call, 5, _kernel_name, seen=seen)
+            device = ", ".join(f"{k} {v * 5 / seen[k]:.4f}"
+                               for k, v in ms.items())
+            yield (f"kernel 10 B={B} T={T} F={Fr} D={D} E={E} {dname} "
+                   f"{timed(torch, verify, call)}; device ms a launch: "
+                   f"{device}; {_busy_ms(torch, call)}")
+
+
 def bench_serve(torch, verify, dev, dtype, dname):
     if dtype != torch.bfloat16:
         return
@@ -367,6 +392,7 @@ def outputs(torch, verify, dev) -> dict:
 
 BENCHES = {"a": bench_a, "b": bench_b, "fwd": bench_fwd, "bwd": bench_bwd,
            "mfn_fwd": bench_mfn_fwd, "mfn_bwd": bench_mfn_bwd,
+           "wembed": bench_wembed,
            "serve": bench_serve, "step": bench_step}
 
 

@@ -1,8 +1,9 @@
 // Hopper helpers shared by the kernels that run on wgmma and TMA (kernel
-// 11's bf16 path in flash_attention.cu, kernel A's bf16 path in encoder.cu):
-// shared-memory addresses, mbarriers, 2-D and 3-D TMA loads, wgmma
-// descriptors, fences and the wgmma shapes the kernels issue, and the
-// host's access to cuTensorMapEncodeTiled.  Every wgmma here takes B from
+// 11's bf16 path in flash_attention.cu, kernel A's bf16 path in encoder.cu,
+// kernel 10's wgmma route in window_embed.cu): shared-memory addresses,
+// mbarriers, 2-D and 3-D TMA loads, ldmatrix, wgmma descriptors, fences and
+// the wgmma shapes the kernels issue, and the host's access to
+// cuTensorMapEncodeTiled.  Every wgmma here takes B from
 // shared memory through a descriptor and A (bf16) from registers, or from
 // shared memory too (the _ss form); sm_90a only.
 #pragma once
@@ -74,6 +75,13 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3}], [%4];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// Asks L2 for [p, p + bytes) in one bulk stream (p and bytes multiples of
+// 16); nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(reinterpret_cast<uint64_t>(p)), "r"(bytes) : "memory");
 }
 
 // An arrival on the barrier once this thread's earlier cp.async copies
@@ -241,6 +249,33 @@ __device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t desc_a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d = a . B (scale_d 0) or d += a . B on wgmma m64n32k16: bf16 A from
+// registers, B K-major in shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Four 8x8 bf16 matrices from shared memory (ldmatrix .x4): lane i gives
+// the address of row i % 8 of matrix i / 8, 16 bytes each; r[j] is matrix
+// j's pair (row lane / 4, columns 2 (lane % 4), + 1).  As a wgmma A
+// fragment of 16 rows x 16 k: matrices (rows 0-7, k 0-7), (rows 8-15, k
+// 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // d = a . B (scale_d 0) or d += a . B on wgmma m64n32k16: bf16 A from

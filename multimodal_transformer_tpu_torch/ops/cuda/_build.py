@@ -59,6 +59,9 @@ _SIGNATURES = {
                            _I, _P],
     "mmtx_window_embed": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P],
+    "mmtx_window_embed_tiled": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _P],
+    "mmtx_window_embed_tiled_plan": [_I, _I, _I, _I, _P],
     "mmtx_flash_attention": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P],
 }

@@ -788,12 +788,16 @@ def window_embed_ops(N: int, Fr: int, D: int, E: int, dtype) -> Dict[str, float]
 @torch.no_grad()
 def check_window_embed(B: int, W: int, Fr: int, D: int, E: int,
                        dtype: torch.dtype, *, device, seed: int = 0,
-                       reps: int = 7) -> KernelCheck:
-    """Kernel 10 on [B, W, Fr, D] windows into E channels."""
+                       reps: int = 7, repeat: bool = False) -> KernelCheck:
+    """Kernel 10 on [B, W, Fr, D] windows into E channels; repeat: also
+    call the kernel again and require the same bits."""
     x, params = _window_embed_case(B, W, Fr, D, E, dtype, device, seed)
     ref = we_k.window_embed_highway_plain(x.double(), *_double(params))
     plain = we_k.window_embed_highway_plain(x, *params)
     kern = we_k.window_embed_highway(x, *params)
+    identical = None
+    if repeat:
+        identical = torch.equal(kern, we_k.window_embed_highway(x, *params))
     torch.cuda.synchronize()
     return KernelCheck(
         "window_embed_highway", f"B={B} T={W} F={Fr} D={D} E={E}",
@@ -803,7 +807,26 @@ def check_window_embed(B: int, W: int, Fr: int, D: int, E: int,
                 burst=KERNEL_BURST),
         time_ms(lambda: we_k.window_embed_highway_plain(x, *params), reps),
         *bound_times(window_embed_ops(B * W, Fr, D, E, dtype),
-                     [x, *params, kern]))
+                     [x, *params, kern]), identical=identical)
+
+
+@torch.no_grad()
+def window_embed_kernel_ms(B: int, W: int, Fr: int, D: int, E: int,
+                           dtype: torch.dtype, *, device, seed: int = 0,
+                           calls: int = 5) -> Dict[str, float]:
+    """Device ms of kernel 10 on [B, W, Fr, D] windows from torch.profiler
+    over `calls` warm calls: per launch of its CUDA kernel (by name,
+    template arguments included), and per call of the copies its wrapper
+    launches beside it (the weight's layout, "layout").  The card's time,
+    which a host slower than the card does not move."""
+    x, params = _window_embed_case(B, W, Fr, D, E, dtype, device, seed)
+    seen: Dict[str, int] = {}
+    out = kernel_device_ms(
+        lambda: we_k.window_embed_highway(x, *params), calls,
+        lambda n: (n.split("mmtx::", 1)[1].split("(", 1)[0]
+                   if "mmtx::" in n else "layout"), seen=seen)
+    return {k: v * calls / seen[k] if k != "layout" else v
+            for k, v in sorted(out.items(), key=lambda kv: -kv[1])}
 
 
 WE_GRAD_NAMES = ("x", "conv.w", "conv.b", "proj.w", "proj.b", "gate.w",

@@ -5,7 +5,11 @@ tiles, its bf16 FMA path at D = 16, d_k = 2, each bit-identical when
 called again), kernel B at
 B=32, T=160 A+V+L, B=2, T=1,120, B=1, T=37, a ragged case and the emotient
 modality (bit-identical when called again), kernel 10 (window embed) at the front end's four shapes
-and its autograd Function's gradients, kernel 11 (flash attention) at the
+and at one video of 37 windows (bf16 on its wgmma route, fp32 on its tiles
+route), at 16 videos of 1,120 windows (bf16, a block's tiles in several
+groups) and a ragged shape (the tiles route), bit-identical when called
+again, its route and plan as the library gives them, and its autograd
+Function's gradients, kernel 11 (flash attention) at the
 long-video buckets' shapes (B*h = 32*8, T in {544, 640, 1024, 1120}, d_k =
 32, and T = 544, d_k = 16) and ragged cases (T = 601, d_k = 32 and d_k = 2,
 videos with no key), its TMA + wgmma path (bf16, d_k in {16, 32}) at T in
@@ -382,30 +386,123 @@ def test_dropout_free_gradients_take_the_training_kernels(device):
 
 # (frames, mod dim, window embed) of the front end's shapes at B=32, T=160
 # (B, T, frames, mod dim, window embed); "ragged": windows longer than one
-# 128-row tile and an odd mod dim
+# 128-row tile and an odd mod dim; "unpadded": a conv weight the wgmma
+# route lays out with no padding (E and D already its widths)
 WINDOW_EMBED_SHAPES = {"acoustic_mft": (32, 160, 4, 88, 88),
                        "acoustic_sft": (32, 160, 4, 88, 256),
                        "image": (32, 160, 4, 1000, 256),
                        "linguistic": (32, 160, 32, 300, 300),
-                       "ragged": (3, 7, 200, 33, 45)}
+                       "ragged": (3, 7, 200, 33, 45),
+                       "unpadded": (4, 37, 4, 64, 256)}
+
+
+def _window_embed_route(shape, dtype) -> str:
+    """The route kernel 10 takes: wgmma for every bf16 front end, tiles for
+    fp32 and for the ragged shape (F - 1 > 64, D % 4 != 0)."""
+    return "wgmma" if dtype == "bf16" and shape != "ragged" else "tiles"
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", sorted(WINDOW_EMBED_SHAPES))
 def test_window_embed_kernel_within_bound(device, shape, dtype):
     from multimodal_transformer_tpu_torch.ops.cuda import verify, window_embed
-    before = window_embed.launches
+    before = dict(window_embed.launches_by_route)
     c = verify.check_window_embed(*WINDOW_EMBED_SHAPES[shape], DTYPES[dtype],
-                                  device=device, reps=0)
-    assert window_embed.launches > before
+                                  device=device, reps=0, repeat=True)
+    got = {k: v - before[k] for k, v in window_embed.launches_by_route.items()}
+    route = _window_embed_route(shape, dtype)
+    assert got[route] == 2 and sum(got.values()) == 2, got
+    assert c.identical, c.line()
     assert c.ok, c.line()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(set(WINDOW_EMBED_SHAPES) - {"ragged"}))
+def test_window_embed_kernel_one_video_within_bound(device, shape, dtype):
+    """One video of 37 windows (per-video evaluation): a single tile."""
+    from multimodal_transformer_tpu_torch.ops.cuda import verify, window_embed
+    _, _, Fr, D, E = WINDOW_EMBED_SHAPES[shape]
+    before = dict(window_embed.launches_by_route)
+    c = verify.check_window_embed(1, 37, Fr, D, E, DTYPES[dtype],
+                                  device=device, reps=0, repeat=True)
+    route = _window_embed_route(shape, dtype)
+    assert window_embed.launches_by_route[route] - before[route] == 2
+    assert c.identical and c.ok, c.line()
+
+
+# (frames, mod dim, window embed) of each bf16 front end served in the
+# long-video phase: 16 videos padded to T=1,120 windows, where a block's
+# tiles run in more than one group (the producer waits for the highway of
+# the group before, which reuses the ring's bytes) for all but MFT's
+# acoustic front end
+LONG_VIDEO_FRONT_ENDS = {"acoustic_mft": (4, 88, 88), "acoustic_sft":
+                         (4, 88, 256), "image": (4, 1000, 256),
+                         "linguistic": (32, 300, 300)}
+
+
+@pytest.mark.parametrize("shape", sorted(LONG_VIDEO_FRONT_ENDS))
+def test_window_embed_long_videos_within_bound(device, shape):
+    from multimodal_transformer_tpu_torch.ops.cuda import verify, window_embed
+    Fr, D, E = LONG_VIDEO_FRONT_ENDS[shape]
+    plan = window_embed.tiled_plan(16 * 1120, Fr, D, E)
+    assert plan is not None
+    if shape != "acoustic_mft":
+        assert plan["group"] < plan["tiles_per_block"], plan
+    before = window_embed.launches_by_route["wgmma"]
+    c = verify.check_window_embed(16, 1120, Fr, D, E, torch.bfloat16,
+                                  device=device, reps=0, repeat=True)
+    assert window_embed.launches_by_route["wgmma"] - before == 2
+    assert c.identical and c.ok, c.line()
+
+
+# (dtype, F, D, E, addresses of x, wp and wg, route) through the library's
+# plan: every bf16 front end of the families (MFT acoustic, SFT/B2/B3
+# acoustic, image, linguistic, emotient) takes the wgmma route; fp32, F - 1
+# > 64 (the ragged check's F = 200), D % 4 != 0 (its D = 33), E % 4 != 0,
+# an x or a weight off 8 bytes, E > 320 and a tile whose pooled rows do not
+# fit (F = 2 at E = 300: 128 windows a tile) keep the tiles route
+@pytest.mark.parametrize("dtype, Fr, D, E, ptrs, want", [
+    (torch.bfloat16, 4, 88, 88, (0, 0, 0), "wgmma"),
+    (torch.bfloat16, 4, 88, 256, (0, 0, 0), "wgmma"),
+    (torch.bfloat16, 4, 1000, 256, (0, 0, 0), "wgmma"),
+    (torch.bfloat16, 32, 300, 300, (256, 512, 1024), "wgmma"),
+    (torch.bfloat16, 4, 20, 20, (8, 8, 8), "wgmma"),
+    (torch.bfloat16, 65, 300, 300, (0, 0, 0), "wgmma"),
+    (torch.bfloat16, 2, 88, 88, (0, 0, 0), "wgmma"),
+    (torch.float32, 4, 88, 88, (0, 0, 0), "tiles"),
+    (torch.bfloat16, 200, 33, 45, (0, 0, 0), "tiles"),
+    (torch.bfloat16, 66, 300, 300, (0, 0, 0), "tiles"),
+    (torch.bfloat16, 4, 33, 44, (0, 0, 0), "tiles"),
+    (torch.bfloat16, 4, 88, 45, (0, 0, 0), "tiles"),
+    (torch.bfloat16, 32, 300, 300, (4, 0, 0), "tiles"),
+    (torch.bfloat16, 4, 88, 324, (0, 0, 0), "tiles"),
+    (torch.bfloat16, 2, 300, 300, (0, 0, 0), "tiles")])
+def test_window_embed_route(device, dtype, Fr, D, E, ptrs, want):
+    from multimodal_transformer_tpu_torch.ops.cuda import window_embed
+    assert window_embed.route(dtype, 5120, Fr, D, E, *ptrs) == want
+
+
+@pytest.mark.parametrize("Fr, D, E", [(4, 88, 88), (4, 88, 256),
+                                      (4, 1000, 256), (32, 300, 300),
+                                      (4, 20, 20), (65, 300, 300)])
+def test_window_embed_plan_has_the_wrappers_widths(device, Fr, D, E):
+    """The library's R, E_pad and D_pad are tiled_shape's, which lays the
+    weight out and which the plain version computes with."""
+    from multimodal_transformer_tpu_torch.ops.cuda import window_embed
+    plan = window_embed.tiled_plan(5120, Fr, D, E)
+    assert (plan["R"], plan["E_pad"], plan["D_pad"]) == \
+        window_embed.tiled_shape(Fr, D, E)
+    assert plan["stages"] >= 3 and plan["smem"] <= 232448
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_window_embed_function_grads_within_bound(device, dtype):
-    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    from multimodal_transformer_tpu_torch.ops.cuda import verify, window_embed
+    route = _window_embed_route("linguistic", dtype)
+    before = window_embed.launches_by_route[route]
     c = verify.check_window_embed_grad(4, 20, 32, 300, 300, DTYPES[dtype],
                                        device=device)
+    assert window_embed.launches_by_route[route] > before
     assert c.ok, c.line()
 
 
