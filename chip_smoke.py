@@ -17,8 +17,9 @@ any failure exits nonzero:
    UTMALDG where they load by TMA): kernel A's and kernels 3, 4 and 5's
    wgmma kernels must, and the run fails when cuobjdump cannot read them;
    likewise the
-   ptxas lines of kernel 7's stages (csrc/mfn_train.cu) and of kernel 6's
-   (the training instantiations of kernel B's two scans), and of kernel
+   ptxas lines of kernel 7's stages (csrc/mfn_train.cu) and of kernel B's
+   (csrc/mfn.cu, namespace mfn_staged: every instantiation, those of
+   kernel 6 and rows 8 and 9 among them), and of kernel
    10's wgmma route (namespace wembed_tc, every instantiated width) and its
    fp32 160-channel tile, where any spill fails the run; kernel 10's wgmma
    route must hold HGMMA and UTMALDG;
@@ -35,7 +36,12 @@ any failure exits nonzero:
    shape, with the emotient modality, at B=2, T=1,120 and at B=1, T=37,
    bit-identical when called again, and each of its three stages' device
    time at B=32, T=160 from torch.profiler) and its packed and aligned
-   variants (also at the ragged and emotient shapes), the window embed at
+   variants, rows 8 and 9, which launch kernel B's stages on views of
+   their packed and padded tensors (also at the ragged and emotient
+   shapes; packed bit-identical to kernel B, aligned on a workspace filled
+   with NaN, also at the TPU kernel's padding of 128, and within the MFN
+   bench's tolerance of kernel B; both bit-identical when called again;
+   then their stages' device time), the window embed at
    the front end's four shapes (bf16 on the wgmma route, bit-identical when
    called again, each with its device ms per launch from torch.profiler
    beside its burst time; also at B=1, T=37) and a ragged one (the tiles
@@ -286,9 +292,11 @@ SOURCES = {
         "multimodal_transformer_tpu/ops/pallas/mfn_kernel.py:543"),
 }
 # the MFN variants' checks: (B, T, modalities) off the main path, a ragged
-# case and one with the emotient modality (H = 16, the narrowest pad)
+# case and one with the emotient modality (H = 16, the narrowest pad); the
+# aligned variant also at the TPU kernel's padding
 MFN_VARIANT_SHAPES = ((3, 7, ("linguistic", "acoustic")),
                       (4, 9, ("emotient", "acoustic")))
+TPU_HP = 128
 # kernel B's checks besides the main path's and the variants' shapes: a
 # long-video bucket and one video (evaluate_per_video)
 MFN_B_SHAPES = MFN_VARIANT_SHAPES + ((2, 1120, AVL), (1, 37, AVL))
@@ -322,8 +330,16 @@ def card_line() -> str:
 
 # kernel 11's bf16 path at d_k in {16, 32} (TMA + wgmma), by its symbol
 FLASH_WGMMA = "flash_wgmma_kernel"
-# kernel B's stages (csrc/mfn.cu), by their namespace
+# kernel B's stages (csrc/mfn.cu; also kernel 6's and rows 8 and 9's), by
+# their namespace and the kernels whose ptxas report the spill gate
+# requires: each scan's eval and training instantiations, the softmax and
+# the GEMMs
 MFN_STAGED = "mfn_staged"
+MFN_STAGED_KERNELS = tuple(f"{k}I{t}Lb{b}E" for k in ("16lstm_scan_kernel",
+                                                      "15mem_scan_kernel")
+                           for t in ("f", "13__nv_bfloat16")
+                           for b in (0, 1)) + ("attend_kernel",
+                                               "ff_gemm_kernel")
 # kernel A's wgmma path (csrc/encoder.cu), by namespace and kernel
 ENC_WGMMA = "enc_wgmma"
 ENC_WGMMA_SASS = (("enc_wgmma12chain_kernel", ("HGMMA",)),
@@ -352,12 +368,6 @@ MFN_TRAIN = "mfnt"
 MFN_TRAIN_KERNELS = ("prep_kernel", "cell_kernel", "attend_kernel",
                      "mem_bwd_kernel", "attend_bwd_kernel", "lstm_bwd_kernel",
                      "ff_gemm_kernel", "wgrad_kernel", "wgrad_sum_kernel")
-# kernel 6's stages: the training instantiations of kernel B's two scans
-# (csrc/mfn.cu, c_t stored, gamma dropout), by their mangled names, whose
-# ptxas report the spill gate requires
-MFN_TRAIN_FWD_SCANS = tuple(f"{k}I{t}Lb1E" for k in ("16lstm_scan_kernel",
-                                                     "15mem_scan_kernel")
-                            for t in ("f", "13__nv_bfloat16"))
 # kernel 10's wgmma route (csrc/window_embed.cu, namespace wembed_tc), by
 # the instantiations whose ptxas report the spill gate requires, and its
 # tiles route (namespace wembed), whose fp32 tile of 160 channels once spilled
@@ -508,6 +518,8 @@ def read_counters() -> dict:
 
 def run_kernel_checks(torch, device):
     from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_variants as mfnv_k
     from multimodal_transformer_tpu_torch.ops.cuda import verify
     from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we_k
 
@@ -541,6 +553,11 @@ def run_kernel_checks(torch, device):
                 checks.append(check(B, T, dtype, device=device, mods=mods,
                                     reps=3 if kernel_b else 0))
                 print(checks[-1].line(), flush=True)
+        for B, T, mods in ((BENCH_B, BENCH_T, AVL),) + MFN_VARIANT_SHAPES:
+            checks.append(verify.check_mfn_aligned(
+                B, T, dtype, device=device, mods=mods, hp=TPU_HP,
+                reps=3 if B == BENCH_B else 0))
+            print(checks[-1].line(), flush=True)
         front = "wgmma" if bf16 else "tiles"
         grouped = 0
         for Fr, D, E in WINDOW_EMBED_SHAPES:
@@ -584,12 +601,16 @@ def run_kernel_checks(torch, device):
                                                         device=device))
         print(checks[-1].line(), flush=True)
     for dtype in (torch.bfloat16, torch.float32):
-        stages = verify.mfn_stage_ms(BENCH_B, BENCH_T, dtype, device=device)
-        print(f"mfn_scan_fused stages, B={BENCH_B} T={BENCH_T} "
-              f"{str(dtype).split('.')[-1]}, device ms per call (torch."
-              "profiler): " + ", ".join(f"{k} {v:.4f}"
-                                        for k, v in stages.items()),
-              flush=True)
+        for name, scan in (("mfn_scan_fused", mfn_k.mfn_scan_fused),
+                           ("mfn_scan_packed", mfnv_k.mfn_scan_packed),
+                           ("mfn_scan_aligned", mfnv_k.mfn_scan_aligned)):
+            stages = verify.mfn_stage_ms(BENCH_B, BENCH_T, dtype,
+                                         device=device, scan=scan)
+            print(f"{name} stages, B={BENCH_B} T={BENCH_T} "
+                  f"{str(dtype).split('.')[-1]}, device ms per call (torch."
+                  "profiler): " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in stages.items())
+                  + f"; in all {sum(stages.values()):.4f}", flush=True)
     bad = [c for c in checks if not c.ok]
     if bad:
         raise SmokeFailure(f"{len(bad)} kernel check(s) outside the bound")
@@ -1698,10 +1719,10 @@ def main() -> int:
     spills = spill_gate(_build.build_log, MFN_TRAIN, MFN_TRAIN_KERNELS)
     if spills:
         raise SmokeFailure(f"kernel 7's stages spill {spills} bytes")
-    spills = sum(spill_gate(_build.build_log, k, [k])
-                 for k in MFN_TRAIN_FWD_SCANS)
+    spills = spill_gate(_build.build_log, MFN_STAGED, MFN_STAGED_KERNELS)
     if spills:
-        raise SmokeFailure(f"kernel 6's scans spill {spills} bytes")
+        raise SmokeFailure(f"kernel B's stages (kernels B and 6, rows 8 and "
+                           f"9) spill {spills} bytes")
     spills = spill_gate(_build.build_log, WE_WGMMA, WE_WGMMA_KERNELS)
     if spills:
         raise SmokeFailure(f"kernel 10's wgmma route spills {spills} bytes")

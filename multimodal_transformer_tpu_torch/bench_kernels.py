@@ -16,6 +16,13 @@ of:
   chip_smoke.py checks it at, plus B=32, T=1,120; where the checkout's
   verify.py has `mfn_stage_ms`, the device time of each stage at B=32,
   T=160 follows;
+- `variants`: kernel B and rows 8 and 9 (`ops/cuda/mfn_variants.py:
+  mfn_scan_packed` and `mfn_scan_aligned`, the latter also at hp = 128
+  where the checkout's wrapper takes hp) at B=32, T=160, A+V+L: each
+  call's card ms in bursts (the wrapper's packing in torch included) and
+  the host's ms to enqueue one, the device ms of each CUDA kernel name it
+  launches and their sum (torch.profiler, events captured over 5 calls),
+  and, where the checkout's `mfn_stage_ms` takes a scan, each stage's;
 - `fwd`: kernel 3 (`ops/cuda/encoder_train.py:encoder_stack_train_fwd`, the
   encoder's training forward) at B=32, T in {160, 137, 400}; D=256, h=8,
   F=128, p=0.1, 6 layers; then the device ms of each CUDA kernel name it
@@ -62,8 +69,11 @@ of:
 `outputs` times nothing: it saves kernel A's bf16 output at B=32, T in {160,
 544} (D=256) and B=1, T=37 (D=128), kernel 3's bf16 outputs (out and
 saved) at B=32, T=160, D=256, p=0.1; T=137, D=128, p=0.1; T=400, D=256,
-p=0, and kernel B's outputs (hs and mems), bf16 and fp32, at the shapes `b`
-times but B=32, T=1,120, to `--save FILE`; `outputs --compare A B` says, for each, whether two
+p=0, kernel B's outputs (hs and mems), bf16 and fp32, at the shapes `b`
+times but B=32, T=1,120, and kernels 6's (hs, cs, mems) and 7's (every
+gradient, from seeded cotangents), bf16 and fp32, at the model's gamma
+dropout and at p = 0, at the shapes chip_smoke.py checks them at, to
+`--save FILE`; `outputs --compare A B` says, for each, whether two
 such files hold the same bits.  Run it once per checkout, each in its own
 process (two builds of the library do not mix in one process).
 
@@ -75,7 +85,7 @@ for `a`, `fwd`, `bwd`, `mfn_fwd`, `mfn_bwd` and `wembed` the host's time to enqu
 follows (the wrapper and its launches, the card idle
 before it; median of 7, perf_counter).
 
-    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,fwd,bwd,mfn_fwd,mfn_bwd,wembed,serve,step} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,variants,fwd,bwd,mfn_fwd,mfn_bwd,wembed,serve,step} [--tree DIR]
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs [--tree DIR] --save FILE
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs --compare FILE FILE
 """
@@ -84,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import os
 import statistics
 import sys
@@ -96,6 +107,9 @@ B_SHAPES = ((32, 160, AVL), (3, 7, ("linguistic", "acoustic")),
             (32, 1120, AVL))
 BWD_SHAPES = ((32, 160), (32, 137), (32, 400))
 MFN_BWD_SHAPES = ((32, 160, AVL), (32, 400, AVL), (4, 9, ("linguistic",)))
+# kernels 6 and 7's shapes in chip_smoke.py's train-kernels phase
+MFN_TRAIN_SHAPES = MFN_BWD_SHAPES + ((3, 7, ("emotient", "acoustic")),
+                                     (1, 37, AVL), (2, 1120, AVL))
 STEP_FAMILIES = ("MFT", "B3-MFN", "B2-Trans")
 WEMBED_SHAPES = ((32, 160, 4, 88, 88), (32, 160, 4, 88, 256),
                  (32, 160, 4, 1000, 256), (32, 160, 32, 300, 300),
@@ -150,6 +164,28 @@ def bench_b(torch, verify, dev, dtype, dname):
         stages = verify.mfn_stage_ms(32, 160, dtype, device=dev)
         yield f"stages {dname} " + ", ".join(f"{k} {v:.4f}"
                                             for k, v in stages.items())
+
+
+def bench_variants(torch, verify, dev, dtype, dname):
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn, mfn_variants
+
+    _, xps, whhs, gates = verify._mfn_case(32, 160, dtype, dev, 0, AVL)
+    scans = {"kernel B": mfn.mfn_scan_fused,
+             "row 8 packed": mfn_variants.mfn_scan_packed,
+             "row 9 aligned": mfn_variants.mfn_scan_aligned}
+    if "hp" in inspect.signature(mfn_variants.mfn_scan_aligned).parameters:
+        scans["row 9 aligned hp=128"] = functools.partial(
+            mfn_variants.mfn_scan_aligned, hp=128)
+    staged = "scan" in inspect.signature(verify.mfn_stage_ms).parameters
+    for name, scan in scans.items():
+        with torch.no_grad():
+            call = functools.partial(scan, xps, whhs, gates)
+            yield f"{name} B=32 T=160 {dname} {timed(torch, verify, call)}"
+            yield f"{name} " + _device_ms(verify, call, dname)
+        if staged:
+            stages = verify.mfn_stage_ms(32, 160, dtype, device=dev, scan=scan)
+            yield f"{name} stages {dname} " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items())
 
 
 def bench_fwd(torch, verify, dev, dtype, dname):
@@ -221,7 +257,8 @@ def _device_ms(verify, call, dname) -> str:
     ms = verify.kernel_device_ms(call, 5, _kernel_name, seen=seen)
     return (f"kernels {dname}, device ms per call (events captured): "
             + ", ".join(f"{k} {v:.4f} ({seen[k]})" for k, v in
-                        sorted(ms.items(), key=lambda kv: -kv[1])))
+                        sorted(ms.items(), key=lambda kv: -kv[1]))
+            + f"; in all {sum(ms.values()):.4f}")
 
 
 def _busy_ms(torch, call, calls: int = 5) -> str:
@@ -362,11 +399,12 @@ def bench_step(torch, verify, dev, dtype, dname):
 
 
 def outputs(torch, verify, dev) -> dict:
-    """Kernel A's, kernel 3's and kernel B's outputs at fixed shapes, on the
-    host."""
+    """Kernel A's, kernel 3's, kernel B's and kernels 6 and 7's outputs at
+    fixed shapes, on the host."""
     from multimodal_transformer_tpu_torch.ops.cuda import encoder
     from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
     from multimodal_transformer_tpu_torch.ops.cuda import mfn
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mt
 
     bf16, out = torch.bfloat16, {}
     with torch.no_grad():
@@ -387,10 +425,25 @@ def outputs(torch, verify, dev) -> dict:
                 out[f"kernel B B={B} T={T} {'+'.join(m[0] for m in mods)} "
                     f"{dtype}"] = tuple(
                         t.cpu() for t in mfn.mfn_scan_fused(xps, whhs, gates))
+            for (B, T, mods), ps in ((s, p) for s in MFN_TRAIN_SHAPES
+                                     for p in (verify.MFN_PS, (0.0, 0.0))):
+                gen, xps, whhs, gates, seeds = verify._mfn_train_case(
+                    B, T, dtype, dev, 0, mods)
+                key = (f"B={B} T={T} {'+'.join(m[0] for m in mods)} "
+                       f"p={ps[0]} {dtype}")
+                hs, cs, mems = mt.mfn_train_fwd(xps, whhs, gates, seeds, ps)
+                out[f"kernel 6 {key}"] = (hs.cpu(), cs.cpu(), mems.cpu())
+                g_hs = torch.randn(hs.shape, generator=gen).to(dev)
+                g_mems = torch.randn(mems.shape, generator=gen).to(dev)
+                grads = mt.mfn_train_bwd(xps, whhs, gates, seeds, ps, hs, cs,
+                                         mems, g_hs, g_mems)
+                out[f"kernel 7 {key}"] = tuple(t.cpu() for ts in grads
+                                               for t in ts)
     return out
 
 
-BENCHES = {"a": bench_a, "b": bench_b, "fwd": bench_fwd, "bwd": bench_bwd,
+BENCHES = {"a": bench_a, "b": bench_b, "variants": bench_variants,
+           "fwd": bench_fwd, "bwd": bench_bwd,
            "mfn_fwd": bench_mfn_fwd, "mfn_bwd": bench_mfn_bwd,
            "wembed": bench_wembed,
            "serve": bench_serve, "step": bench_step}

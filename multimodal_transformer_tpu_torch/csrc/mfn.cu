@@ -1,7 +1,11 @@
 // Kernels B and 6: the whole T-step Memory Fusion Network recurrence as
 // three stages launched in order on one stream, eval mode (kernel B, C entry
 // mmtx_mfn_scan) and training mode (kernel 6, C entry mmtx_mfn_train_fwd in
-// csrc/mfn_train.cu, which calls launch() below).
+// csrc/mfn_train.cu, which calls launch() below).  Rows 8 and 9 launch the
+// same stages on the TPU kernels' packed and padded weights
+// (csrc/mfn_variants.cu): the stages read every weight through its row
+// stride, W_hh also through its gate stride, and a c workspace row may hold
+// pad lanes (mfn::Args); kernels B and 6 pass the natural layout.
 //
 // Replaces: multimodal_transformer_tpu/ops/pallas/mfn_kernel.py
 //   mfn_scan_pallas (body _mfn_kernel), and
@@ -110,16 +114,17 @@ constexpr int lstm_max_threads() {
 // Block (b, m): video b, modality m.  Thread j S + part sums the part-th
 // slice of the four gate rows (i, f, g, o) of hidden unit j; the S lanes of
 // a unit are joined by shuffles and lane j S updates the cell.  Writes
-// hs[b, t, off_m + j] in the storage dtype and c_t to cs[b, t + 1, off_m + j]
-// in fp32, with cs[b, 0] = c_{-1} = 0; kStoreC (kernel 6): also c_t to
-// a.cs[b, t, off_m + j] in the storage dtype.  xp rows must be 16-byte
-// aligned.
+// hs[b, t, off_m + j] in the storage dtype and c_t to lane c_off[m] + j of
+// the fp32 c row (b, t + 1), with row (b, 0) = c_{-1} = 0, and 0 to the pad
+// lanes that follow the modality's in every c row (none in the natural
+// layout); kStoreC (kernel 6): also c_t to a.cs[b, t, off_m + j] in the
+// storage dtype.  xp rows must be 16-byte aligned.
 template <typename T, bool kStoreC>
 __global__ void __launch_bounds__(lstm_max_threads<T>()) lstm_scan_kernel(Args a, float* cs) {
   using V = typename Vec4<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x, m = blockIdx.y;
-  const int H = a.hid[m], G = 4 * H, TH = a.total_h, T_ = a.T;
+  const int H = a.hid[m], G = 4 * H, TH = a.total_h, CW = a.c_width, T_ = a.T;
   const LstmLayout L(H, blockDim.x);
   const int S = L.S, Hp = L.Hp, NT = L.NT, slice = Hp / S;
   int off = 0;
@@ -129,14 +134,24 @@ __global__ void __launch_bounds__(lstm_max_threads<T>()) lstm_scan_kernel(Args a
   T* ring = reinterpret_cast<T*>(smem_raw + w_bytes + 2 * (size_t)Hp * sizeof(float));
   zero_smem(smem_raw, L.bytes(H, sizeof(T)));
   __syncthreads();
-  // W_hh [4H, H] row g H + j, column i -> gate g, lane j S + i / slice,
-  // chunk (i % slice) / 4
-  gather(static_cast<const T*>(a.whh[m]), G * H, reinterpret_cast<T*>(smem_raw),
-         [](int e) { return e; },
-         [=](int e) {
-           const int r = e / H, i = e % H, il = i % slice;
-           return (((il >> 2) * 4 + r / H) * NT + (r % H) * S + i / slice) * 4 + (il & 3);
-         });
+  // W_hh row g H + j (the view's row g whh_gate + j), column i -> gate g,
+  // lane j S + i / slice, chunk (i % slice) / 4.  The natural layout's
+  // copy takes no index arithmetic (it is ALU-bound).
+  const int ld = a.whh_ld[m], gate_rows = a.whh_gate[m];
+  const T* whh = static_cast<const T*>(a.whh[m]);
+  auto to_smem = [=](int e) {
+    const int r = e / H, i = e % H, il = i % slice;
+    return (((il >> 2) * 4 + r / H) * NT + (r % H) * S + i / slice) * 4 + (il & 3);
+  };
+  if (ld == H && gate_rows == H)
+    gather(whh, G * H, reinterpret_cast<T*>(smem_raw), [](int e) { return e; }, to_smem);
+  else
+    gather(whh, G * H, reinterpret_cast<T*>(smem_raw),
+           [=](int e) {
+             const int r = e / H;
+             return ((r / H) * gate_rows + r % H) * ld + e % H;
+           },
+           to_smem);
 
   const int tid = threadIdx.x, j = tid / S, part = tid % S;
   const bool active = tid < NT, owner = active && part == 0;
@@ -151,7 +166,10 @@ __global__ void __launch_bounds__(lstm_max_threads<T>()) lstm_scan_kernel(Args a
   };
   for (int t = 0; t < kRing - 1; ++t) fetch(t);
   T* hs = static_cast<T*>(a.hs) + (size_t)b * T_ * TH + off;
-  float* csb = cs + (size_t)b * (T_ + 1) * TH + off;
+  float* csb = cs + (size_t)b * (T_ + 1) * CW + a.c_off[m];
+  const int pad0 = a.c_off[m] + H, pad = (m + 1 < a.n_mods ? a.c_off[m + 1] : CW) - pad0;
+  for (int i = tid; i < (T_ + 1) * pad; i += blockDim.x)
+    cs[((size_t)b * (T_ + 1) + i / pad) * CW + pad0 + i % pad] = 0.f;
   T* cs_out = kStoreC ? static_cast<T*>(a.cs) + (size_t)b * T_ * TH + off : nullptr;
   if (owner) csb[j] = 0.f;
   const V* w = reinterpret_cast<const V*>(smem_raw) + tid;
@@ -183,7 +201,7 @@ __global__ void __launch_bounds__(lstm_max_threads<T>()) lstm_scan_kernel(Args a
       const float h = sigmoidf(zo) * tanhf(c);
       hbuf[((t + 1) & 1) * Hp + j] = h;
       hs[(size_t)t * TH + j] = from_f<T>(h);
-      csb[(size_t)(t + 1) * TH + j] = c;
+      csb[(size_t)(t + 1) * CW + j] = c;
       if (kStoreC) cs_out[(size_t)t * TH + j] = from_f<T>(c);
     }
     cp_async_wait<kRing - 2>();
@@ -193,15 +211,16 @@ __global__ void __launch_bounds__(lstm_max_threads<T>()) lstm_scan_kernel(Args a
 
 // ---------------------------------------------------------------- stage 2
 
-// One warp per row: x <- softmax(x) * c*, over the n = 2TH features; row m's
-// c* is the 2TH floats at cs + m * TH (c_{t-1} then c_t).
+// One warp per row: x <- softmax(x) * c*, over the n = 2 CW features; row
+// m's c* is the 2 CW floats at cs + m * CW (c_{t-1} then c_t, CW the c
+// row's width).
 __global__ void attend_kernel(float* __restrict__ logits, const float* __restrict__ cs, int M,
-                              int TH) {
+                              int CW) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (row >= M) return;
-  const int n = 2 * TH;
+  const int n = 2 * CW;
   float* x = logits + (size_t)row * n;
-  const float* cstar = cs + (size_t)row * TH;
+  const float* cstar = cs + (size_t)row * CW;
   float mx = -INFINITY;
   for (int i = lane; i < n; i += 32) mx = fmaxf(mx, x[i]);
   mx = warp_max(mx);
@@ -214,13 +233,13 @@ __global__ void attend_kernel(float* __restrict__ logits, const float* __restric
 // ---------------------------------------------------------------- stage 3
 
 struct MemArgs {
-  const void* w1[2];  // gamma_k fc1 weight [hg_k, 2TH + MEM]; the columns [2TH:] are read
-  const void* w2[2];  // gamma_k fc2 weight [MEM, hg_k]
+  const void* w1[2];  // gamma_k fc1's mem columns [hg_k, MEM], rows ld1[k] apart
+  const void* w2[2];  // gamma_k fc2 weight [MEM, hg_k], rows ld2[k] apart
   const void* b2[2];  // gamma_k fc2 bias [MEM]
   const float* P;     // [rows, hg1 + hg2]: gamma1 fc1, then gamma2 fc1, on attended + bias
   const float* chat;  // [rows, MEM]
   void* mems;         // [B, T, MEM]
-  int T, TH2, mem, hg1, hg2;
+  int T, mem, hg1, hg2, ld1[2], ld2[2];
   // kernel 6's gamma-hidden dropout: the seeds [T, 2] (gamma1, gamma2 of
   // each step), and each hidden's threshold and keep probability
   const uint32_t* seeds;
@@ -268,7 +287,7 @@ template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kMaxThreads) mem_scan_kernel(MemArgs a) {
   using V = typename Vec4<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int MEM = a.mem, hg1 = a.hg1, hg2 = a.hg2, TH2 = a.TH2, gin = a.TH2 + a.mem;
+  const int MEM = a.mem, hg1 = a.hg1, hg2 = a.hg2;
   const MemLayout L(MEM, hg1, hg2, sizeof(T));
   const int Ra2 = 2 * L.Ra, M2 = 2 * MEM, half = L.half;
   float* memv = reinterpret_cast<float*>(smem_raw + L.memv);
@@ -280,20 +299,25 @@ __global__ void __launch_bounds__(kMaxThreads) mem_scan_kernel(MemArgs a) {
   T* wa = reinterpret_cast<T*>(smem_raw + L.wa);
   T* wb = reinterpret_cast<T*>(smem_raw + L.wb);
   for (int g = 0; g < 2; ++g) {
-    const int n = g ? hg2 : hg1, r0 = g ? hg1 : 0;
-    // gamma_g fc1 row r, column TH2 + c -> lane 2 (r0 + r) + c / half
+    const int n = g ? hg2 : hg1, r0 = g ? hg1 : 0, ld1 = a.ld1[g], ld2 = a.ld2[g];
+    // gamma_g fc1 row r, mem column c -> lane 2 (r0 + r) + c / half
     gather(static_cast<const T*>(a.w1[g]), n * MEM, wa,
-           [=](int e) { return (e / MEM) * gin + TH2 + e % MEM; },
+           [=](int e) { return (e / MEM) * ld1 + e % MEM; },
            [=](int e) {
              const int r = e / MEM, c = e % MEM, cl = c % half;
              return ((cl >> 2) * Ra2 + 2 * (r0 + r) + c / half) * 4 + (cl & 3);
            });
-    // gamma_g fc2 row r, column c -> lane 2 r + g
-    gather(static_cast<const T*>(a.w2[g]), MEM * n, wb, [](int e) { return e; },
-           [=](int e) {
-             const int r = e / n, c = e % n;
-             return ((c >> 2) * M2 + 2 * r + g) * 4 + (c & 3);
-           });
+    // gamma_g fc2 row r, column c -> lane 2 r + g (without index arithmetic
+    // where its rows are contiguous)
+    const T* w2 = static_cast<const T*>(a.w2[g]);
+    auto to_wb = [=](int e) {
+      const int r = e / n, c = e % n;
+      return ((c >> 2) * M2 + 2 * r + g) * 4 + (c & 3);
+    };
+    if (ld2 == n)
+      gather(w2, MEM * n, wb, [](int e) { return e; }, to_wb);
+    else
+      gather(w2, MEM * n, wb, [=](int e) { return (e / n) * ld2 + e % n; }, to_wb);
     for (int i = tid; i < MEM; i += blockDim.x)
       bias[2 * i + g] = to_f(static_cast<const T*>(a.b2[g])[i]);
   }
@@ -377,9 +401,9 @@ struct Work {
     const size_t rows = (size_t)a.B * (a.T + 1), M = rows - 1;
     const int hmax = a.h_att1 > a.h_att2 ? a.h_att1 : a.h_att2;
     Work w;
-    w.cs = c.take<float>(rows * a.total_h);
+    w.cs = c.take<float>(rows * a.c_width);
     w.hid = c.take<float>(M * hmax);
-    w.att = c.take<float>(M * 2 * a.total_h);
+    w.att = c.take<float>(M * 2 * a.c_width);
     w.P = c.take<float>(M * (a.h_g1 + a.h_g2));
     w.chat = c.take<float>(M * a.mem);
     return w;
@@ -412,7 +436,7 @@ int run(const Args& a, void* ws, cudaStream_t st) {
   const bool drop = a.seeds != nullptr && (a.thr1 != 0u || a.thr2 != 0u);
   Carver c{static_cast<char*>(ws)};
   const Work w = Work::carve(c, a);
-  const int TH = a.total_h, TH2 = 2 * TH;
+  const int CW = a.c_width, K = 2 * CW;  // K: the width of c*
   const int M = a.B * (a.T + 1) - 1;  // rows (b, t), t <= T; rows with t = T are not read
   auto W = [&](int i) { return static_cast<const T*>(a.g[i]); };
 
@@ -426,25 +450,26 @@ int run(const Args& a, void* ws, cudaStream_t st) {
   lstm<<<dim3(a.B, a.n_mods), th1, sm1, st>>>(a, w.cs);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  // stage 2: row m of A is c* = the 2TH floats at cs + m TH
-  const int h1 = a.h_att1, h2 = a.h_att2, R = a.h_g1 + a.h_g2, gin = TH2 + a.mem;
-  const FfJob<T> att1_fc1{W(0), TH2, h1, {w.hid, h1, W(1), mfn::kRelu}};
-  ff_gemm<T>(w.cs, TH, M, TH2, &att1_fc1, 1, st);
-  const FfJob<T> att1_fc2{W(2), h1, TH2, {w.att, TH2, W(3), mfn::kNone}};
+  // stage 2: row m of A is c* = the K floats at cs + m CW
+  const int h1 = a.h_att1, h2 = a.h_att2, R = a.h_g1 + a.h_g2;
+  const int* ld = a.g_ld;
+  const FfJob<T> att1_fc1{W(0), ld[0], h1, {w.hid, h1, W(1), mfn::kRelu}};
+  ff_gemm<T>(w.cs, CW, M, K, &att1_fc1, 1, st);
+  const FfJob<T> att1_fc2{W(2), ld[2], K, {w.att, K, W(3), mfn::kNone}};
   ff_gemm<T>(w.hid, h1, M, h1, &att1_fc2, 1, st);
-  attend_kernel<<<(M + 7) / 8, 256, 0, st>>>(w.att, w.cs, M, TH);
-  const FfJob<T> on_attended[3] = {{W(4), TH2, h2, {w.hid, h2, W(5), mfn::kRelu}},
-                                   {W(8), gin, a.h_g1, {w.P, R, W(9), mfn::kNone}},
-                                   {W(12), gin, a.h_g2, {w.P + a.h_g1, R, W(13), mfn::kNone}}};
-  ff_gemm<T>(w.att, TH2, M, TH2, on_attended, 3, st);
-  const FfJob<T> att2_fc2{W(6), h2, a.mem, {w.chat, a.mem, W(7), mfn::kTanh}};
+  attend_kernel<<<(M + 7) / 8, 256, 0, st>>>(w.att, w.cs, M, CW);
+  const FfJob<T> on_attended[3] = {{W(4), ld[4], h2, {w.hid, h2, W(5), mfn::kRelu}},
+                                   {W(8), ld[8], a.h_g1, {w.P, R, W(9), mfn::kNone}},
+                                   {W(12), ld[12], a.h_g2, {w.P + a.h_g1, R, W(13), mfn::kNone}}};
+  ff_gemm<T>(w.att, K, M, K, on_attended, 3, st);
+  const FfJob<T> att2_fc2{W(6), ld[6], a.mem, {w.chat, a.mem, W(7), mfn::kTanh}};
   ff_gemm<T>(w.hid, h2, M, h2, &att2_fc2, 1, st);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  // stage 3
-  const MemArgs ma{{a.g[8], a.g[12]}, {a.g[10], a.g[14]}, {a.g[11], a.g[15]}, w.P, w.chat,
-                   a.mems, a.T, TH2, a.mem, a.h_g1, a.h_g2, a.seeds, {a.thr1, a.thr2},
-                   {a.keep1, a.keep2}};
+  // stage 3: the gamma fc1 mem columns follow the K attended ones
+  const MemArgs ma{{W(8) + K, W(12) + K}, {a.g[10], a.g[14]}, {a.g[11], a.g[15]}, w.P, w.chat,
+                   a.mems, a.T, a.mem, a.h_g1, a.h_g2, {ld[8], ld[12]}, {ld[10], ld[14]},
+                   a.seeds, {a.thr1, a.thr2}, {a.keep1, a.keep2}};
   const int th3 = mem_threads(a.mem, a.h_g1, a.h_g2);
   const MemLayout L(a.mem, a.h_g1, a.h_g2, es);
   void (*mem_scan)(MemArgs) = drop ? mem_scan_kernel<T, true> : mem_scan_kernel<T, false>;
@@ -491,19 +516,22 @@ bool parse(Args& a, int dtype, const void* xp, const void* whh, const void* hid,
 }  // namespace mfn_staged
 }  // namespace mmtx
 
-// Bytes of fp32 workspace mmtx_mfn_scan and mmtx_mfn_train_fwd need, or -1
-// for shapes they refuse.
+// Bytes of fp32 workspace mmtx_mfn_scan and mmtx_mfn_train_fwd need (c_width
+// the total hidden size), or rows 8 and 9 (mmtx_mfn_scan_packed / _aligned,
+// c_width their c row's), or -1 for shapes they refuse.
 // hid: host array of n_mods hidden sizes.
 extern "C" long long mmtx_mfn_scan_workspace(int dtype, const void* hid, int n_mods, int B,
                                              int T, int mem, int h_att1, int h_att2, int h_g1,
-                                             int h_g2) {
+                                             int h_g2, int c_width) {
   using namespace mmtx;
   const void* none[mfn::kMaxMods] = {nullptr, nullptr, nullptr, nullptr};
   const void* gates[16] = {};
   mfn::Args a;
   if (!mfn_staged::parse(a, dtype, none, none, hid, n_mods, gates, B, T, mem, h_att1, h_att2,
-                         h_g1, h_g2))
+                         h_g1, h_g2) ||
+      c_width < a.total_h)
     return -1;
+  a.c_width = c_width;
   Carver c{nullptr};
   mfn_staged::Work::carve(c, a);
   return (long long)c.used;

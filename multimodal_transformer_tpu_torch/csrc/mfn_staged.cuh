@@ -209,12 +209,14 @@ ff_gemm_kernel(const float* __restrict__ A, int lda, int M, int K, FfJobs<T, Epi
   }
 }
 
-// Defined in csrc/mfn.cu, for its C entries and kernel 6's
-// (csrc/mfn_train.cu).  parse fills a's shapes from the C arguments, or
-// returns false for shapes the stages refuse.  launch runs the three stages
-// on the stream and returns the first CUDA error: kernel B, or with a.cs set
-// kernel 6 (every c_t stored; the gamma-hidden dropout unless both
-// thresholds are 0).  ws: mmtx_mfn_scan_workspace bytes.
+// Defined in csrc/mfn.cu, for its C entries, kernel 6's (csrc/mfn_train.cu)
+// and rows 8 and 9's (csrc/mfn_variants.cu).  parse fills a's shapes and
+// the natural layout from the C arguments, or returns false for shapes the
+// stages refuse.  launch runs the three stages on the stream, reading the
+// weights and the c workspace in a's layout, and returns the first CUDA
+// error: kernel B, or with a.cs set kernel 6 (every c_t stored; the
+// gamma-hidden dropout unless both thresholds are 0).  ws:
+// mmtx_mfn_scan_workspace bytes for a's c row.
 bool parse(mfn::Args& a, int dtype, const void* xp, const void* whh, const void* hid,
            int n_mods, const void* gates, int B, int T, int mem, int h_att1, int h_att2,
            int h_g1, int h_g2);

@@ -37,11 +37,11 @@ _SIGNATURES = {
                            _P, _I, _I, _I, _I, _I, _I, _P],
     "mmtx_mfn_scan": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _P],
-    "mmtx_mfn_scan_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I],
-    "mmtx_mfn_scan_packed": [_I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
-    "mmtx_mfn_scan_aligned": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _P],
+    "mmtx_mfn_scan_workspace": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    "mmtx_mfn_scan_packed": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                             _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mmtx_mfn_scan_aligned": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                              _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmtx_encoder_train_workspace": [_I, _I, _I, _I, _I, _I, _I],
     "mmtx_encoder_train_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _U, _F, _P, _I,
                                _I, _I, _I, _I, _P],

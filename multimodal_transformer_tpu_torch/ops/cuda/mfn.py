@@ -15,6 +15,11 @@ over all B*T rows: att1, the feature softmax, attended, att2 and c^, and the
 attended part of both gamma fc1 layers; (3) the memory scan, one block per
 video with the mem side of the gamma MLPs in shared memory.
 `mfn_scan_staged_plain` computes the same stages in PyTorch, in that order.
+The stages read their weights through `Views` (the layout fields of
+csrc/mfn_common.cuh mfn::Args): kernels B and 6 pass the natural layout
+(`natural_views`), rows 8 and 9 (ops/cuda/mfn_variants.py) views of the TPU
+kernels' packed and padded tensors, and `staged_views_plain` reads the same
+views in PyTorch.
 
 Arguments:
   xps:   per modality [B, T, 4H_m], the hoisted x @ W_ih^T + b_ih + b_hh;
@@ -27,6 +32,7 @@ Returns (hs [B, T, total_h], mems [B, T, mem]).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,9 +41,6 @@ from ..dispatch import acc_dtype, check_kernel_dtype, check_no_grad, use_kernel
 from . import _build
 
 MAX_MODS = 4
-# the one-block-per-video scans of rows 8 and 9 (csrc/mfn_variants.cu) keep
-# their activations in static-size shared memory
-_SMEM_LIMIT = 48 * 1024
 # kernel B's serial stages: shared memory a block may opt in to on sm_90,
 # threads a block may have (the fp32 LSTM scan's: csrc/mfn.cu
 # lstm_max_threads), and row tiles a GEMM grid may have
@@ -96,18 +99,83 @@ def mfn_scan_fused_plain(xps, whhs, gates):
             torch.stack(mem_out, dim=1).to(dtype))
 
 
+class View(NamedTuple):
+    """Where a stage reads one weight: `tensor()`, a strided view of base
+    at `offset` elements past its first.  A 2-D weight is [rows, columns]
+    with unit column stride, its row stride (ld) stride[0]; W_hh is [4
+    gates, H, H] with strides (gate stride * ld, ld, 1)."""
+    base: torch.Tensor
+    size: tuple
+    stride: tuple
+    offset: int = 0
+
+    def tensor(self) -> torch.Tensor:
+        return torch.as_strided(self.base, self.size, self.stride,
+                                self.base.storage_offset() + self.offset)
+
+    def pointer(self) -> int:
+        return self.base.data_ptr() + self.offset * self.base.element_size()
+
+
+class Views(NamedTuple):
+    """The layout kernel B's stages read: each modality's W_hh view, the 16
+    gate tensors' views in `MFN.gate_tensors` order (att1 fc1, att2 fc1 [N,
+    2 c_width], the gamma fc1 layers [N, 2 c_width + mem], att1 fc2 [2
+    c_width, h1]), the width of a row of the c workspace, and each
+    modality's first lane in it (every other lane is 0)."""
+    whh: tuple
+    gates: tuple
+    c_width: int
+    c_off: tuple
+
+
+def whh_view(base: torch.Tensor, H: int, offset: int, ld: int,
+             gate: int) -> View:
+    """W_hh [4H, H] in base: gate k's unit j at row k * gate + j past
+    `offset`, rows ld elements apart."""
+    return View(base, (4, H, H), (gate * ld, ld, 1), offset)
+
+
+def offsets(widths) -> tuple:
+    """Each width's start when they are laid end to end."""
+    out, off = [], 0
+    for w in widths:
+        out.append(off)
+        off += w
+    return tuple(out)
+
+
+def natural_views(whhs, gates) -> Views:
+    """Kernels B and 6's layout: every tensor as it is, a c row of total_h
+    lanes."""
+    hid = [w.shape[1] for w in whhs]
+    return Views(tuple(whh_view(w, H, 0, H, H) for w, H in zip(whhs, hid)),
+                 tuple(View(g, tuple(g.shape), tuple(g.stride()))
+                       for g in gates),
+                 sum(hid), offsets(hid))
+
+
 def staged_plain(xps, whhs, gates, drop=None):
-    """Kernel B's three stages in PyTorch, in the kernel's order: the LSTM
-    scan, the feed-forward part batched over all B*T rows, the memory scan.
+    """Kernel B's three stages in PyTorch (`staged_views_plain` on the
+    natural layout)."""
+    return staged_views_plain(xps, natural_views(whhs, gates), drop)
+
+
+def staged_views_plain(xps, views: Views, drop=None):
+    """Kernel B's three stages in PyTorch, in the kernel's order, reading
+    the weights through `views` as the kernel does: the LSTM scan over each
+    modality's real units; the feed-forward part batched over all B*T rows
+    at K = 2 c_width, on c* rows whose pad lanes are 0; the memory scan.
     drop(t, k, x), where given, returns gamma k's hidden x [B, width] of
     step t after its ReLU, dropped (kernel 6).  Returns (hs, cs, mems) in
-    the accumulation dtype."""
+    the accumulation dtype, cs on the real lanes."""
     acc = acc_dtype(xps[0].dtype)
     B, T = xps[0].shape[:2]
     dev = xps[0].device
-    th2 = 2 * sum(w.shape[1] for w in whhs)
-    W = [w.to(acc) for w in whhs]
-    G = [g.to(acc) for g in gates]
+    th2 = 2 * views.c_width
+    W = [v.tensor().reshape(4 * v.size[1], v.size[1]).to(acc).contiguous()
+         for v in views.whh]
+    G = [v.tensor().to(acc).contiguous() for v in views.gates]
     # stage 1: one LSTM recurrence per modality
     hs, cs = [], []
     for xp, w in zip(xps, W):
@@ -124,10 +192,12 @@ def staged_plain(xps, whhs, gates, drop=None):
             c_t.append(c)
         hs.append(torch.stack(h_t, dim=1))
         cs.append(torch.stack(c_t, dim=1))
-    c_all = torch.cat(cs, dim=2)
-    c_prev = torch.cat([torch.zeros_like(c_all[:, :1]), c_all[:, :-1]], dim=1)
+    c_rows = torch.zeros(B, T + 1, views.c_width, dtype=acc, device=dev)
+    for c, off in zip(cs, views.c_off):
+        c_rows[:, 1:, off:off + c.shape[2]] = c
     # stage 2: every row (b, t) at once
-    c_star = torch.cat([c_prev, c_all], dim=2).reshape(B * T, th2)
+    c_star = torch.cat([c_rows[:, :-1], c_rows[:, 1:]], dim=2).reshape(B * T,
+                                                                      th2)
     logits = F.linear(torch.relu(F.linear(c_star, G[0], G[1])), G[2], G[3])
     attended = torch.softmax(logits, dim=1) * c_star
     c_hat = torch.tanh(F.linear(torch.relu(F.linear(attended, G[4], G[5])),
@@ -147,7 +217,7 @@ def staged_plain(xps, whhs, gates, drop=None):
         g2 = torch.sigmoid(F.linear(h2, G[14], G[15]))
         mem = g1 * mem + g2 * c_hat[:, t]
         mems.append(mem)
-    return torch.cat(hs, dim=2), c_all, torch.stack(mems, dim=1)
+    return torch.cat(hs, dim=2), torch.cat(cs, dim=2), torch.stack(mems, dim=1)
 
 
 def mfn_scan_staged_plain(xps, whhs, gates):
@@ -186,13 +256,6 @@ def _check_shapes(xps, whhs, gates):
         raise ValueError(f"mfn_scan_fused: every hidden width must be even, "
                          f"got {widths}")
     return B, T, mem, h1, h2, hg1, hg2
-
-
-def smem_bytes(total_h: int, mem: int, h1: int, h2: int, hg1: int,
-               hg2: int) -> int:
-    """Shared memory of one block of the one-block-per-video scan of rows 8
-    and 9 (mirrors csrc/mfn_variants.cu smem_floats at unpadded widths)."""
-    return 4 * (12 * total_h + h1 + mem + h2 + hg1 + hg2 + 3 * mem + 2)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -285,22 +348,11 @@ def _kernel_args(xps, whhs, gates, what: str):
     return dtype_code, B, T, mem, h1, h2, hg1, hg2, hid
 
 
-def kernel_args(xps, whhs, gates, what: str):
-    """`_kernel_args` for rows 8 and 9, one block per video, which also need
-    their activations within 48 KB of shared memory."""
-    args = _kernel_args(xps, whhs, gates, what)
-    mem, h1, h2, hg1, hg2, hid = args[3:]
-    if smem_bytes(sum(hid), mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:
-        raise ValueError(f"{what}: widths need more than 48 KB of shared "
-                         "memory per block")
-    return args
-
-
 def staged_args(xps, whhs, gates, what: str):
-    """`_kernel_args` for kernel B's stages (kernels B and 6): also raises,
-    with the widths, where a scan cannot take them (`check_staged_fit`), and
-    where an xp does not start on a 16-byte boundary (the LSTM scan copies
-    xp rows 16 bytes at a time)."""
+    """`_kernel_args` for kernel B's stages (kernels B and 6, rows 8 and 9):
+    also raises, with the widths, where a scan cannot take them
+    (`check_staged_fit`), and where an xp does not start on a 16-byte
+    boundary (the LSTM scan copies xp rows 16 bytes at a time)."""
     args = _kernel_args(xps, whhs, gates, what)
     B, T, mem, _, _, hg1, hg2, hid = args[1:]
     check_staged_fit(hid, mem, hg1, hg2, xps[0].element_size(), B, T, what)
@@ -310,12 +362,15 @@ def staged_args(xps, whhs, gates, what: str):
     return args
 
 
-def staged_workspace(lib, args, device, what: str) -> torch.Tensor:
-    """The fp32 workspace of kernel B's stages for `staged_args`' args."""
+def staged_workspace(lib, args, device, what: str,
+                     c_width: int | None = None) -> torch.Tensor:
+    """The fp32 workspace of kernel B's stages for `staged_args`' args, at
+    a c row of c_width lanes (default: total_h, the natural layout's)."""
     dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = args
     hid_arr = (ctypes.c_int * len(hid))(*hid)
+    c_width = sum(hid) if c_width is None else c_width
     n_ws = lib.mmtx_mfn_scan_workspace(dtype_code, hid_arr, len(hid), B, T,
-                                       mem, h1, h2, hg1, hg2)
+                                       mem, h1, h2, hg1, hg2, c_width)
     if n_ws < 0:
         raise ValueError(f"{what}: shapes refused by the kernel")
     return torch.empty(n_ws // 4, dtype=torch.float32, device=device)

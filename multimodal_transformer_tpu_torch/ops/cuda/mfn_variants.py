@@ -7,11 +7,16 @@ Counterparts of `multimodal_transformer_tpu/ops/pallas/mfn_kernel.py`
 kernel B's arguments (ops/cuda/mfn.py: the hoisted xps, the W_hh list and
 the 16 gate tensors), pack the weights in torch, and return (hs [B, T,
 total_h], mems [B, T, mem]) with float32 state, in eval only.  Each wrapper
-launches its CUDA kernel for CUDA tensors and runs its plain version, which
-does the packed or padded arithmetic step by step, for CPU tensors.  The
-model path keeps kernel B (`ops/mfn_core.py:mfn_states`); these two are
-reached through `bench_mfn_kernel.py`, as their JAX counterparts are
-through `examples/bench_mfn_kernel.py`.
+launches kernel B's three stages (csrc/mfn.cu) on views of the packed or
+padded tensors (`packed_views`, `aligned_views`: a pointer, row stride and,
+for W_hh, gate stride per weight, and the c workspace's row) for CUDA
+tensors, and runs its plain version, which does the packed or padded
+arithmetic step by step, for CPU tensors.  `mfn.staged_views_plain`
+computes the stages on the same views in PyTorch (for row 9:
+`mfn_scan_aligned_staged_plain`; row 8's are kernel B's).  The model path
+keeps kernel B (`ops/mfn_core.py:mfn_states`); these two are reached
+through `bench_mfn_kernel.py`, as their JAX counterparts are through
+`examples/bench_mfn_kernel.py`.
 
 The JAX packers transpose the weights to [in, out]; the port's keep torch's
 [out, in], the row-major layout the kernels read: each packed matrix here
@@ -30,12 +35,19 @@ the c* = [c_prev; c_new] and [attended; mem] vectors take the padded
 layout, so att1_fc1, att2_fc1 and the gamma first layers get zero columns
 there, att1_fc2 zero rows, and att1's logits a -1e9 bias on the pad lanes
 (the feature softmax gives them exactly 0).  xp's pad lanes are 0, so a pad
-lane's gates are i = f = o = 1/2, g = 0, and c = h = 0 stay exact.
+lane's gates are i = f = o = 1/2, g = 0, and c = h = 0 stay exact.  The
+kernel runs only the real units of each W_hh and writes 0 to the c row's
+pad lanes.
+
+The stages run on the real widths in both layouts (the padded c row only
+widens the workspace and stage 2's products), so kernel B's fit check,
+`mfn.check_staged_fit`, is theirs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,7 +55,8 @@ import torch.nn.functional as F
 
 from ..dispatch import acc_dtype, check_no_grad, use_kernel
 from . import _build
-from .mfn import _SMEM_LIMIT, _check_shapes, kernel_args, smem_bytes
+from .mfn import (View, Views, _check_shapes, offsets, staged_args,
+                  staged_views_plain, staged_workspace, whh_view)
 
 ALIGN_HP = 32   # the aligned kernel's padding: a warp's 32 lanes
 NEG_PAD = -1e9  # att1's logit bias on the pad lanes
@@ -85,31 +98,16 @@ def _mfn_weights(mfn):
 
 
 def pack_blockdiag(whhs, gates) -> PackedMFN:
-    """The packed weights from kernel B's W_hh list and 16 gate tensors."""
-    hid = [w.shape[1] for w in whhs]
-    TH = sum(hid)
+    """The packed weights from kernel B's W_hh list and 16 gate tensors (a
+    few whole-tensor ops: the wrapper packs at every call)."""
     (a1w1, a1b1, a1w2, a1b2, a2w1, a2b1, a2w2, a2b2,
      g1w1, g1b1, g1w2, g1b2, g2w1, g2b1, g2w2, g2b2) = gates
-    like = dict(dtype=whhs[0].dtype, device=whhs[0].device)
-    whh = torch.zeros(4 * TH, TH, **like)
-    off = 0
-    for w, H in zip(whhs, hid):
-        whh[4 * off:4 * (off + H), off:off + H] = w
-        off += H
-    h2, hg1 = a2w1.shape[0], g1w1.shape[0]
     mem = a2w2.shape[0]
-    firsts = (a2w1, g1w1, g2w1)
-    w1g = torch.zeros(sum(w.shape[0] for w in firsts), g1w1.shape[1], **like)
-    w1g[:h2, :2 * TH] = a2w1          # att2 reads attended only
-    w1g[h2:h2 + hg1] = g1w1
-    w1g[h2 + hg1:] = g2w1
-    w2bd = torch.zeros(3 * mem, w1g.shape[0], **like)
-    w2bd[:mem, :h2] = a2w2
-    w2bd[mem:2 * mem, h2:h2 + hg1] = g1w2
-    w2bd[2 * mem:, h2 + hg1:] = g2w2
-    return PackedMFN(whh, a1w1.contiguous(), a1b1.contiguous(),
-                     a1w2.contiguous(), a1b2.contiguous(), w1g,
-                     torch.cat([a2b1, g1b1, g2b1]), w2bd,
+    w1g = torch.cat([F.pad(a2w1, (0, mem)), g1w1, g2w1])  # att2: no mem
+    return PackedMFN(torch.block_diag(*whhs), a1w1.contiguous(),
+                     a1b1.contiguous(), a1w2.contiguous(), a1b2.contiguous(),
+                     w1g, torch.cat([a2b1, g1b1, g2b1]),
+                     torch.block_diag(a2w2, g1w2, g2w2),
                      torch.cat([a2b2, g1b2, g2b2]))
 
 
@@ -137,37 +135,39 @@ def cstar_positions(hid, hps) -> torch.Tensor:
     return torch.cat([pos, pos + thp])
 
 
+@functools.lru_cache(maxsize=32)
+def _real_lanes(hid: tuple, hps: tuple, mem: int, device) -> torch.Tensor:
+    """The real lanes of the padded [c*; mem] layout on device, made once
+    per layout and device (a copy from the host waits for the card's
+    queue)."""
+    return torch.cat([cstar_positions(hid, hps),
+                      2 * sum(hps) + torch.arange(mem)]).to(device)
+
+
 def pack_aligned(whhs, gates, hp: int = ALIGN_HP) -> AlignedMFN:
-    """The aligned weights from kernel B's W_hh list and 16 gate tensors."""
+    """The aligned weights from kernel B's W_hh list and 16 gate tensors (a
+    few whole-tensor ops: the wrapper packs at every call)."""
     hid = [w.shape[1] for w in whhs]
     hps = padded_widths(hid, hp)
     like = dict(dtype=whhs[0].dtype, device=whhs[0].device)
-    thp2 = 2 * sum(hps)
-    cpos = cstar_positions(hid, hps).to(whhs[0].device)
-    mem = gates[6].shape[0]
-    gpos = torch.cat([cpos, thp2 + torch.arange(mem, device=cpos.device)])
-    whh_p = []
-    for w, H, HP in zip(whhs, hid, hps):
-        wp = torch.zeros(4 * HP, HP, **like)
-        for g in range(4):
-            wp[g * HP:g * HP + H, :H] = w[g * H:(g + 1) * H]
-        whh_p.append(wp)
+    thp2, mem = 2 * sum(hps), gates[6].shape[0]
+    gpos = _real_lanes(tuple(hid), tuple(hps), mem, whhs[0].device)
+    cpos = gpos[:-mem]
+    whh_p = [F.pad(w.reshape(4, H, H), (0, HP - H, 0, HP - H)).reshape(
+        4 * HP, HP) for w, H, HP in zip(whhs, hid, hps)]
 
-    def cols(w, pos, n):  # scatter w's columns into a zero [rows, n]
-        out = torch.zeros(w.shape[0], n, **like)
-        out[:, pos] = w
-        return out
+    def cols(w, pos, n):  # w's columns at pos of a zero [rows, n]
+        return torch.zeros(w.shape[0], n, **like).index_copy_(1, pos, w)
 
-    a1w2 = torch.zeros(thp2, gates[2].shape[1], **like)
-    a1w2[cpos] = gates[2]
-    a1b2 = torch.full((thp2,), NEG_PAD, **like)
-    a1b2[cpos] = gates[3]
     padded = list(gates)
-    padded[0] = cols(gates[0], cpos, thp2)
-    padded[2], padded[3] = a1w2, a1b2
-    padded[4] = cols(gates[4], cpos, thp2)
-    padded[8] = cols(gates[8], gpos, thp2 + mem)
-    padded[12] = cols(gates[12], gpos, thp2 + mem)
+    for i in (0, 4):
+        padded[i] = cols(gates[i], cpos, thp2)
+    for i in (8, 12):
+        padded[i] = cols(gates[i], gpos, thp2 + mem)
+    padded[2] = torch.zeros(thp2, gates[2].shape[1], **like).index_copy_(
+        0, cpos, gates[2])
+    padded[3] = torch.full((thp2,), NEG_PAD, **like).index_copy_(0, cpos,
+                                                                 gates[3])
     return AlignedMFN(whh_p, [t.contiguous() for t in padded], hps)
 
 
@@ -277,73 +277,138 @@ def mfn_scan_aligned_plain(xps, whhs, gates, hp: int = ALIGN_HP):
             torch.stack(mem_out, dim=1).to(dtype))
 
 
-def aligned_smem_bytes(hps, mem: int, h1: int, h2: int, hg1: int,
-                       hg2: int) -> int:
-    """Shared memory of one aligned kernel block: the one-block-per-video
-    scan's layout (csrc/mfn_common.cuh) over the padded lanes plus one int
-    per 32-lane chunk (mirrors csrc/mfn_variants.cu)."""
-    return smem_bytes(sum(hps), mem, h1, h2, hg1, hg2) + 4 * (sum(hps) // 32)
+def packed_views(P: PackedMFN, hid, h2: int, hg1: int) -> Views:
+    """Row 8's views of the packed tensors: modality m's W_hh is the
+    diagonal block of `whh` at row 4 off_m and column off_m (row stride TH,
+    gate stride H_m); att2_fc1 and the gamma fc1 layers are `w1g`'s rows 0,
+    h2 and h2 + hg1 (att2 over its first 2TH columns), their biases slices
+    of `b1g`; the fc2 layers are `w2bd`'s diagonal blocks, their biases
+    slices of `b2g`.  The zero blocks are not in any view."""
+    th = sum(hid)
+    k, h1 = 2 * th, P.a1w1.shape[0]
+    mem = P.w2bd.shape[0] // 3
+    hg2 = P.w1g.shape[0] - h2 - hg1
+
+    def mat(base, rows, cols, r0=0, c0=0):
+        ld = base.shape[1]
+        return View(base, (rows, cols), (ld, 1), r0 * ld + c0)
+
+    def vec(base, n, i0=0):
+        return View(base, (n,), (1,), i0)
+
+    whh = tuple(whh_view(P.whh, H, 4 * o * th + o, th, H)
+                for o, H in zip(offsets(hid), hid))
+    gates = (mat(P.a1w1, h1, k), vec(P.a1b1, h1),
+             mat(P.a1w2, k, h1), vec(P.a1b2, k),
+             mat(P.w1g, h2, k), vec(P.b1g, h2),
+             mat(P.w2bd, mem, h2), vec(P.b2g, mem),
+             mat(P.w1g, hg1, k + mem, h2), vec(P.b1g, hg1, h2),
+             mat(P.w2bd, mem, hg1, mem, h2), vec(P.b2g, mem, mem),
+             mat(P.w1g, hg2, k + mem, h2 + hg1), vec(P.b1g, hg2, h2 + hg1),
+             mat(P.w2bd, mem, hg2, 2 * mem, h2 + hg1),
+             vec(P.b2g, mem, 2 * mem))
+    return Views(whh, gates, th, offsets(hid))
+
+
+def aligned_views(P: AlignedMFN, hid) -> Views:
+    """Row 9's views of the padded tensors: each W_hh's H_m real units
+    (row stride and gate stride HP_m), the 16 padded gate tensors as they
+    are, and c rows of sum(HP_m) lanes with modality m's at its padded
+    offset."""
+    whh = tuple(whh_view(w, H, 0, HP, HP)
+                for w, H, HP in zip(P.whhs, hid, P.hps))
+    gates = tuple(View(g, tuple(g.shape), tuple(g.stride())) for g in P.gates)
+    return Views(whh, gates, sum(P.hps), offsets(P.hps))
+
+
+def _packed_views_of(whhs, gates) -> Views:
+    return packed_views(pack_blockdiag(whhs, gates),
+                        [w.shape[1] for w in whhs], gates[4].shape[0],
+                        gates[8].shape[0])
+
+
+def _aligned_views_of(whhs, gates, hp: int) -> Views:
+    return aligned_views(pack_aligned(whhs, gates, hp),
+                         [w.shape[1] for w in whhs])
+
+
+def mfn_scan_aligned_staged_plain(xps, whhs, gates, hp: int = ALIGN_HP):
+    """Row 9's three stages in PyTorch, on the aligned views (stage 2 at K
+    = 2 sum(HP_m)), in the kernel's order."""
+    hs, _, mems = staged_views_plain(xps, _aligned_views_of(whhs, gates, hp))
+    return hs.to(xps[0].dtype), mems.to(xps[0].dtype)
+
+
+def _view_args(views: Views) -> tuple:
+    """The C entries' view arguments: W_hh pointers, row strides and gate
+    strides; the gate tensors' pointers and row strides (1 for a bias);
+    each modality's first c lane; the c row's width."""
+    def ints(v):
+        return (ctypes.c_int * len(v))(*v)
+
+    return (_build.pointer_array([v.pointer() for v in views.whh]),
+            ints([v.stride[1] for v in views.whh]),
+            ints([v.stride[0] // v.stride[1] for v in views.whh]),
+            _build.pointer_array([v.pointer() for v in views.gates]),
+            ints([v.stride[0] if len(v.size) == 2 else 1
+                  for v in views.gates]),
+            ints(views.c_off), views.c_width)
+
+
+def _launch(what: str, xps, args, views: Views, fill=None):
+    """Launches the C entry mmtx_<what> on the views; fill, where given,
+    fills the workspace first."""
+    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = args
+    x0 = xps[0]
+    lib = _build.load()
+    ws = staged_workspace(lib, args, x0.device, what, views.c_width)
+    if fill is not None:
+        ws.fill_(fill)
+    hs = torch.empty((B, T, sum(hid)), dtype=x0.dtype, device=x0.device)
+    mems = torch.empty((B, T, mem), dtype=x0.dtype, device=x0.device)
+    xp_ptrs = _build.pointer_array([t.data_ptr() for t in xps])
+    hid_arr = (ctypes.c_int * len(hid))(*hid)
+    view_args = _view_args(views)
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"mmtx_{what}")(
+            dtype_code, xp_ptrs, hid_arr, len(xps), *view_args, hs.data_ptr(),
+            mems.data_ptr(), ws.data_ptr(), B, T, mem, h1, h2, hg1, hg2,
+            stream)
+    _build.check(rc, what)
+    return hs, mems
 
 
 def mfn_scan_packed(xps, whhs, gates):
-    """Row 8: the recurrence on the block-diagonal packing.  Kernel B's
-    arguments and outputs (ops/cuda/mfn.py); eval only."""
+    """Row 8: the recurrence on the block-diagonal packing, kernel B's
+    stages on `packed_views`.  Kernel B's arguments and outputs
+    (ops/cuda/mfn.py); eval only."""
     _check_shapes(xps, whhs, gates)
-    x0 = xps[0]
-    if not use_kernel(x0):
+    if not use_kernel(xps[0]):
         return mfn_scan_packed_plain(xps, whhs, gates)
     global packed_launches
     what = "mfn_scan_packed"
     check_no_grad(what, *xps, *whhs, *gates)
-    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
-        xps, whhs, gates, what)
-    P = pack_blockdiag(whhs, gates)
-    hs = torch.empty((B, T, sum(hid)), dtype=x0.dtype, device=x0.device)
-    mems = torch.empty((B, T, mem), dtype=x0.dtype, device=x0.device)
-    xp_ptrs = _build.pointer_array([t.data_ptr() for t in xps])
-    w_ptrs = _build.pointer_array([t.data_ptr() for t in P])
-    hid_arr = (ctypes.c_int * len(hid))(*hid)
-    lib = _build.load()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mmtx_mfn_scan_packed(dtype_code, xp_ptrs, hid_arr, len(xps),
-                                      w_ptrs, hs.data_ptr(), mems.data_ptr(),
-                                      B, T, mem, h1, h2, hg1, hg2, stream)
-    _build.check(rc, what)
+    args = staged_args(xps, whhs, gates, what)
+    out = _launch(what, xps, args, _packed_views_of(whhs, gates))
     packed_launches += 1
-    return hs, mems
+    return out
 
 
-def mfn_scan_aligned(xps, whhs, gates):
-    """Row 9: the recurrence on hidden blocks padded to multiples of
-    ALIGN_HP.  Kernel B's arguments and outputs (ops/cuda/mfn.py), the real
-    lanes only; eval only."""
+def mfn_scan_aligned(xps, whhs, gates, hp: int = ALIGN_HP, fill=None):
+    """Row 9: the recurrence on hidden blocks padded to multiples of hp
+    (ALIGN_HP; 128 is the TPU kernel's layout), kernel B's stages on
+    `aligned_views`.  Kernel B's arguments and outputs (ops/cuda/mfn.py),
+    the real lanes only; eval only.  fill, where given, fills the
+    workspace before the launch: with NaN, a pad lane the kernel failed to
+    write would spoil every output."""
     _check_shapes(xps, whhs, gates)
-    x0 = xps[0]
-    if not use_kernel(x0):
-        return mfn_scan_aligned_plain(xps, whhs, gates)
+    if not use_kernel(xps[0]):
+        return mfn_scan_aligned_plain(xps, whhs, gates, hp)
     global aligned_launches
     what = "mfn_scan_aligned"
     check_no_grad(what, *xps, *whhs, *gates)
-    dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = kernel_args(
-        xps, whhs, gates, what)
-    P = pack_aligned(whhs, gates)
-    if aligned_smem_bytes(P.hps, mem, h1, h2, hg1, hg2) > _SMEM_LIMIT:
-        raise ValueError(f"{what}: padded widths {P.hps} need more than 48 KB "
-                         "of shared memory per block")
-    hs = torch.empty((B, T, sum(hid)), dtype=x0.dtype, device=x0.device)
-    mems = torch.empty((B, T, mem), dtype=x0.dtype, device=x0.device)
-    ptrs = [_build.pointer_array([t.data_ptr() for t in ts])
-            for ts in (xps, P.whhs, P.gates)]
-    hid_arr = (ctypes.c_int * len(hid))(*hid)
-    hp_arr = (ctypes.c_int * len(hid))(*P.hps)
-    lib = _build.load()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mmtx_mfn_scan_aligned(dtype_code, ptrs[0], ptrs[1], hid_arr,
-                                       hp_arr, len(xps), ptrs[2],
-                                       hs.data_ptr(), mems.data_ptr(), B, T,
-                                       mem, h1, h2, hg1, hg2, stream)
-    _build.check(rc, what)
+    args = staged_args(xps, whhs, gates, what)
+    out = _launch(what, xps, args, _aligned_views_of(whhs, gates, hp), fill)
     aligned_launches += 1
-    return hs, mems
+    return out

@@ -64,6 +64,8 @@ class KernelCheck:
     bytes_ms: float = math.nan  # bytes moved / HBM rate
     library_ms: float = math.nan  # one PyTorch call of the same function
     identical: bool | None = None  # bit-identical to its reference kernel
+    # (reference kernel, max |kernel - reference|, its limit)
+    reference: Tuple[str, float, float] | None = None
 
     @property
     def bound_ms(self) -> float:
@@ -91,6 +93,8 @@ class KernelCheck:
     @property
     def ok(self) -> bool:
         return (self.nan_free and self.identical is not False
+                and (self.reference is None
+                     or self.reference[1] <= self.reference[2])
                 and all(e <= self.bound_of(p) for e, p in self.parts.values()))
 
     def line(self) -> str:
@@ -99,6 +103,9 @@ class KernelCheck:
                    else f"library={self.library_ms:.3f} ms ")
         if self.identical is not None:
             library += f"bit-identical={self.identical} "
+        if self.reference is not None:
+            ref, diff, limit = self.reference
+            library += f"|kernel - {ref}|={diff:.3e} (limit {limit:.0e}) "
         return (f"{self.name:24s} {self.shape:18s} {self.dtype:9s} "
                 f"{len(self.parts):2d} outputs, worst {self.worst}: "
                 f"err={e:.3e} bound={self.bound_of(p):.3e} "
@@ -379,28 +386,41 @@ def _mfn_case(B, T, dtype, device, seed, mods):
 
 @torch.no_grad()
 def _check_mfn_scan(name, kernel, plain_fn, B, T, dtype, device, seed, mods,
-                    reps, repeat: bool = False) -> KernelCheck:
+                    reps, repeat: bool = False, same_as=None, near=None,
+                    label: str = "", timed=None) -> KernelCheck:
     """A kernel of kernel B's function (hs, mems) against its plain
     version; the bound is kernel B's work, whatever the layout.  repeat:
-    also call the kernel again and require the same bits."""
+    also call the kernel again and require the same bits; same_as: a kernel
+    whose outputs it must equal bit for bit; near: (kernel, limit), a kernel
+    it must be within limit of on every output; timed: what is timed in the
+    kernel's place (default the kernel)."""
     _, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
     ref = plain_fn(_double(xps), _double(whhs), _double(gates))
     plain = plain_fn(xps, whhs, gates)
     kern = kernel(xps, whhs, gates)
-    identical = None
+    identical = reference = None
     if repeat:
         identical = all(torch.equal(a, b) for a, b in
                         zip(kern, kernel(xps, whhs, gates)))
+    if same_as is not None:
+        identical = identical is not False and all(
+            torch.equal(a, b) for a, b in zip(kern, same_as(xps, whhs, gates)))
+    if near is not None:
+        other = near[0](xps, whhs, gates)
+        reference = (near[0].__name__,
+                     max(_max_err(a, b) for a, b in zip(kern, other)), near[1])
     torch.cuda.synchronize()
     return KernelCheck(
-        name, f"B={B} T={T} {'+'.join(MOD_LETTER[m] for m in mods)}",
+        name, f"{label}B={B} T={T} {'+'.join(MOD_LETTER[m] for m in mods)}",
         _dtype_name(dtype), _parts(["hs", "mems"], kern, plain, ref,
                                    [None, None]),
         _finite(kern, [None, None]),
-        time_ms(lambda: kernel(xps, whhs, gates), reps, burst=KERNEL_BURST),
+        time_ms(lambda: (timed or kernel)(xps, whhs, gates), reps,
+                burst=KERNEL_BURST),
         time_ms(lambda: plain_fn(xps, whhs, gates), reps, warmup=1),
         *bound_times({"fp32": B * T * mfn_step_ops(whhs, gates)},
-                     [*xps, *whhs, *gates, *kern]), identical=identical)
+                     [*xps, *whhs, *gates, *kern]), identical=identical,
+        reference=reference)
 
 
 def check_mfn(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
@@ -422,12 +442,15 @@ MFN_STAGES = (("stage 1, LSTM scan", "lstm_scan_kernel"),
 
 @torch.no_grad()
 def mfn_stage_ms(B: int, T: int, dtype: torch.dtype, *, device,
-                 seed: int = 0, mods=AVL, calls: int = 5) -> Dict[str, float]:
+                 seed: int = 0, mods=AVL, calls: int = 5,
+                 scan=None) -> Dict[str, float]:
     """Device ms per call of each of kernel B's stages over `calls` warm
-    calls."""
+    calls of scan (default kernel B; rows 8 and 9 launch the same stages,
+    and their packing in torch is left out)."""
+    scan = scan or mfn_k.mfn_scan_fused
     _, xps, whhs, gates = _mfn_case(B, T, dtype, device, seed, mods)
     out = kernel_device_ms(
-        lambda: mfn_k.mfn_scan_fused(xps, whhs, gates), calls,
+        lambda: scan(xps, whhs, gates), calls,
         lambda n: next((stage for stage, key in MFN_STAGES if key in n), None))
     return {stage: out.get(stage, 0.0) for stage, _ in sorted(MFN_STAGES)}
 
@@ -435,19 +458,39 @@ def mfn_stage_ms(B: int, T: int, dtype: torch.dtype, *, device,
 def check_mfn_packed(B: int, T: int, dtype: torch.dtype, *, device,
                      seed: int = 0, mods=AVL, reps: int = 5) -> KernelCheck:
     """Row 8, the block-diagonal packing (zero blocks not counted in the
-    bound)."""
+    bound): kernel B's stages on its views, so also bit-identical to kernel
+    B and when called again."""
     return _check_mfn_scan("mfn_scan_packed", mfnv_k.mfn_scan_packed,
                            mfnv_k.mfn_scan_packed_plain, B, T, dtype, device,
-                           seed, mods, reps)
+                           seed, mods, reps, repeat=True,
+                           same_as=mfn_k.mfn_scan_fused)
 
 
 def check_mfn_aligned(B: int, T: int, dtype: torch.dtype, *, device,
-                      seed: int = 0, mods=AVL, reps: int = 5) -> KernelCheck:
-    """Row 9, hidden blocks padded to multiples of ALIGN_HP (pad lanes not
-    counted in the bound)."""
-    return _check_mfn_scan("mfn_scan_aligned", mfnv_k.mfn_scan_aligned,
-                           mfnv_k.mfn_scan_aligned_plain, B, T, dtype, device,
-                           seed, mods, reps)
+                      seed: int = 0, mods=AVL, reps: int = 5,
+                      hp: int = mfnv_k.ALIGN_HP) -> KernelCheck:
+    """Row 9, hidden blocks padded to multiples of hp (pad lanes not
+    counted in the bound), on a workspace filled with NaN before each call
+    (a pad lane the kernel did not write would spoil every output); also
+    bit-identical when called again, and within the MFN bench's tolerance
+    (bench_mfn_kernel.TOLERANCE) of kernel B.  Its time is the wrapper's
+    without the fill."""
+    from ...bench_mfn_kernel import TOLERANCE
+
+    def kernel(xps, whhs, gates):
+        return mfnv_k.mfn_scan_aligned(xps, whhs, gates, hp, fill=math.nan)
+
+    def timed(xps, whhs, gates):
+        return mfnv_k.mfn_scan_aligned(xps, whhs, gates, hp)
+
+    def plain(xps, whhs, gates):
+        return mfnv_k.mfn_scan_aligned_plain(xps, whhs, gates, hp)
+
+    return _check_mfn_scan(
+        "mfn_scan_aligned", kernel, plain, B, T, dtype, device, seed, mods,
+        reps, repeat=True,
+        near=(mfn_k.mfn_scan_fused, TOLERANCE[_dtype_name(dtype)]),
+        label="" if hp == mfnv_k.ALIGN_HP else f"hp={hp} ", timed=timed)
 
 
 def _label(p, d_k: int = 32) -> str:

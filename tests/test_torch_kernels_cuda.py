@@ -26,8 +26,12 @@ when called again), within the competitive bound
 err(kernel - fp64 plain) <= 2 * err(plain - fp64 plain) + 1e-6 on every
 output tensor, the whole-stack backward also bit-identical to the layer
 backward called per layer, and the training kernels again at p = 0; the
-MFN's packed and aligned variants (rows 8 and 9) at the main path's shape,
-a ragged one and one with the emotient modality; and the routes: kernel A
+MFN's packed and aligned variants (rows 8 and 9, kernel B's stages on views
+of their packed and padded tensors) at the main path's shape, a ragged one
+and one with the emotient modality, bit-identical when called again (packed
+also to kernel B; aligned on a NaN-filled workspace, also at the TPU
+kernel's padding of 128, within the MFN bench's tolerance of kernel B), and
+the refusals of their C entries; and the routes: kernel A
 up to T = 512, kernel 11 layer by layer past it, the plain encoder in
 "query" mode, kernel 5 in place of kernel 4 on the "stack" training route,
 kernels 3/4 and 6/7 at p = 0 for gradients without seeds.  Kernel 6
@@ -290,6 +294,9 @@ MFN_VARIANT_SHAPES = {
 @pytest.mark.parametrize("shape", sorted(MFN_VARIANT_SHAPES))
 @pytest.mark.parametrize("variant", ["packed", "aligned"])
 def test_mfn_variant_kernel_within_bound(device, variant, shape, dtype):
+    """Within the bound and bit-identical when called again; packed also
+    bit-identical to kernel B, aligned within the bench's tolerance of it
+    (kernel B launched once, for that comparison)."""
     from multimodal_transformer_tpu_torch.ops.cuda import (mfn, mfn_variants,
                                                            verify)
     counter = f"{variant}_launches"
@@ -298,9 +305,88 @@ def test_mfn_variant_kernel_within_bound(device, variant, shape, dtype):
     c = getattr(verify, f"check_mfn_{variant}")(B, T, DTYPES[dtype],
                                                 device=device, mods=mods,
                                                 reps=0)
-    assert getattr(mfn_variants, counter) > before[0]
-    assert mfn.launches == before[1]
-    assert c.ok, c.line()
+    assert getattr(mfn_variants, counter) == before[0] + 2
+    assert mfn.launches == before[1] + 1
+    assert c.ok and c.identical, c.line()
+    assert (c.reference is None) == (variant == "packed")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(MFN_VARIANT_SHAPES))
+def test_mfn_aligned_at_the_tpu_padding_within_bound(device, shape, dtype):
+    """Row 9 at hp = 128 (every hidden block padded to 128 lanes)."""
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    B, T, mods = MFN_VARIANT_SHAPES[shape]
+    c = verify.check_mfn_aligned(B, T, DTYPES[dtype], device=device,
+                                 mods=mods, reps=0, hp=128)
+    assert c.ok and c.identical, c.line()
+
+
+# views the C entries of rows 8 and 9 refuse: (layout, what is spoiled)
+VIEW_REFUSALS = [("packed", "pad lanes"), ("packed", "whh off its element"),
+                 ("packed", "whh row stride"), ("packed", "gate stride"),
+                 ("packed", "gate row stride"), ("aligned", "first lane"),
+                 ("aligned", "lanes overlap"), ("aligned", "c row too narrow"),
+                 ("aligned", "xp off 16 bytes")]
+
+
+@pytest.mark.parametrize("layout,bad", VIEW_REFUSALS)
+def test_mfn_variant_c_entries_refuse_bad_views(device, layout, bad):
+    """Each C entry returns cudaErrorInvalidValue (1) for views its stages
+    cannot read, and launches nothing; the same views unspoiled run."""
+    import ctypes
+
+    from multimodal_transformer_tpu_torch.ops.cuda import _build
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
+    from multimodal_transformer_tpu_torch.ops.cuda import mfn_variants as mv
+    from multimodal_transformer_tpu_torch.ops.cuda import verify
+    _, xps, whhs, gates = verify._mfn_case(2, 5, torch.float32, device, 0,
+                                           verify.AVL)
+    views = (mv._packed_views_of(whhs, gates) if layout == "packed"
+             else mv._aligned_views_of(whhs, gates, mv.ALIGN_HP))
+    args = mfn_k.staged_args(xps, whhs, gates, "test")
+    lib = _build.load()
+
+    def launch(spoil):
+        whh, whh_ld, whh_gate, g, g_ld, c_off, c_width = mv._view_args(views)
+        xp = [x.data_ptr() for x in xps]
+        if spoil:
+            if bad == "pad lanes":
+                c_width += 32
+            elif bad == "whh off its element":
+                whh[1] += 2
+            elif bad == "whh row stride":
+                whh_ld[0] = 47
+            elif bad == "gate stride":
+                whh_gate[2] = 87
+            elif bad == "gate row stride":
+                g_ld[8] = 2 * c_width
+            elif bad == "first lane":
+                c_off[0] = 32
+            elif bad == "lanes overlap":
+                c_off[1] = 40
+            elif bad == "c row too narrow":
+                c_width = c_off[2] + 87
+            else:
+                xp[0] += 8
+        dtype_code, B, T, mem, h1, h2, hg1, hg2, hid = args
+        ws = mfn_k.staged_workspace(lib, args, device, "test", c_width)
+        hs = torch.empty(B, T, sum(hid), device=device)
+        mems = torch.empty(B, T, mem, device=device)
+        with torch.no_grad():
+            return getattr(lib, f"mmtx_mfn_scan_{layout}")(
+                dtype_code, _build.pointer_array(xp),
+                (ctypes.c_int * 3)(*hid), 3, whh, whh_ld, whh_gate, g, g_ld,
+                c_off, c_width, hs.data_ptr(), mems.data_ptr(), ws.data_ptr(),
+                B, T, mem, h1, h2, hg1, hg2,
+                torch.cuda.current_stream().cuda_stream)
+
+    assert launch(False) == 0
+    torch.cuda.synchronize()
+    assert launch(True) == 1
+    hid = (ctypes.c_int * 3)(*args[-1])
+    assert lib.mmtx_mfn_scan_workspace(0, hid, 3, 2, 5, *args[3:8],
+                                       sum(args[-1]) - 2) == -1
 
 
 def test_mfn_variants_raise_on_what_they_do_not_take(device):

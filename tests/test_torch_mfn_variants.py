@@ -161,17 +161,6 @@ def test_padded_widths():
         mv.padded_widths([48], 0)
 
 
-def test_aligned_shared_memory_fits_every_mft_modality_set():
-    h = mfn_core.HIDDEN_DIM
-    widths = (mfn_core.MEM_DIM, mfn_core.H_ATT1, mfn_core.H_ATT2,
-              mfn_core.H_GAMMA1, mfn_core.H_GAMMA2)
-    for hp in (mv.ALIGN_HP, 128):
-        hps = mv.padded_widths(list(h.values()), hp)
-        assert mv.aligned_smem_bytes(hps, *widths) <= 48 * 1024
-    assert mv.aligned_smem_bytes([64, 96, 96], *widths) == 4 * (
-        12 * 256 + 128 + 128 + 256 + 64 + 64 + 3 * 128 + 2) + 4 * 8
-
-
 @pytest.mark.parametrize("variant", ["packed", "aligned"])
 def test_wrapper_takes_its_plain_version_on_the_cpu(packed_case, variant):
     _, (_, _, _, args) = packed_case
