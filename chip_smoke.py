@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Fourteen phases,
+Run from the repository root: `python3 chip_smoke.py`.  Fifteen phases,
 any failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -121,7 +121,20 @@ any failure exits nonzero:
    on the "stack" encoder backward bit-identical to "perlayer", exact
    launch counts per step on both routes; bf16 mixed ms/step from a batch
    on the card and from a host batch; one "query"-mode step;
-14. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
+14. CLI: `python -m multimodal_transformer_tpu_torch.train` on the
+   synthetic SENDv1 tree that --synthetic_data writes (8/3/3 videos of
+   45-75 s, GloVe and BERT features), in a temporary directory: MFT A+V+L
+   trained 2 epochs in bf16 mixed precision, key_query, as a subprocess;
+   resumed in process for a third epoch (it must log "Resumed from ... at
+   epoch 3"; launches exact: kernels 3, 4, 6, 7 and 10 in the step, A, B
+   and 10 in the validation); `--eval` and `--test --fast_eval` of the
+   `.pth` (exact launches of A, B and 10); `--perf` (14 PerfSave rows); a
+   B2-Trans `--resident_train` epoch (kernels 3, 4 and 10); every logged
+   loss and CCC finite; the reader, the checkpoint files and epochs with
+   and without the prefetcher timed; `ValencePredictor.from_checkpoint`'s
+   Test traces within the slice's bf16 tolerance of the plain fp32 forward
+   of the same weights; seconds per epoch and per evaluation pass;
+15. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
    and "stack", alternated, ms/step and launches (kernel 5 three times per
    step on "stack", kernel 4 never).
 
@@ -1285,6 +1298,255 @@ def run_families_train(torch, np, device):
     return times
 
 
+# the CLI phase: the synthetic SENDv1 tree of --synthetic_data (60-s
+# videos), the MFT A+V+L training run and the kernels each CLI run must
+# launch
+CLI_SUBSETS = {"Train": 8, "Valid": 3, "Test": 3}
+CLI_TRAIN_KERNELS = ("encoder_stack_train_fwd", "encoder_layer_bwd",
+                     "mfn_train_fwd", "mfn_train_bwd", "window_embed_highway")
+CLI_EVAL_KERNELS = ("encoder_stack_fused", "mfn_scan_fused",
+                    "window_embed_highway")
+
+
+def _log_numbers(path: Path) -> list:
+    """Every loss and CCC a CLI log line reports."""
+    import re
+    pat = re.compile(r"(?:Loss|CCC|CCC\(std\)|SINGLE_BEST|BEST): "
+                     r"(-?[0-9.eE+-]+|nan|inf|-inf)")
+    return [float(v) for v in pat.findall(path.read_text())]
+
+
+class _Timed:
+    """Wraps Engine methods to sum the synchronised seconds of their calls."""
+
+    def __init__(self, torch, engine_cls, names):
+        self.torch, self.cls, self.names = torch, engine_cls, names
+        self.seconds = {n: [] for n in names}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.cls, n) for n in self.names}
+        for n, fn in self.orig.items():
+            def timed(*a, _fn=fn, _n=n, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                self.seconds[_n].append(time.perf_counter() - t0)
+                return out
+            setattr(self.cls, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.cls, n, fn)
+
+
+def run_cli(torch, np, device) -> None:
+    """`python -m multimodal_transformer_tpu_torch.train` on the synthetic
+    SENDv1 tree: train MFT A+V+L (a subprocess), resume, --eval, --test
+    --fast_eval, --perf, a resident B2-Trans epoch; launches, the
+    checkpoint's traces against the plain fp32 forward, finite logs."""
+    import tempfile
+
+    from multimodal_transformer_tpu_torch import ValencePredictor, build_model
+    from multimodal_transformer_tpu_torch import train as cli
+    from multimodal_transformer_tpu_torch.data import (
+        generate_synthetic_send, load_send)
+    from multimodal_transformer_tpu_torch.engine import (Engine, load_model,
+                                                         save_checkpoint)
+
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data_dir = tmp / "SENDv1-data"
+        generate_synthetic_send(str(data_dir), CLI_SUBSETS, duration_s=60.0)
+        generate_synthetic_send(str(data_dir), CLI_SUBSETS, duration_s=60.0,
+                                modalities=("linguistic",),
+                                linguistic_variant="bert")
+
+        def flags(log: str, *extra):
+            return ["--data_dir", str(data_dir),
+                    "--save_dir", str(tmp / "ModelSave"),
+                    "--pred_save_dir", str(tmp / "PredSave"),
+                    "--perf_save_dir", str(tmp / "PerfSave"),
+                    "--log_file", str(tmp / log), "--mask_mode", "key_query",
+                    "--device", str(device), *extra]
+
+        train = ("--family", "MFT", "--comb", "VAL", "--save_freq", "1",
+                 "--mixed_precision")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(here)] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "multimodal_transformer_tpu_torch.train",
+             *flags("train.log", *train, "--epochs", "2")],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SmokeFailure(f"the training CLI exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        ckpt = tmp / "ModelSave" / "MFT" / "MFT-VAL.pth"
+        if not ckpt.exists() or not ckpt.with_suffix(".pth.state").exists():
+            raise SmokeFailure(f"no {ckpt} or its .state after training")
+        print(f"CLI train (subprocess): MFT A+V+L, 2 epochs of "
+              f"{CLI_SUBSETS['Train']} videos, {wall:.1f} s wall", flush=True)
+
+        parse = lambda *a: cli.build_arg_parser().parse_args(list(a))
+        mods = ("acoustic", "image", "linguistic")
+        n_valid, steps = CLI_SUBSETS["Valid"], -(-CLI_SUBSETS["Train"] // 25)
+        reset_counters()
+        with _Timed(torch, Engine, ("train_epoch", "evaluate_per_video")) as tm:
+            cli.main(parse(*flags("resume.log", *train, "--epochs", "3",
+                                  "--resume")))
+        got = {k: v for k, v in read_counters().items() if v}
+        want = {"encoder_stack_train_fwd": 3 * steps,
+                "encoder_layer_bwd": 18 * steps, "mfn_train_fwd": steps,
+                "mfn_train_bwd": steps,
+                "window_embed_highway": 3 * steps + 3 * n_valid,
+                "encoder_stack_fused": 3 * n_valid, "mfn_scan_fused": n_valid}
+        log = (tmp / "resume.log").read_text()
+        epoch_s = tm.seconds["train_epoch"][0]
+        valid_s = tm.seconds["evaluate_per_video"][0]
+        print(f"CLI resume (in process): epoch 3, {epoch_s:.3f} s per epoch "
+              f"({steps} step), validation {valid_s:.3f} s; launches {got}",
+              flush=True)
+        if "Resumed from" not in log or "at epoch 3" not in log:
+            raise SmokeFailure("the resumed run did not log 'Resumed from "
+                               "... at epoch 3'")
+        if got != want:
+            raise SmokeFailure(f"expected launches {want} in the resumed "
+                               "epoch and its validation")
+
+        _, _, _, test_lens = cli.prepare_data(
+            load_model(str(ckpt), "MFT", "key_query")[0], str(data_dir),
+            "Test")
+        n_test = len(test_lens)
+        batches = n_batches(test_lens, 32, 32)
+        for name, extra, want in (
+                ("--eval", ("--eval",), {"encoder_stack_fused": 3 * n_valid,
+                                         "mfn_scan_fused": n_valid,
+                                         "window_embed_highway": 3 * n_valid}),
+                ("--test --fast_eval", ("--test", "--fast_eval"),
+                 {"encoder_stack_fused": 3 * batches,
+                  "mfn_scan_fused": batches,
+                  "window_embed_highway": 3 * batches})):
+            reset_counters()
+            t0 = time.perf_counter()
+            with _Timed(torch, Engine, ("evaluate_per_video",
+                                        "evaluate_batched")) as tm:
+                stats = cli.main(parse(*flags("eval.log", "--family", "MFT",
+                                              "--load", str(ckpt), *extra)))
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in read_counters().items() if v}
+            passes = tm.seconds["evaluate_per_video"] + \
+                tm.seconds["evaluate_batched"]
+            print(f"CLI {name}: CCC {stats['ccc']:.6f}, evaluation pass "
+                  f"{passes[0]:.3f} s, {wall:.3f} s wall with loading; "
+                  f"launches {got}", flush=True)
+            if got != want or not math.isfinite(stats["ccc"]):
+                raise SmokeFailure(f"{name}: expected launches {want} and a "
+                                   "finite CCC")
+            if any(not math.isfinite(v) for v in
+                   _log_numbers(tmp / "eval.log")):
+                raise SmokeFailure(f"{name}: a logged value is not finite")
+
+        t0 = time.perf_counter()
+        cli.main(parse(*flags("perf.log", "--perf", "--model_save",
+                              str(tmp / "ModelSave" / "MFT"))))
+        rows = (tmp / "PerfSave" / "MFT.csv").read_text().splitlines()[1:]
+        n_rows = sum(CLI_SUBSETS.values())
+        print(f"CLI --perf: {len(rows)} PerfSave rows in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        if len(rows) != n_rows or any(
+                not math.isfinite(float(r.split(",")[-1])) for r in rows):
+            raise SmokeFailure(f"--perf wrote {len(rows)} rows, not "
+                               f"{n_rows} finite ones")
+
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(parse(*flags("resident.log", "--family", "B2-Trans",
+                              "--resident_train", "--epochs", "1",
+                              "--mixed_precision")))
+        got = {k: v for k, v in read_counters().items() if v}
+        print(f"CLI --resident_train B2-Trans: 1 epoch in "
+              f"{time.perf_counter() - t0:.3f} s with loading; launches "
+              f"{got}", flush=True)
+        if not all(got.get(k) for k in ("encoder_stack_train_fwd",
+                                         "encoder_layer_bwd",
+                                         "window_embed_highway")):
+            raise SmokeFailure("the resident epoch did not launch kernels "
+                               "3, 4 and 10")
+
+        for log in ("train.log", "resume.log", "perf.log", "resident.log"):
+            values = _log_numbers(tmp / log)
+            if not values or any(not math.isfinite(v) for v in values):
+                raise SmokeFailure(f"{log}: a logged loss or CCC is not "
+                                   "finite, or none was logged")
+
+        # the host layers under the CLI: the reader and windowing, the
+        # checkpoint files, and epochs with and without the prefetcher,
+        # alternated (bf16 mixed MFT A+V+L, one step an epoch)
+        cfg, state = load_model(str(ckpt), "MFT", "key_query")
+        t0 = time.perf_counter()
+        _, x, y, lens = cli.prepare_data(cfg, str(data_dir), "Train")
+        read_s = time.perf_counter() - t0
+        eng = Engine(cfg, train_dtype=torch.bfloat16, device=device)
+        io = {}
+        for what, fn in (
+                ("restore_state", lambda: eng.restore_state(
+                    str(ckpt) + ".state")),
+                ("save_state", lambda: eng.save_state(str(tmp / "t.state"))),
+                ("save_checkpoint", lambda: save_checkpoint(
+                    cfg, eng.module.state_dict(), str(tmp / "t.pth"))),
+                ("load_model", lambda: load_model(str(tmp / "t.pth"), "MFT"))):
+            t0 = time.perf_counter()
+            fn()
+            io[what] = time.perf_counter() - t0
+        epochs = {2: [], 0: []}
+        rng = np.random.RandomState(1)
+        for depth in (2, 0, 0, 2, 2, 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.train_epoch(x, y, lens, rng=rng, prefetch=depth)
+            torch.cuda.synchronize()
+            epochs[depth].append(time.perf_counter() - t0)
+        print(f"CLI layers: Train split read and windowed in {read_s:.3f} s "
+              f"({len(lens)} videos, {sum(lens)} windows); "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in io.items())
+              + f"; epoch s, prefetch 2 {[round(v, 4) for v in epochs[2]]}, "
+              f"none {[round(v, 4) for v in epochs[0]]} (alternated)",
+              flush=True)
+
+        predictor = ValencePredictor.from_checkpoint(str(ckpt), "MFT",
+                                                     device=device)
+        traces = predictor.predict_dataset(load_send(mods, str(data_dir),
+                                                     "Test"))
+        ref = build_model(cfg)
+        ref.load_state_dict({k: torch.from_numpy(v)
+                             for k, v in state.items()})
+        ref = ref.to(device).eval()
+        ds, x, _, lens = cli.prepare_data(cfg, str(data_dir), "Test")
+        worst = 0.0
+        for vi, sid in enumerate(cli.seq_id_strings(ds.seq_ids)):
+            n = int(lens[vi])
+            inputs = {m: torch.from_numpy(x[m][vi:vi + 1, :n]).to(device)
+                      for m in mods}
+            with torch.inference_mode():
+                want = ref(inputs, torch.ones(1, n, 1, device=device),
+                           mask_mode="key_query", plain=True)
+            worst = max(worst, float(np.abs(
+                traces[sid] - want[0, :, 0].cpu().numpy()).max()))
+        print(f"CLI phase on {card_line()}: {epoch_s:.3f} s per epoch, "
+              f"{valid_s:.3f} s per validation pass", flush=True)
+        print(f"ValencePredictor.from_checkpoint: {len(traces)} Test traces, "
+              f"|bf16 kernel path - fp32 plain| = {worst:.3e} "
+              f"(tol {SLICE_TOL:.0e})", flush=True)
+        if len(traces) != n_test or worst > SLICE_TOL:
+            raise SmokeFailure("the checkpoint's traces are outside the "
+                               "serving tolerance")
+
+
 def run_train_ab(torch, np, device) -> None:
     """The MFT A+V+L mixed step on each encoder backward, alternated."""
     from multimodal_transformer_tpu_torch import default_config
@@ -1779,6 +2041,9 @@ def main() -> int:
     print("families train, bf16 mixed ms/step (card batch, host batch): "
           + "; ".join(f"{k} {a:.3f}, {b:.3f}" for k, (a, b) in
                       train_ms.items()), flush=True)
+
+    phase("CLI")
+    run_cli(torch, np, device)
 
     phase("train A/B")
     run_train_ab(torch, np, device)

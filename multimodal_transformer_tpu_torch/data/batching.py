@@ -9,6 +9,8 @@ length (descending, stable) and cut to its longest video.
 `time_multiple`, and every batch has exactly `batch_size` rows (the last
 partial batch of a bucket cycles its videos, with their mask and target
 zeroed).  Masks are trailing (1 for the first `length` steps, then 0).
+`len_to_mask`, `pad_and_merge` and `seq_collate_dict` are the reference's
+collate helpers (MFT/datasets.py:193-239).
 """
 
 from __future__ import annotations
@@ -70,6 +72,37 @@ def make_batches(data: Dict[str, np.ndarray], target: np.ndarray,
         for bi, ln in enumerate(lens):
             mask[bi, :ln] = 1.0
         yield Batch(batch_data, tgt, mask, lens, list(chunk))
+
+
+def len_to_mask(lengths: Sequence[int]) -> np.ndarray:
+    """[B, T_max, 1] boolean mask (reference len_to_mask)."""
+    t_max = max(lengths)
+    ar = np.arange(t_max)[None, :] < np.asarray(lengths)[:, None]
+    return ar[:, :, None]
+
+
+def pad_and_merge(sequences: Sequence[np.ndarray],
+                  max_len: Optional[int] = None) -> np.ndarray:
+    """Zero-pad [T_i, D] sequences into one [B, T_max, D] float32 batch."""
+    dims = sequences[0].shape[1]
+    lengths = [len(s) for s in sequences]
+    if max_len is None:
+        max_len = max(lengths)
+    out = np.zeros((len(sequences), max_len, dims), np.float32)
+    for i, s in enumerate(sequences):
+        out[i, :lengths[i]] = s[:max_len]
+    return out
+
+
+def seq_collate_dict(items: List[Dict[str, np.ndarray]]):
+    """Collate dict items (with a 'length' key) into padded batch + mask
+    (reference seq_collate_dict): sorts by length descending."""
+    modalities = [k for k in items[0] if k != "length"]
+    items = sorted(items, key=lambda d: d["length"], reverse=True)
+    lengths = [d["length"] for d in items]
+    batch = {m: pad_and_merge([np.asarray(d[m]) for d in items],
+                              max(lengths)) for m in modalities}
+    return batch, len_to_mask(lengths), lengths
 
 
 def bucketed_eval_batches(data: Dict[str, np.ndarray], target: np.ndarray,

@@ -10,13 +10,20 @@ bf16), and each trace is returned in float32, cut to its true length.
     predictor = ValencePredictor(cfg, module)
     traces = predictor.predict_padded(data, seq_lens)
 
+    predictor = ValencePredictor.from_checkpoint("MFT-VAL-88.pth", "MFT")
+    traces = predictor.predict_dataset(load_send([...], data_dir, "Test"))
+    # {"165_2": np.array([...valence per rating window...]), ...}
+
 On the card, a family's encoders take kernel A on buckets of up to 512
 windows and, on the buckets past it (544, 576, ... with the default
 time_multiple of 32), the flash route: layer by layer with attention
 through kernel 11 (ops/dispatch.py `encoder_route`).
 
-Loading checkpoints (`from_checkpoint`) and the SENDv1 reader
-(`predict_dataset`) are not ported yet.
+`from_checkpoint` reads a reference-layout `.pth` or the JAX package's
+msgpack `.ckpt` (engine/checkpoint.py `load_model`: the configuration from
+the file, B1-LSTM's legacy variant and the acoustic window embed from the
+weights); `predict_dataset` windows a SendDataset (data/send.py,
+data/windowing.py) with the configuration's window sizes.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ import torch
 from torch import nn
 
 from .data.batching import bucketed_eval_batches
+from .data.send import SendDataset
+from .data.windowing import window_pipeline
+from .engine.checkpoint import load_model
+from .engine.csv_io import seq_id_strings
+from .models import build_model
 from .models.config import ModelConfig
 
 
@@ -47,6 +59,18 @@ class ValencePredictor:
         # a private copy: the caller's module keeps its device and dtype
         self.module = copy.deepcopy(module).to(device=self.device,
                                                dtype=self.dtype).eval()
+
+    @classmethod
+    def from_checkpoint(cls, path: str, family: str,
+                        **kw) -> "ValencePredictor":
+        """A predictor for a `.pth` or `.ckpt` checkpoint ("key_query"
+        masking)."""
+        cfg, state = load_model(path, family, mask_mode="key_query")
+        with torch.device("meta"):
+            module = build_model(cfg)
+        module.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in state.items()}, assign=True)
+        return cls(cfg, module, **kw)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device=self.device, dtype=self.dtype)
@@ -69,6 +93,14 @@ class ValencePredictor:
             for row, (vi, ln) in enumerate(zip(batch.indices, batch.lengths)):
                 out[vi] = pred[row, :ln, 0].copy()
         return out
+
+    def predict_dataset(self, dataset: SendDataset) -> Dict[str, np.ndarray]:
+        """Traces of a loaded SendDataset, keyed by 'subj_vid'."""
+        padded, _, seq_lens = window_pipeline(
+            dataset, self.cfg.window_size, self.cfg.modalities,
+            self.cfg.mod_dimension)
+        traces = self.predict_padded(padded, seq_lens)
+        return dict(zip(seq_id_strings(dataset.seq_ids), traces))
 
     def warmup(self, max_windows: int, frames: Dict[str, int]) -> int:
         """Run one batch of every bucket up to max_windows (builds the
