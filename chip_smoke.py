@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Fifteen phases,
+Run from the repository root: `python3 chip_smoke.py`.  Sixteen phases,
 any failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -121,7 +121,29 @@ any failure exits nonzero:
    on the "stack" encoder backward bit-identical to "perlayer", exact
    launch counts per step on both routes; bf16 mixed ms/step from a batch
    on the card and from a host batch; one "query"-mode step;
-14. CLI: `python -m multimodal_transformer_tpu_torch.train` on the
+14. parallel: 2 ranks started by `parallel.spawn` after the build (NCCL
+   with a card each, else gloo with both on cuda:0), against one process
+   on the same weights and global batches (padded to the ranks as the
+   ranks pad them): an fp32 data-parallel epoch of MFT A+V+L, 3 steps of
+   the bench recipe (B = 32, 32 and 31, T = 160, dropout on): each step's
+   loss within 1e-4, each step's summed gradients and the final
+   parameters within the train phase's limits, every rank's parameters
+   equal; the same epoch bf16 mixed against the one-process bf16 epoch
+   (losses within 1e-4, finite; each step's summed gradients within 16
+   times the train limits at step 0 and 100 times at the later steps,
+   beside the control of the one-process bf16 step against the fp32
+   step); exact
+   launches of kernels 3, 4, 6, 7 and 10 on every rank;
+   Engine.evaluate_per_video and evaluate_batched over 8 videos of
+   20-400 windows and one of 600, CCCs within 1e-4 and exact launches of
+   A, B and 10 per rank, and of 11 for the video past 512 windows; the
+   tensor-parallel eval forward of B2-Trans and MFT A+V+L over a 1 x 2
+   ("data", "model") mesh, B=32, T=160, fp32, within 1e-4 of the one-card
+   forward, kernel 11 counted on every rank; ms per bf16 DP step at 2
+   ranks and in one process, ms per gradient all_reduce (with the copies
+   into and out of the flat buffer, and the collective alone), the
+   phase's wall time, each beside the card's name and power limit;
+15. CLI: `python -m multimodal_transformer_tpu_torch.train` on the
    synthetic SENDv1 tree that --synthetic_data writes (8/3/3 videos of
    45-75 s, GloVe and BERT features), in a temporary directory: MFT A+V+L
    trained 2 epochs in bf16 mixed precision, key_query, as a subprocess;
@@ -134,7 +156,7 @@ any failure exits nonzero:
    and without the prefetcher timed; `ValencePredictor.from_checkpoint`'s
    Test traces within the slice's bf16 tolerance of the plain fp32 forward
    of the same weights; seconds per epoch and per evaluation pass;
-15. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
+16. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
    and "stack", alternated, ms/step and launches (kernel 5 three times per
    step on "stack", kernel 4 never).
 
@@ -1298,6 +1320,341 @@ def run_families_train(torch, np, device):
     return times
 
 
+# the parallel phase: 2 ranks (NCCL on a card each, else gloo with both on
+# cuda:0); MFT A+V+L batches of the bench recipe, the last of 31 videos (a
+# pad row over 2 ranks); 8 evaluation videos of 20-400 windows and one of
+# PAR_LONG_VIDEO, past kernel A's 512; the TP configurations with their
+# launches per forward on each rank
+PAR_RANKS = 2
+PAR_BATCHES = ((BENCH_B, 20), (BENCH_B, 21), (BENCH_B - 1, 22))
+# the bf16 mixed DP epoch against the one-process bf16 epoch: losses within
+# the train phase's LOSS_RTOL; each step's summed gradients within
+# PAR_BF16_GRAD_SCALE times the fp32 limits (GRAD_RTOL, GRAD_FLOOR), at
+# step 0 (equal parameters) and at the later steps (after Adam has turned
+# rounding-level gradient differences into +-lr steps).  Each scale lies
+# between the largest reading of DP against one process and the smallest of
+# the control, the one-process bf16 step against the fp32 step (the
+# readings are in PERF.md)
+PAR_BF16_GRAD_SCALE = (16.0, 100.0)
+PAR_EVAL_VIDEOS = 8
+PAR_LONG_VIDEO = 600
+PAR_TIMED_STEPS = 9
+PAR_TP = (("B2-Trans A+V+L", "B2-Trans",
+           {"flash_attention_masked": 6, "window_embed_highway": 3}),
+          ("MFT A+V+L", "MFT", {"flash_attention_masked": 18,
+                                "mfn_scan_fused": 1,
+                                "window_embed_highway": 3}))
+PAR_TP_TOL = 1e-4
+
+
+def _par_batches(np, Batch, cfg):
+    return [_bench_batch(np, Batch, cfg, b, BENCH_T, seed)
+            for b, seed in PAR_BATCHES]
+
+
+def _par_eval_set(np, cfg):
+    rng = np.random.default_rng(31)
+    lens = np.append(rng.integers(MIN_WINDOWS, MAX_WINDOWS + 1,
+                                  size=PAR_EVAL_VIDEOS), PAR_LONG_VIDEO)
+    W = int(lens.max())
+    data = {m: rng.standard_normal((len(lens), W, FRAMES[m],
+                                    cfg.mod_dimension[m]), dtype=np.float32)
+            for m in cfg.modalities}
+    target = rng.standard_normal((len(lens), W), dtype=np.float32) * (
+        np.arange(W)[None, :] < lens[:, None])
+    return data, target.astype(np.float32), [int(v) for v in lens]
+
+
+def _par_epoch(torch, engine, batches) -> tuple:
+    """(each step's loss, {kernel: launches}, each step's gradients as the
+    optimizer takes them, summed over the ranks, on the CPU) of train_step
+    over batches."""
+    grads = []
+    step = engine.optimizer.step
+
+    def recorded(*args, **kwargs):
+        grads.append([p.grad.detach().cpu() for p in
+                      engine.module.parameters()])
+        return step(*args, **kwargs)
+
+    engine.optimizer.step = recorded
+    reset_counters()
+    try:
+        losses = [engine.train_step(b) for b in batches]
+        torch.cuda.synchronize()
+    finally:
+        del engine.optimizer.step  # the optimizer's own method again
+    return losses, {k: v for k, v in read_counters().items() if v}, grads
+
+
+def _par_ms(torch, fn, barrier) -> float:
+    """Host ms per call of fn over PAR_TIMED_STEPS calls after 2 warm-up
+    calls (all ranks start together when barrier is given)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    if barrier:
+        barrier()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED_STEPS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+
+
+def _parallel_rank(rank: int, device_type: str) -> dict:
+    """One rank of the parallel phase: DP training (fp32 and bf16 mixed,
+    the summed gradients recorded) and evaluation on a 1-D mesh over both
+    ranks, ms per DP step and per gradient all_reduce (with the copies into
+    and out of the flat buffer, and the collective alone), then the TP
+    forwards on a 1 x 2 mesh.  Returns what the parent compares."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from multimodal_transformer_tpu_torch import build_model, default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.parallel import (make_mesh,
+                                                           make_mesh_2d,
+                                                           shard_params_tp)
+    from multimodal_transformer_tpu_torch.parallel import mesh as dp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device_type == "cuda" else torch.device(device_type))
+    mesh = make_mesh(PAR_RANKS, device_type)
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    batches = _par_batches(np, Batch, cfg)
+    out = {"rank": rank}
+
+    f32 = Engine(cfg, seed=1, device=device, mesh=mesh)
+    out["fp32_losses"], out["train_launches"], grads = _par_epoch(
+        torch, f32, batches)
+    out["params"] = [p.detach().cpu() for p in f32.module.parameters()]
+    mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device,
+                   mesh=mesh)
+    out["bf16_losses"], out["bf16_launches"], bf16_grads = _par_epoch(
+        torch, mixed, batches)
+    if rank == 0:
+        out["grads"], out["bf16_grads"] = grads, bf16_grads
+    del grads, bf16_grads
+
+    data, target, lens = _par_eval_set(np, cfg)
+    reset_counters()
+    per = f32.evaluate_per_video(data, target, lens)
+    torch.cuda.synchronize()
+    out["per_video"] = (per[0], per[3], {k: v for k, v in
+                                         read_counters().items() if v})
+    reset_counters()
+    bat = f32.evaluate_batched(data, target, lens)
+    torch.cuda.synchronize()
+    out["batched"] = (bat[0], bat[1], {k: v for k, v in
+                                       read_counters().items() if v})
+
+    barrier = lambda: dp.barrier(mesh)
+    out["dp_step_ms"] = _par_ms(torch, lambda: mixed.train_step(batches[0]),
+                                barrier)
+    flat = [torch.zeros_like(p) for p in mixed.module.parameters()]
+    buffer = dp.FlatBuffer()
+    out["all_reduce_ms"] = _par_ms(
+        torch, lambda: dp.all_reduce_flat(flat, mesh, buffer), barrier)
+    out["collective_ms"] = _par_ms(torch, lambda: dist.all_reduce(
+        buffer.flat, group=mesh.get_group()), barrier)
+    out["all_reduce_mb"] = buffer.flat.numel() * 4 / 1e6
+    del f32, mixed
+
+    mesh2 = make_mesh_2d(1, PAR_RANKS, device_type)
+    out["tp"] = {}
+    for i, (name, family, _) in enumerate(PAR_TP):
+        cfg = default_config(family, AVL, mask_mode="key_query")
+        module = build_model(cfg, generator=torch.Generator().manual_seed(
+            40 + i)).to(device).eval()
+        tp, _ = shard_params_tp(module, mesh2)
+        batch = _bench_batch(np, Batch, cfg, BENCH_B, BENCH_T, seed=50 + i)
+        reset_counters()
+        with torch.inference_mode():
+            pred = tp({m: torch.from_numpy(v).to(device)
+                       for m, v in batch.data.items()},
+                      torch.from_numpy(batch.mask).to(device))
+        torch.cuda.synchronize()
+        out["tp"][name] = (pred.cpu(), {k: v for k, v in
+                                        read_counters().items() if v})
+    return out
+
+
+def run_parallel(torch, np, device) -> None:
+    """The parallel phase: PAR_RANKS ranks against one process on the
+    same batches and weights."""
+    from multimodal_transformer_tpu_torch import build_model, default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.parallel import (pad_batch_rows,
+                                                           spawn)
+    from multimodal_transformer_tpu_torch.parallel.mesh import \
+        default_backend
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    backend = default_backend(device.type, PAR_RANKS)
+    print(f"parallel: {PAR_RANKS} ranks, {backend} "
+          f"({torch.cuda.device_count()} card(s) for {PAR_RANKS} ranks); "
+          f"torch {torch.__version__}", flush=True)
+    ranks = spawn(_parallel_rank, PAR_RANKS, device.type,
+                  device_type=device.type)
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    # one process on the global batches padded as the ranks pad them, so
+    # the MFN head's `out` site indexes the same B_pad rows
+    pad = lambda b: Batch({m: pad_batch_rows(v, PAR_RANKS)
+                           for m, v in b.data.items()},
+                          pad_batch_rows(b.target, PAR_RANKS),
+                          pad_batch_rows(b.mask, PAR_RANKS), b.lengths)
+    batches = [pad(b) for b in _par_batches(np, Batch, cfg)]
+    f32 = Engine(cfg, seed=1, device=device)
+    losses, _, grads = _par_epoch(torch, f32, batches)
+    names = [n for n, _ in f32.module.named_parameters()]
+    params = [p.detach().cpu() for p in f32.module.parameters()]
+    mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device)
+    bf16_losses, _, bf16_grads = _par_epoch(torch, mixed, batches)
+    steps = len(batches)
+    control_rel = max(abs(a - b) / abs(b) for a, b in zip(bf16_losses, losses))
+    want_train = {"encoder_stack_train_fwd": 3 * steps,
+                  "encoder_layer_bwd": 3 * 6 * steps,
+                  "mfn_train_fwd": steps, "mfn_train_bwd": steps,
+                  "window_embed_highway": 3 * steps}
+    for r in ranks:
+        rank = r["rank"]
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(r["fp32_losses"], losses))
+        bf16_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(r["bf16_losses"], bf16_losses))
+        p_text, p_worst = _worst_grad(names, r["params"], params,
+                                      _grad_norm(torch, params))
+        print(f"parallel rank {rank}: fp32 DP losses {r['fp32_losses']} vs "
+              f"one process {losses} (max rel {loss_rel:.2e}, tol "
+              f"{LOSS_RTOL:.0e}); parameters after {steps} steps: "
+              f"{p_text.replace('gradient', 'parameter')}; bf16 mixed DP "
+              f"losses {r['bf16_losses']} vs {bf16_losses} (max rel "
+              f"{bf16_rel:.2e}, tol {LOSS_RTOL:.0e}; control, one process "
+              f"bf16 vs fp32: {control_rel:.2e}); launches "
+              f"fp32 {r['train_launches']}, bf16 {r['bf16_launches']}",
+              flush=True)
+        if loss_rel > LOSS_RTOL or p_worst > 1.0:
+            raise SmokeFailure(f"parallel rank {rank}: the fp32 DP epoch "
+                               "disagrees with one process")
+        if bf16_rel > LOSS_RTOL or not all(
+                math.isfinite(v) for v in r["bf16_losses"]):
+            raise SmokeFailure(f"parallel rank {rank}: the bf16 DP epoch's "
+                               "losses")
+        if r["train_launches"] != want_train or \
+                r["bf16_launches"] != want_train:
+            raise SmokeFailure(f"parallel rank {rank}: expected launches "
+                               f"{want_train} on the DP training path")
+        if any(not torch.equal(a, b)
+               for a, b in zip(r["params"], ranks[0]["params"])):
+            raise SmokeFailure(f"parallel rank {rank}: parameters differ "
+                               "from rank 0's")
+    # each step's summed gradients against one process's, read at the fp32
+    # limits; bf16 held to PAR_BF16_GRAD_SCALE of them, beside the control:
+    # the one-process bf16 step against the one-process fp32 step
+    total = _grad_norm(torch, grads[0])
+    for what, got_grads, want_grads, scales in (
+            ("fp32", ranks[0]["grads"], grads, (1.0, 1.0)),
+            ("bf16 mixed", ranks[0]["bf16_grads"], bf16_grads,
+             PAR_BF16_GRAD_SCALE)):
+        for i, (got, want) in enumerate(zip(got_grads, want_grads)):
+            scale = scales[min(i, 1)]
+            text, worst = _worst_grad(names, got, want, total)
+            if what == "fp32":
+                control = ""
+            else:
+                control = (f"; control, one-process bf16 vs fp32: "
+                           f"{_worst_grad(names, want, grads[i], total)[0]}")
+            print(f"parallel step {i} {what}: all_reduced gradients vs one "
+                  f"process at the fp32 limits: {text}; held to {scale:g} "
+                  f"of the limits{control}", flush=True)
+            if worst > scale:
+                raise SmokeFailure(f"parallel step {i}: the {what} summed "
+                                   "gradients disagree with one process")
+
+    data, target, lens = _par_eval_set(np, cfg)
+    per = f32.evaluate_per_video(data, target, lens)
+    bat = f32.evaluate_batched(data, target, lens)
+    n_b = n_batches(lens, 32, 32)
+    # batches past 512 windows: kernel 11 in each encoder layer, not kernel A
+    n_long = n_batches([n for n in lens if -(-n // 32) * 32 > 512], 32, 32)
+
+    def launches(videos: int, long: int) -> dict:
+        want = {"encoder_stack_fused": 3 * (videos - long),
+                "flash_attention_masked": 18 * long,
+                "mfn_scan_fused": videos, "window_embed_highway": 3 * videos}
+        return {k: v for k, v in want.items() if v}
+
+    for r in ranks:
+        mine = lens[r["rank"]::PAR_RANKS]
+        for what, (cccs, loss, got), ref, want in (
+                ("evaluate_per_video", r["per_video"], per,
+                 launches(len(mine), sum(n > 512 for n in mine))),
+                ("evaluate_batched", r["batched"], bat,
+                 launches(n_b, n_long))):
+            ref_cccs = ref[0]
+            ref_loss = ref[3] if what == "evaluate_per_video" else ref[1]
+            diff = max(abs(a - b) for a, b in zip(cccs, ref_cccs))
+            print(f"parallel rank {r['rank']} {what}: {len(lens)} videos of "
+                  f"{min(lens)}-{max(lens)} windows, fp32; max |CCC - one "
+                  f"process| = {diff:.3e} (tol {EVAL_FP32_TOL:.0e}); loss "
+                  f"{loss:.6f} vs {ref_loss:.6f}; launches {got}", flush=True)
+            if len(cccs) != len(lens) or diff > EVAL_FP32_TOL or \
+                    abs(loss - ref_loss) > EVAL_FP32_TOL * abs(ref_loss):
+                raise SmokeFailure(f"parallel {what}: rank {r['rank']} "
+                                   "disagrees with one process")
+            if got != want:
+                raise SmokeFailure(f"parallel {what}: rank {r['rank']} "
+                                   f"launched {got}, expected {want}")
+
+    for i, (name, family, want) in enumerate(PAR_TP):
+        tcfg = default_config(family, AVL, mask_mode="key_query")
+        module = build_model(tcfg, generator=torch.Generator().manual_seed(
+            40 + i)).to(device).eval()
+        batch = _bench_batch(np, Batch, tcfg, BENCH_B, BENCH_T, seed=50 + i)
+        with torch.inference_mode():
+            ref = module({m: torch.from_numpy(v).to(device)
+                          for m, v in batch.data.items()},
+                         torch.from_numpy(batch.mask).to(device)).cpu()
+        for r in ranks:
+            pred, got = r["tp"][name]
+            err = (pred - ref).abs().max().item()
+            print(f"parallel TP {name} over {PAR_RANKS} model ranks, rank "
+                  f"{r['rank']}: B={BENCH_B} T={BENCH_T} fp32 eval forward, "
+                  f"max |TP - one card| = {err:.3e} (tol {PAR_TP_TOL:.0e}); "
+                  f"launches {got}", flush=True)
+            if err > PAR_TP_TOL or not torch.isfinite(pred).all():
+                raise SmokeFailure(f"parallel TP {name}: rank {r['rank']} "
+                                   "disagrees with the one-card forward")
+            if got != want:
+                raise SmokeFailure(f"parallel TP {name}: rank {r['rank']} "
+                                   f"launched {got}, expected {want}")
+
+    one_ms = _par_ms(torch, lambda: mixed.train_step(batches[0]), None)
+    mb = ranks[0]["all_reduce_mb"]
+    flat_ms = max(r["all_reduce_ms"] for r in ranks)
+    alone_ms = max(r["collective_ms"] for r in ranks)
+    print(f"parallel timing ({card}): bf16 mixed MFT A+V+L train_step of a "
+          f"host batch B={BENCH_B} T={BENCH_T}, {PAR_TIMED_STEPS} steps: "
+          f"{max(r['dp_step_ms'] for r in ranks):.3f} ms/step at "
+          f"{PAR_RANKS} ranks ({backend}), {one_ms:.3f} ms/step in one "
+          f"process; gradient all_reduce of {mb:.1f} MB ({backend}): "
+          f"{flat_ms:.3f} ms with the copies into and out of the flat "
+          f"buffer, {alone_ms:.3f} ms for the collective alone on the "
+          f"buffer ({mb / alone_ms:.2f} GB/s of buffer); "
+          + ("ranks that share one card give no scaling figure"
+             if torch.cuda.device_count() < PAR_RANKS else
+             "one card per rank"), flush=True)
+    print(f"parallel phase wall time {time.perf_counter() - t_phase:.1f} s "
+          f"(target 90 s; {card})", flush=True)
+
+
 # the CLI phase: the synthetic SENDv1 tree of --synthetic_data (60-s
 # videos), the MFT A+V+L training run and the kernels each CLI run must
 # launch
@@ -2041,6 +2398,9 @@ def main() -> int:
     print("families train, bf16 mixed ms/step (card batch, host batch): "
           + "; ".join(f"{k} {a:.3f}, {b:.3f}" for k, (a, b) in
                       train_ms.items()), flush=True)
+
+    phase("parallel")
+    run_parallel(torch, np, device)
 
     phase("CLI")
     run_cli(torch, np, device)

@@ -39,6 +39,23 @@ mode).  A NanGuard (engine/guards.py) checks every step's loss and the
 parameters every 50 steps.  `save_state` / `restore_state` write and read
 the whole training state (engine/checkpoint.py), and `restore_state` also
 reads the JAX package's msgpack `.state` files.
+
+Data parallelism (`mesh=`, a 1-D "data" mesh of parallel/mesh.py; one
+process per rank, the JAX package's `Engine(mesh=...)`): every rank builds
+the same global batches from the same host RNG and keeps its own rows
+(`shard_batch`, before the prefetcher stages them), with its dropout seeds
+shifted to those rows (`DropoutSeeds.for_rows`), so its masks are the padded
+global batch's, as GSPMD computes them in the JAX package.  A rank's loss is
+its rows' squared error over the global batch's sum of lengths; after the
+backward one all_reduce of a flat buffer sums the gradients and the losses,
+then each rank runs Adam, so the parameters stay equal (they start equal:
+the same seed, then a broadcast from rank 0, also after `restore_state`).
+No DDP wrapper: `_predict` runs `functional_call` on cast copies, which
+DDP's hooks would not see.  The resident store is replicated on every rank
+(the JAX package shards it); each rank gathers its rows.  The evaluations
+split the videos (per video) or each bucket's rows (batched) over the ranks
+and gather, so every rank returns the one-device results in the one-device
+order.  Only rank 0 logs and writes state files.
 """
 
 from __future__ import annotations
@@ -56,6 +73,7 @@ from ..models import ModelConfig, build_model
 from ..ops.dispatch import check_encoder_backward
 from ..ops.metrics import ccc, ccc_masked, masked_mse_sum, pearson
 from ..ops.seeds import DropoutSeeds
+from ..parallel import mesh as dp
 from ..utils.params import flatten_tree
 from . import checkpoint
 from .guards import NanGuard
@@ -64,7 +82,8 @@ from .optim import ReduceLROnPlateau, make_adam
 
 class Engine:
     """Trains one (family, modalities) configuration on one device (the
-    card unless the caller names another)."""
+    card unless the caller names another), or data-parallel over a mesh
+    with one device per rank."""
 
     def __init__(self, cfg: ModelConfig, lr: float = 1e-4,
                  weight_decay: float = 1e-4, seed: int = 1,
@@ -72,12 +91,15 @@ class Engine:
                  device: torch.device | str = "cuda", *, logger=None,
                  seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None,
                  eval_dtype: Optional[torch.dtype] = None,
-                 encoder_backward: str = "perlayer", nan_guard: bool = True):
+                 encoder_backward: str = "perlayer", nan_guard: bool = True,
+                 mesh=None):
         """train_dtype: bf16 mixed training when set; eval_dtype: the dtype
         of `evaluate_batched`'s forward (None: float32), as in the JAX
         Engine, whose per-video evaluation stays float32; encoder_backward:
         "perlayer" or "stack" (anything else raises); nan_guard: check
-        losses and parameters for NaN and infinity (NanGuard)."""
+        losses and parameters for NaN and infinity (NanGuard); mesh: a 1-D
+        "data" DeviceMesh (parallel.make_mesh) for data parallelism, this
+        process being one of its ranks, device its device."""
         self.cfg = cfg
         self.encoder_backward = check_encoder_backward(encoder_backward)
         self.device = torch.device(device)
@@ -94,6 +116,11 @@ class Engine:
         self.nan_guard = NanGuard() if nan_guard else None
         self.steps = 0
         self._epoch = 0
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.get_local_rank()
+        if mesh is not None:
+            dp.broadcast_flat(self.module.parameters(), mesh)
+            self._grad_buffer = dp.FlatBuffer()
 
     def _draw_seeds(self, step: int, T: int) -> DropoutSeeds:
         return DropoutSeeds.draw(self.module.dropout_sites(), T,
@@ -127,28 +154,44 @@ class Engine:
         return masked_mse_sum(pred, self._tensor(batch.target))
 
     def train_step(self, batch: Batch, *, plain: bool = False) -> float:
-        """One Adam step on a batch; returns its summed squared error."""
-        seeds = self.seed_fn(self.steps, batch.mask.shape[1])
+        """One Adam step on a batch; returns its summed squared error.
+        With a mesh, batch is the global batch (cut to this rank's rows
+        here) or this rank's Shard of it, and the result is the global
+        batch's summed squared error on every rank."""
+        if self.mesh is not None and not isinstance(batch, dp.Shard):
+            batch = dp.shard_batch(batch, self.mesh)
+        T = batch.mask.shape[1]
+        seeds = self.seed_fn(self.steps, T)
+        if isinstance(batch, dp.Shard):
+            seeds = seeds.for_rows(self.module.dropout_sites(), batch.r0,
+                                   batch.rows, T)
         loss = self.batch_loss(batch, seeds, plain=plain)
-        (loss / float(sum(batch.lengths))).backward()
+        (loss / float(_total(batch))).backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            # the gradients and the loss summed over the ranks, one buffer
+            grads = [p.grad for p in self.module.parameters()
+                     if p.grad is not None]
+            loss = loss.reshape(1)
+            dp.all_reduce_flat(grads + [loss], self.mesh, self._grad_buffer)
         for group in self.optimizer.param_groups:
             group["lr"] = self.scheduler.lr
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.steps += 1
-        return float(loss.detach())
+        return float(loss)
 
     def _after_step(self, batch_num: int, loss: float, loss_sum: float,
                    data_num: int) -> None:
         if self.nan_guard:
             self.nan_guard.check(loss, self.module.named_parameters())
-        if self.logger:
+        if self.logger and self.rank == 0:
             self.logger.info('Batch: {:5d}\tLoss: {:2.5f}'.format(
                 batch_num, loss_sum / data_num))
 
     def _log_epoch(self, loss_sum: float, data_num: int) -> float:
         epoch_loss = loss_sum / max(data_num, 1)
-        if self.logger:
+        if self.logger and self.rank == 0:
             self.logger.info('---')
             self.logger.info('Epoch: {}\tLoss: {:2.5f}'.format(
                 self._epoch, epoch_loss))
@@ -167,12 +210,14 @@ class Engine:
         loss_sum, data_num = 0.0, 0
         batches = make_batches(data, target, seq_lens, batch_size=batch_size,
                                shuffle=True, rng=rng, pad_time_to=pad_time_to)
+        if self.mesh is not None:  # each rank stages only its own rows
+            batches = (dp.shard_batch(b, self.mesh) for b in batches)
         if prefetch:
             batches = DevicePrefetcher(batches, self.device, depth=prefetch)
         for batch_num, batch in enumerate(batches):
             loss = self.train_step(batch)
             loss_sum += loss
-            data_num += sum(batch.lengths)
+            data_num += _total(batch)
             self._after_step(batch_num, loss, loss_sum, data_num)
         return self._log_epoch(loss_sum, data_num)
 
@@ -197,9 +242,11 @@ class Engine:
         in "key_query" mode, where padded keys are masked.  Each batch is
         sorted by length, descending, as the reference's; the last one is
         filled to batch_size by cycling its rows, with their target and
-        mask zeroed, so they add nothing to the loss or the gradients."""
+        mask zeroed, so they add nothing to the loss or the gradients.
+        With a mesh each rank gathers only its rows of that batch (padded
+        to a multiple of the mesh size the same way)."""
         self._epoch += 1
-        n = len(store["lengths"])
+        n = len(store["lengths"])  # real videos only
         index = np.arange(n)
         (rng or np.random).shuffle(index)
         loss_sum, data_num = 0.0, 0
@@ -210,16 +257,21 @@ class Engine:
             chunk = chunk[order]
             real = len(chunk)
             lens = [int(x) for x in store["lengths"][chunk]]
-            if real < batch_size:
-                chunk = np.resize(chunk, batch_size)
+            r0, local, rows = 0, batch_size, batch_size
+            if self.mesh is not None:
+                r0, local, rows = dp.shard_rows(batch_size, self.mesh)
+            chunk = np.resize(chunk, rows)[r0:r0 + local]
             idx = torch.from_numpy(chunk).to(self.device)
-            valid = (torch.arange(batch_size, device=self.device)
+            valid = (torch.arange(r0, r0 + local, device=self.device)
                      < real).float()[:, None, None]
-            batch = Batch({m: v.index_select(0, idx)
-                           for m, v in store["data"].items()},
-                          store["target"].index_select(0, idx) * valid,
-                          store["mask"].index_select(0, idx) * valid,
-                          lens, [int(c) for c in chunk[:real]])
+            parts = ({m: v.index_select(0, idx)
+                      for m, v in store["data"].items()},
+                     store["target"].index_select(0, idx) * valid,
+                     store["mask"].index_select(0, idx) * valid,
+                     lens[r0:r0 + local],
+                     [int(c) for c in chunk[:max(real - r0, 0)]])
+            batch = (Batch(*parts) if self.mesh is None else
+                     dp.Shard(*parts, r0=r0, rows=rows, total=sum(lens)))
             loss = self.train_step(batch)
             loss_sum += loss
             data_num += sum(lens)
@@ -244,13 +296,23 @@ class Engine:
         batches = make_batches(data, target, seq_lens, batch_size=1,
                                shuffle=shuffle_rng is not None,
                                rng=shuffle_rng)
-        for index, batch in enumerate(batches, 1):
-            out = self._predict(batch, None).cpu().numpy()
-            d = out - batch.target
+        # with a mesh, rank r predicts videos r, r + n, ...; all gather
+        n = 1 if self.mesh is None else self.mesh.size()
+        targets, outs = [], {}
+        for i, batch in enumerate(batches):
+            targets.append((batch.target, batch.lengths))
+            if i % n == self.rank:
+                outs[i] = self._predict(batch, None).cpu().numpy()
+        if self.mesh is not None:
+            for part in dp.gather_objects(outs, self.mesh):
+                outs.update(part)
+        for index, (tgt, lengths) in enumerate(targets, 1):
+            out = outs[index - 1]
+            d = out - tgt
             loss_sum += float((d * d).sum())
-            data_num += sum(batch.lengths)
+            data_num += sum(lengths)
             o = out.reshape(-1)
-            t = batch.target.reshape(-1)
+            t = tgt.reshape(-1)
             preds.append(o.tolist())
             actuals.append(t.tolist())
             cur = ccc(t, o)
@@ -263,7 +325,7 @@ class Engine:
                  "corr_std": float(np.std(corrs)),
                  "ccc": float(np.mean(cccs)), "ccc_std": float(np.std(cccs)),
                  "max_ccc": best[0]}
-        if self.logger:
+        if self.logger and self.rank == 0:
             self.logger.info(
                 'Evaluation\tLoss: {:2.5f}\tCorr: {:0.3f}\tCCC: {:0.9f}'.format(
                     loss, stats['corr'], stats['ccc']))
@@ -276,7 +338,8 @@ class Engine:
         """Evaluation over fixed-shape length buckets, the per-video CCC on
         the device, the forward in `eval_dtype`.  Exact only when padded
         keys are masked, so "key_query" mode is required.  Returns (cccs in
-        video order, loss, stats)."""
+        video order, loss, stats).  With a mesh each rank runs its rows of
+        every bucket batch, and the results are gathered."""
         if self.cfg.mask_mode != "key_query":
             raise ValueError(
                 "evaluate_batched pads the time axis to bucket bounds, "
@@ -287,6 +350,8 @@ class Engine:
         for batch in bucketed_eval_batches(data, target, seq_lens,
                                            batch_size=batch_size,
                                            time_multiple=time_multiple):
+            if self.mesh is not None:
+                batch = dp.shard_batch(batch, self.mesh)
             pred = self._predict(batch, self.eval_dtype)
             tgt = self._tensor(batch.target)
             loss_sum += float(masked_mse_sum(pred, tgt))
@@ -295,6 +360,11 @@ class Engine:
                            self._tensor(batch.mask)[..., 0])
             # buckets reorder the videos; put each CCC back at its index
             cccs[batch.indices] = c[:len(batch.lengths)].cpu().numpy()
+        if self.mesh is not None:  # each video's CCC comes from one rank
+            parts = dp.gather_objects((cccs, loss_sum, data_num), self.mesh)
+            cccs = np.sum([p[0] for p in parts], axis=0)
+            loss_sum = sum(p[1] for p in parts)
+            data_num = sum(p[2] for p in parts)
         cccs = cccs.tolist()
         stats = {"ccc": float(np.mean(cccs)), "ccc_std": float(np.std(cccs)),
                  "max_ccc": float(np.max(cccs))}
@@ -302,13 +372,23 @@ class Engine:
 
     def scheduler_step(self, metric: float) -> float:
         """Feed the plateau controller an evaluation loss; returns the
-        learning rate the next steps use."""
+        learning rate the next steps use (with a mesh, rank 0's metric on
+        every rank)."""
+        if self.mesh is not None:
+            metric = dp.gather_objects(metric, self.mesh)[0]
         return self.scheduler.step(metric)
 
     def save_state(self, path: str, best_ccc: float = -1.0) -> None:
         """Write the whole training state (parameters, Adam state,
         scheduler, epoch and step, best CCC, the dropout generator's state
-        and the configuration) atomically, for `restore_state`."""
+        and the configuration) atomically, for `restore_state`.  With a
+        mesh, rank 0 writes and every rank waits for it."""
+        if self.rank == 0:
+            self._write_state(path, best_ccc)
+        if self.mesh is not None:
+            dp.barrier(self.mesh)
+
+    def _write_state(self, path: str, best_ccc: float) -> None:
         cfg = self.cfg
         checkpoint.atomic_save({
             "format": checkpoint.TRAIN_STATE_FORMAT,
@@ -330,7 +410,8 @@ class Engine:
         `.state` (its Adam moments mapped onto torch's Adam state, the step
         count from its Adam step; the dropout generator stays as it is,
         since the JAX package draws its keys from the epoch).  Returns the
-        recorded best CCC."""
+        recorded best CCC.  With a mesh every rank reads the file, and the
+        parameters are broadcast from rank 0."""
         st = checkpoint.load_train_state(path)
         if "format" in st:
             self.module.load_state_dict(st["model"])
@@ -354,4 +435,11 @@ class Engine:
         self.scheduler.lr = float(sch["lr"])
         self.scheduler.best = float(sch["best"])
         self.scheduler.num_bad = int(sch["num_bad"])
+        if self.mesh is not None:
+            dp.broadcast_flat(self.module.parameters(), self.mesh)
         return float(st["best_ccc"])
+
+
+def _total(batch: Batch) -> int:
+    """The global batch's sum of lengths: the loss's denominator."""
+    return batch.total if isinstance(batch, dp.Shard) else sum(batch.lengths)

@@ -41,7 +41,8 @@ from ..ops.seeds import DropoutSites
 from ..utils.init import make_linear
 from .config import FAMILIES, MFT_EMBED_DIM, ModelConfig
 from .frontend import add_frontend, frontend_apply
-from .heads import MultiLSTM, UniFullTransformer, UniTransformer, encode
+from .heads import (HEADS, MultiLSTM, UniFullTransformer, UniTransformer,
+                    encode)
 
 ENCODER_FF, ENCODER_LAYERS = 128, 6
 SFT_FUSE_EMBED = 512
@@ -66,8 +67,20 @@ class _Family(nn.Module):
     def dropout_sites(self) -> DropoutSites:
         """The head's sites: one encoder, as every single-modality head and
         the SFT/B2 heads have."""
-        return DropoutSites(self.cfg.modalities, encoders=("encoder",),
-                            n_layers=ENCODER_LAYERS)
+        return self._sites(encoders=("encoder",))
+
+    def _sites(self, encoders=(), **kw) -> DropoutSites:
+        """DropoutSites with the front ends' and the named encoders' widths
+        (each encoder an attribute of the head `Transformer`)."""
+        mods = self.cfg.modalities
+        dims = []
+        for name in encoders:
+            w_1 = getattr(self.Transformer, name).layers[0].feed_forward.w_1
+            dims.append((w_1.in_features, w_1.out_features, HEADS))
+        return DropoutSites(
+            mods, tuple(encoders), ENCODER_LAYERS,
+            front_widths=tuple(self.cfg.window_embed_size[m] for m in mods),
+            encoder_dims=tuple(dims), **kw)
 
     def fused(self, outs) -> torch.Tensor:
         return torch.cat([outs[m] for m in self.cfg.modalities], dim=-1)
@@ -89,9 +102,17 @@ class MFTHead(nn.Module):
         self.mfn = MFN(cfg.modalities, MFT_EMBED_DIM, output_dim=1, gen=gen)
 
 
+def _mfn_sites(head: MFTHead) -> dict:
+    mfn = head.mfn
+    return {"mfn": True, "gamma_widths": (mfn.gamma1_fc1.out_features,
+                                          mfn.gamma2_fc1.out_features)}
+
+
 def _mfn_pred(head: MFTHead, mfn_in, mask, seeds, plain: bool):
-    gammas, out = (None, None) if seeds is None else (seeds.mfn, seeds.out)
-    return mfn_scan(head.mfn, mfn_in, gammas, out, plain=plain) * mask
+    if seeds is None:
+        return mfn_scan(head.mfn, mfn_in, plain=plain) * mask
+    return mfn_scan(head.mfn, mfn_in, seeds.mfn, seeds.out, plain=plain,
+                    out_rows=seeds.rows) * mask
 
 
 class MFT(_Family):
@@ -106,8 +127,8 @@ class MFT(_Family):
         mods = self.cfg.modalities
         if len(mods) == 1:
             return super().dropout_sites()
-        return DropoutSites(mods, tuple(f"transformer_{m}" for m in mods),
-                            ENCODER_LAYERS, mfn=True)
+        return self._sites(tuple(f"transformer_{m}" for m in mods),
+                           **_mfn_sites(self.Transformer))
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
                 seeds=None, plain: bool = False,
@@ -144,7 +165,8 @@ class SFT(_Family):
         sites = super().dropout_sites()
         if len(self.cfg.modalities) == 1:
             return sites
-        return dataclasses.replace(sites, embed=True)
+        return dataclasses.replace(sites, embed=True,
+                                   embed_width=self.fusionLayer.out_features)
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
                 seeds=None, plain: bool = False,
@@ -174,7 +196,9 @@ class B1LSTM(_Family):
                               gen=gen)
 
     def dropout_sites(self) -> DropoutSites:
-        return DropoutSites(self.cfg.modalities, embed=True, decoder=True)
+        return self._sites(
+            embed=True, decoder=True, embed_width=self.cfg.total_embed_size,
+            decoder_width=self.LSTM.decoder_fc1.out_features)
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
                 seeds=None, plain: bool = False,
@@ -214,7 +238,7 @@ class B3MFN(_Family):
     def dropout_sites(self) -> DropoutSites:
         if len(self.cfg.modalities) == 1:
             return super().dropout_sites()
-        return DropoutSites(self.cfg.modalities, mfn=True)
+        return self._sites(**_mfn_sites(self.Transformer))
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
                 seeds=None, plain: bool = False,

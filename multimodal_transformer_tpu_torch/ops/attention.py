@@ -29,6 +29,13 @@ the JAX package, whose encoder kernels take key_query only and which runs
 query mode through its jnp encoder on the TPU too (`ops/attention.py`
 there); it is not a fallback on failure.  `encoder_stack_plain` launches
 nothing on any device.
+
+A tensor-parallel encoder (parallel/tp.py: `tp_group` set, each layer
+holding its rank's heads and FFN columns) runs eval only, layer by layer:
+its attention through kernel 11 in "key_query" mode and plain in "query"
+mode, one `all_reduce` after the out projection and one after w_2, each
+before the replicated bias.  Kernel A fuses the layer across those points,
+so it cannot serve a sharded layer.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from __future__ import annotations
 import copy
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils.init import init_linear
@@ -85,7 +94,11 @@ class EncoderLayer(nn.Module):
 
 class Encoder(nn.Module):
     """N identical layers (the reference deep-copies one initialised layer)
-    plus a final norm."""
+    plus a final norm.  tp_group / tp_size: the "model" group and its size
+    of a tensor-parallel copy (parallel/tp.py), None / 1 otherwise."""
+
+    tp_group = None
+    tp_size = 1
 
     def __init__(self, d_model: int, d_ff: int, n_layers: int,
                  gen: torch.Generator | None = None):
@@ -96,16 +109,18 @@ class Encoder(nn.Module):
         self.norm = LayerNorm(d_model)
 
 
-def multi_head_attention(attn: MultiHeadAttention, query, key, value,
-                         mask=None, *, h: int, mask_mode: str = "query",
-                         seed=None, dropout_p: float = DROPOUT,
-                         flash: bool = False):
-    """query/key/value [B, T, D]; mask [B, T, 1] or None; seed: the dropout
+def attention_heads(attn: MultiHeadAttention, query, key, value, mask=None,
+                    *, h: int, mask_mode: str = "query", seed=None,
+                    dropout_p: float = DROPOUT, flash: bool = False):
+    """The JAX package's multi_head_attention before its out projection.
+    query/key/value [B, T, D]; mask [B, T, 1] or None; seed: the dropout
     seed of the [B, h, T, T] probabilities (None in eval).  flash=True (eval
     in "key_query" mode): the attention runs through kernel 11 on the heads
-    flattened to [B*h, T, d_k], the JAX package's flash branch.  Returns
-    [B, T, D]."""
-    B, _, D = query.shape
+    flattened to [B*h, T, d_k], the JAX package's flash branch.  Returns the
+    h heads' outputs concatenated, [B, T, h * d_k] (a tensor-parallel rank's
+    q, k, v projections give h * d_k of the model's D columns)."""
+    B = query.shape[0]
+    D = attn.linears[0].out_features
     d_k = D // h
 
     def proj(lin, x):
@@ -120,8 +135,7 @@ def multi_head_attention(attn: MultiHeadAttention, query, key, value,
         o = FlashAttention.apply(flat(attn.linears[0], query),
                                  flat(attn.linears[1], key),
                                  flat(attn.linears[2], value), mask[..., 0], h)
-        return attn.linears[3](o.view(B, h, -1, d_k).transpose(1, 2)
-                               .reshape(B, -1, D))
+        return o.view(B, h, -1, d_k).transpose(1, 2).reshape(B, -1, D)
 
     q = proj(attn.linears[0], query)     # [B, h, Tq, d_k]
     k = proj(attn.linears[1], key)
@@ -135,45 +149,68 @@ def multi_head_attention(attn: MultiHeadAttention, query, key, value,
             kmask = mask[..., 0][:, None, None, :]    # [B, 1, 1, Tk]
             scores = scores.masked_fill(kmask == 0, NEG_INF)
     p = dropout(torch.softmax(scores, dim=-1), seed, dropout_p)
-    x = (p @ v).transpose(1, 2).reshape(B, -1, D)
-    return attn.linears[3](x)
+    return (p @ v).transpose(1, 2).reshape(B, -1, D)
+
+
+def row_parallel(lin: nn.Linear, x, group):
+    """lin(x) of a layer whose input axis is split over `group`: each rank's
+    partial product summed by one all_reduce, then the bias (None: lin(x))."""
+    if group is None:
+        return lin(x)
+    y = F.linear(x, lin.weight)
+    dist.all_reduce(y, group=group)
+    return y + lin.bias
 
 
 def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str,
-                  seeds=None, dropout_p: float = DROPOUT, flash: bool = False):
+                  seeds=None, dropout_p: float = DROPOUT, flash: bool = False,
+                  group=None):
     """seeds: the layer's 4 site seeds, or None in eval; flash: attention
-    through kernel 11 (see multi_head_attention)."""
+    through kernel 11 (see attention_heads); group: the "model" group
+    of a tensor-parallel layer, whose h heads are this rank's."""
     s = [None] * 4 if seeds is None else [int(v) for v in seeds]
+    attn, ff = layer.self_attn, layer.feed_forward
     normed = layer.sublayer[0].norm(x)
-    x = x + dropout(multi_head_attention(layer.self_attn, normed, normed,
-                                         normed, mask, h=h,
-                                         mask_mode=mask_mode, seed=s[0],
-                                         dropout_p=dropout_p, flash=flash),
-                    s[1], dropout_p)
+    heads = attention_heads(attn, normed, normed, normed, mask, h=h,
+                            mask_mode=mask_mode, seed=s[0],
+                            dropout_p=dropout_p, flash=flash)
+    x = x + dropout(row_parallel(attn.linears[3], heads, group), s[1],
+                    dropout_p)
     normed = layer.sublayer[1].norm(x)
-    ff = layer.feed_forward
     mid = dropout(torch.relu(ff.w_1(normed)), s[2], dropout_p)
-    return x + dropout(ff.w_2(mid), s[3], dropout_p)
+    return x + dropout(row_parallel(ff.w_2, mid, group), s[3], dropout_p)
 
 
 def encoder_stack_plain(enc: Encoder, x, mask=None, *, h: int = 8,
                         mask_mode: str = "query", seeds=None,
                         dropout_p: float = DROPOUT):
     """The plain path, on any device.  x: [B, T, D]; seeds: [N, 4] or None."""
+    _check_tp(enc, seeds, x)
     for l, layer in enumerate(enc.layers):
-        x = encoder_layer(layer, x, mask, h=h, mask_mode=mask_mode,
+        x = encoder_layer(layer, x, mask, h=h // enc.tp_size,
+                          mask_mode=mask_mode,
                           seeds=None if seeds is None else seeds[l],
-                          dropout_p=dropout_p)
+                          dropout_p=dropout_p, group=enc.tp_group)
     return enc.norm(x)
 
 
 def encoder_stack_flash(enc: Encoder, x, mask, *, h: int = 8):
     """The long-video route, eval in "key_query" mode: every layer as
     `encoder_layer`, its attention through kernel 11.  x: [B, T, D]."""
+    _check_tp(enc, None, x)
     for layer in enc.layers:
-        x = encoder_layer(layer, x, mask, h=h, mask_mode="key_query",
-                          flash=True)
+        x = encoder_layer(layer, x, mask, h=h // enc.tp_size,
+                          mask_mode="key_query", flash=True,
+                          group=enc.tp_group)
     return enc.norm(x)
+
+
+def _check_tp(enc: Encoder, seeds, x) -> None:
+    if enc.tp_group is not None and (
+            seeds is not None or needs_grad(x, *enc.parameters())):
+        raise NotImplementedError(
+            "a tensor-parallel encoder runs eval only: no dropout seeds, no "
+            "gradients (run it under torch.inference_mode())")
 
 
 def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
@@ -182,7 +219,13 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
     """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
     seeds: the [N, 4] dropout seed table in training, None in eval;
     backward: the training backward on the card, "perlayer" (kernel 4) or
-    "stack" (kernel 5)."""
+    "stack" (kernel 5).  A tensor-parallel encoder takes the flash route
+    in "key_query" mode with a mask, else the plain one."""
+    if enc.tp_group is not None:
+        if mask is not None and mask_mode == "key_query":
+            return encoder_stack_flash(enc, x, mask, h=h)
+        return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode,
+                                   seeds=seeds, dropout_p=dropout_p)
     route = encoder_route(use_kernel(x) and mask is not None, x.shape[1],
                           mask_mode, seeds is not None, backward,
                           needs_grad(x, *enc.parameters()))

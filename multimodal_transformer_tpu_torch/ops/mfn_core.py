@@ -14,7 +14,8 @@ CPU tensors.
 
 The head's dropout indexes the TIME-major [T, B, 64] hidden, as the JAX
 package's head does (it runs time-major): element [b, t, c] of the port's
-batch-major hidden takes the keep bit of position (t * B + b) * 64 + c.
+batch-major hidden takes the keep bit of position (t * B + b) * 64 + c
+(with B the global batch's rows on a data-parallel rank, `mfn_head`).
 
 Gate algebra (reference MFT/multiTransformer.py:200-224):
     c*       = [c_{t-1}; c_t]
@@ -116,20 +117,26 @@ def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
 
 
 def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
-             out_seed=None) -> torch.Tensor:
+             out_seed=None, out_rows=None) -> torch.Tensor:
+    """out_rows: (r0, rows) when these B rows are rows r0.. of a global
+    batch of `rows` rows (a data-parallel rank): row b then takes the keep
+    bits of the global hidden's row r0 + b, position
+    (t * rows + r0 + b) * 64 + c."""
     feats = torch.cat([hs, mems], dim=-1)
     h = torch.relu(mfn.out_fc1(feats))
     if out_seed is not None:
         B, T, W = h.shape
-        idx = torch.arange(T * B * W, dtype=torch.int64,
-                           device=h.device).view(T, B, W).transpose(0, 1)
+        r0, rows = out_rows or (0, B)
+        ar = lambda n: torch.arange(n, dtype=torch.int64, device=h.device)
+        idx = ((ar(T)[None, :, None] * rows + r0 + ar(B)[:, None, None]) * W
+               + ar(W))
         h = dropout_with_idx(h, int(out_seed), DROPOUTS["out"], idx)
     return mfn.out_fc2(h)
 
 
 def mfn_scan(mfn: MFN, inputs, seeds=None, out_seed=None, *,
-             plain: bool = False) -> torch.Tensor:
+             plain: bool = False, out_rows=None) -> torch.Tensor:
     """MFN forward.  inputs: mod -> [B, T, D_mod]; seeds [T, 2] and
-    out_seed in training.  Returns [B, T, out]."""
+    out_seed in training (out_rows: see mfn_head).  Returns [B, T, out]."""
     hs, mems = mfn_states(mfn, inputs, seeds, plain=plain)
-    return mfn_head(mfn, hs, mems, out_seed)
+    return mfn_head(mfn, hs, mems, out_seed, out_rows)

@@ -49,19 +49,9 @@ from multimodal_transformer_tpu_torch.engine.convert import port_tree
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree,
                                                            unflatten_tree)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 AVL = ("acoustic", "image", "linguistic")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: under the suite's parallel workers, torch's
-    thread pool on every small op of these CPU training runs oversubscribes
-    the cores (an epoch measured 100x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -36,17 +36,7 @@ from multimodal_transformer_tpu_torch.data import generate_synthetic_send  # noq
 from multimodal_transformer_tpu_torch.engine.train_engine import Engine  # noqa: E402
 from multimodal_transformer_tpu_torch.models import default_config  # noqa: E402
 from multimodal_transformer_tpu_torch.utils.params import unflatten_tree  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: under the suite's parallel workers, torch's
-    thread pool on every small op of these CPU training runs oversubscribes
-    the cores (an epoch measured 100x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

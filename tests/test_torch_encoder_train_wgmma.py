@@ -54,6 +54,8 @@ from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
 from multimodal_transformer_tpu_torch.ops.cuda.encoder import NEG_INF
 from multimodal_transformer_tpu_torch.ops.norm import layer_norm
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 H, F, N_LAYERS = 8, 128, 2
 LOG2E = 1.4426950408889634

@@ -41,6 +41,8 @@ from multimodal_transformer_tpu.ops.pallas import encoder as jenc
 from multimodal_transformer_tpu_torch.ops.attention import Encoder
 from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 H, F, N_LAYERS = 8, 128, 2
 LOG2E = np.float32(1.4426950408889634)

@@ -39,6 +39,8 @@ from multimodal_transformer_tpu_torch.ops import attention
 from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
 from multimodal_transformer_tpu_torch.ops.cuda import flash_attention as fa_k
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 AVL = ("acoustic", "image", "linguistic")
 LENS = [520, 9, 300, 9, 520, 300]

@@ -33,6 +33,8 @@ from multimodal_transformer_tpu_torch import (ValencePredictor, build_model,
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree,
                                                            load_jax_params)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-4
 AVL = ("acoustic", "image", "linguistic")

@@ -43,6 +43,8 @@ from multimodal_transformer_tpu_torch.ops import dispatch
 from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
 from multimodal_transformer_tpu_torch.ops.cuda import flash_attention as fa_k
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 H = 2
 

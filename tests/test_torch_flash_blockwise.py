@@ -34,6 +34,8 @@ import torch
 
 from multimodal_transformer_tpu.ops.pallas import attention as pattn
 from multimodal_transformer_tpu_torch.ops.cuda import flash_attention as fa_k
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 H = 2
 TILE = 128

@@ -30,6 +30,8 @@ from multimodal_transformer_tpu_torch.ops.cuda import encoder_train
 from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 AVL = ("acoustic", "image", "linguistic")
 

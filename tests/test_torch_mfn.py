@@ -14,6 +14,8 @@ from multimodal_transformer_tpu.ops.pallas.mfn_kernel import mfn_scan_pallas
 from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 MODS = ("acoustic", "image", "linguistic")
 DIMS = {m: 16 for m in MODS}

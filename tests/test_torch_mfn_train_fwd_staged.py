@@ -25,6 +25,8 @@ from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
 from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 MOD_SETS = {"AVL": ("acoustic", "image", "linguistic"),
             "L": ("linguistic",),

@@ -24,6 +24,8 @@ from multimodal_transformer_tpu.ops.pallas.mfn_train import \
 from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 MOD_SETS = {"AVL": ("acoustic", "image", "linguistic"),
             "L": ("linguistic",),

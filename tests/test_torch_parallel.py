@@ -1,0 +1,465 @@
+"""Port parity for data and tensor parallelism (parallel/), float32 on the
+CPU, ranks on gloo over a FileStore:
+
+  * `pad_batch_rows` equal to the JAX package's;
+  * `DropoutSeeds.for_rows`: for every dropout site, a rank's mask at its
+    rows of a batch of 5 rows over 2 ranks is the global (padded) batch's
+    mask at those rows; unshifted seeds give another mask (the negative
+    control);
+  * 2 ranks (one spawn, `tests/torch_parallel_ranks.py`) against the JAX
+    `Engine(mesh=make_mesh(2))` from the same weights and dropout seeds, as
+    tests/test_parallel.py holds that Engine to one device: a B2-Trans A+L
+    `train_epoch` with dropout (parameters rtol 1e-3, atol 5e-5; the epoch
+    loss rel 1e-3), then `evaluate_per_video` and `evaluate_batched` (CCCs
+    rtol 1e-3, atol 1e-4); an MFT A+L epoch of batches of 5 videos, so each
+    batch has a pad row and the MFN head's time-major `out` site indexes a
+    global batch of 6 rows; a `train_epoch_resident` of a B2-Trans A split
+    of 5 videos; every rank ends with the same parameters; the negative
+    controls (seeds not shifted to the rank's rows, or the `out` site
+    indexed by the rank's own rows) fail the same comparison;
+  * tensor parallelism on a 2 x 2 ("data", "model") mesh (one spawn of 4
+    ranks): each rank's parameter shards equal the JAX `shard_params_tp`
+    shards on the same mesh position, and the eval forward of B2-Trans A+L
+    ("query" mode, as tests/test_parallel.py; and "key_query", through
+    kernel 11's route) and of MFT A+L ("key_query") equals the JAX
+    single-device `apply` (rtol 1e-4, atol 1e-5);
+  * `make_mesh(device_type="cuda")` raises without a card.
+
+The JAX side runs in this process while the ranks run (they never import
+jax); the dropout seeds of every step come from the JAX Engine's keys.
+"""
+
+import multiprocessing
+import threading
+from concurrent.futures import ProcessPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from make_goldens import SMALL_DIMS
+from test_torch_train import jax_family_seeds
+
+import torch_parallel_ranks as ranks
+from multimodal_transformer_tpu.data.batching import \
+    make_batches as jmake_batches
+from multimodal_transformer_tpu.engine import train_engine as jtrain_engine
+from multimodal_transformer_tpu.models import build_model as jbuild_model
+from multimodal_transformer_tpu.models import default_config as jdefault_config
+from multimodal_transformer_tpu.ops import basic as jbasic
+from multimodal_transformer_tpu.parallel import make_mesh as jmake_mesh
+from multimodal_transformer_tpu.parallel import pad_batch_rows as jpad_rows
+from multimodal_transformer_tpu.parallel.tp import (make_mesh_2d as
+                                                    jmake_mesh_2d)
+from multimodal_transformer_tpu.parallel.tp import \
+    shard_params_tp as jshard_params_tp
+from multimodal_transformer_tpu_torch import build_model
+from multimodal_transformer_tpu_torch.ops import mfn_core
+from multimodal_transformer_tpu_torch.ops.basic import hash_keep_mask
+from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+from multimodal_transformer_tpu_torch.parallel import (make_mesh,
+                                                       pad_batch_rows, spawn)
+from multimodal_transformer_tpu_torch.utils.params import (export_params,
+                                                           flatten_tree)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
+AL = ("acoustic", "linguistic")
+RANKS = 2
+PARAM_RTOL, PARAM_ATOL = 1e-3, 5e-5
+CCC_RTOL, CCC_ATOL = 1e-3, 1e-4
+TP_RTOL, TP_ATOL = 1e-4, 1e-5
+
+
+@pytest.mark.parametrize("rows,multiple", [(5, 2), (6, 2), (5, 4), (1, 3)])
+def test_pad_batch_rows_matches_jax(rows, multiple):
+    a = np.arange(rows * 6, dtype=np.float32).reshape(rows, 2, 3) + 1
+    got, want = pad_batch_rows(a, multiple), jpad_rows(a, multiple)
+    assert got.shape == want.shape and got.shape[0] % multiple == 0
+    np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------- seeds shifted to rows
+
+SITE_B, SITE_T = 5, 3
+
+
+def _site_table():
+    """site -> (seed, per-row elements) at T = SITE_T, from the sites of an
+    MFT A+L (front ends, encoders, gamma hiddens), an SFT A+L (embed) and
+    a B1-LSTM A+L (decoder)."""
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for family in ("MFT", "SFT", "B1-LSTM"):
+        cfg = ranks.config({"family": family, "mods": AL,
+                            "mask_mode": "key_query", "dims": SMALL_DIMS})
+        sites = build_model(cfg).dropout_sites()
+        seeds = DropoutSeeds.draw(sites, SITE_T, g)
+        out[family] = (sites, seeds)
+    return out
+
+
+def _per_row(site: str, sites, T: int):
+    """(getter of the site's seed from DropoutSeeds, elements per row)."""
+    if site.startswith("front_"):
+        i = int(site[-1])
+        m = sites.front[i]
+        return (lambda s: s.front[m]), T * sites.front_widths[i]
+    if site.startswith("encoder_"):
+        col = int(site[-1])
+        d, f, h = sites.encoder_dims[0]
+        name = sites.encoders[0]
+        return ((lambda s: int(s.encoder[name][2, col])),
+                (h * T * T, T * d, T * f, T * d)[col])
+    if site.startswith("gamma_"):
+        col = int(site[-1])
+        return (lambda s: int(s.mfn[1, col])), sites.gamma_widths[col]
+    return (lambda s: getattr(s, site)), T * getattr(sites, f"{site}_width")
+
+
+SITES = [("MFT", "front_0"), ("MFT", "front_1"), ("MFT", "encoder_0"),
+         ("MFT", "encoder_1"), ("MFT", "encoder_2"), ("MFT", "encoder_3"),
+         ("MFT", "gamma_0"), ("MFT", "gamma_1"), ("SFT", "embed"),
+         ("B1-LSTM", "embed"), ("B1-LSTM", "decoder")]
+
+
+@pytest.mark.parametrize("family,site", SITES)
+def test_for_rows_gives_the_global_mask_at_the_rank_rows(family, site):
+    sites, seeds = _site_table()[family]
+    get, per_row = _per_row(site, sites, SITE_T)
+    rows = SITE_B + SITE_B % RANKS
+    local = rows // RANKS
+    glob = hash_keep_mask(get(seeds),
+                          torch.arange(rows * per_row).view(rows, per_row),
+                          0.5)
+    for r in range(RANKS):
+        shifted = seeds.for_rows(sites, r * local, rows, SITE_T)
+        assert shifted.rows == (r * local, rows)
+        idx = torch.arange(local * per_row).view(local, per_row)
+        mine = hash_keep_mask(get(shifted), idx, 0.5)
+        assert torch.equal(mine, glob[r * local:(r + 1) * local])
+        if r > 0:  # the negative control: the unshifted seed's mask differs
+            assert not torch.equal(hash_keep_mask(get(seeds), idx, 0.5),
+                                   glob[r * local:(r + 1) * local])
+
+
+def test_mfn_head_out_site_indexes_the_global_batch():
+    cfg = ranks.config({"family": "MFT", "mods": AL, "mask_mode": "key_query",
+                        "dims": SMALL_DIMS})
+    mfn = build_model(cfg, generator=torch.Generator().manual_seed(1)
+                      ).Transformer.mfn
+    rows, local, T = 6, 3, 4
+    rs = np.random.RandomState(0)
+    total_h = mfn.out_fc1.in_features - mfn_core.MEM_DIM
+    hs = torch.from_numpy(rs.randn(rows, T, total_h).astype(np.float32))
+    mems = torch.from_numpy(rs.randn(rows, T, mfn_core.MEM_DIM).astype(
+        np.float32))
+    with torch.no_grad():
+        want = mfn_core.mfn_head(mfn, hs, mems, out_seed=123)
+        for r0 in (0, local):
+            got = mfn_core.mfn_head(mfn, hs[r0:r0 + local],
+                                    mems[r0:r0 + local], 123, (r0, rows))
+            torch.testing.assert_close(got, want[r0:r0 + local], rtol=0,
+                                       atol=0)
+        own = mfn_core.mfn_head(mfn, hs[local:], mems[local:], 123)
+    assert not torch.equal(own, want[local:])
+
+
+# ----------------------------------------------------------- data parallel
+
+def _data(mods, V, T, lens, seed):
+    rs = np.random.RandomState(seed)
+    x = {m: rs.randn(V, T, 3, SMALL_DIMS[m]).astype(np.float32) for m in mods}
+    y = rs.rand(V, T).astype(np.float32)
+    return x, y
+
+
+def _case(family, mods, *, V, T, lens, batch_size, kind="epoch", seed=3,
+          evaluate=False, pad_time_to=None):
+    x, y = _data(mods, V, T, lens, seed)
+    return dict(family=family, mods=mods, mask_mode="key_query",
+                dims=SMALL_DIMS, seed=seed, x=x, y=y, lens=lens,
+                batch_size=batch_size, shuffle_seed=9, kind=kind,
+                evaluate=evaluate, pad_time_to=pad_time_to, key=seed + 2)
+
+
+DP_CASES = {
+    # tests/test_parallel.py:110, over 2 ranks, every batch at T = 8
+    "b2": _case("B2-Trans", AL, V=6, T=8, lens=[8, 8, 7, 6, 8, 5],
+                batch_size=4, evaluate=True, pad_time_to=8),
+    # batches of 5: a pad row each, the `out` site at B_pad = 6
+    "mft": _case("MFT", AL, V=10, T=6, lens=[6, 5, 6, 4, 6, 6, 3, 6, 2, 5],
+                 batch_size=5, pad_time_to=6),
+    # tests/test_parallel.py:179, V = 5 over 2 ranks
+    "resident": _case("B2-Trans", ("acoustic",), V=5, T=5,
+                      lens=[5, 5, 4, 3, 2], batch_size=4, kind="resident"),
+}
+CONTROLS = {"b2_unshifted": ("b2", "unshifted"),
+            "mft_local_out": ("mft", "local_out")}
+
+
+def _steps_T(case):
+    """Each step's batch length, as both Engines' batches give it."""
+    if case["kind"] == "resident":
+        return [max(case["lens"])] * -(-len(case["lens"])
+                                       // case["batch_size"])
+    return [b.mask.shape[1] for b in jmake_batches(
+        case["x"], case["y"], case["lens"], case["batch_size"], True,
+        np.random.RandomState(case["shuffle_seed"]), case["pad_time_to"])]
+
+
+def _jax_cfg(case):
+    jcfg = jdefault_config(case["family"], case["mods"],
+                           mask_mode=case["mask_mode"])
+    object.__setattr__(jcfg, "mod_dimension", dict(SMALL_DIMS))
+    return jcfg
+
+
+def _jax_mesh_engine(name: str, tree) -> dict:
+    """The JAX Engine(mesh=make_mesh(2)) of DP_CASES[name], from the port's
+    initial weights: its epoch loss, parameters and evaluations.  Runs in a
+    process of its own (the module-scoped pool) or in the test's."""
+    jax.config.update("jax_platforms", "cpu")
+    jbasic.set_dropout_impl("hash")
+    case = DP_CASES[name]
+    key = jax.random.PRNGKey(case["key"])
+    _, apply = jbuild_model(_jax_cfg(case))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrain_engine, "build_model", lambda c: (
+            lambda key: jax.tree_util.tree_map(jnp.asarray, tree), apply))
+        eng = jtrain_engine.Engine(_jax_cfg(case), lr=1e-3, seed=0,
+                                   mesh=jmake_mesh(RANKS), nan_guard=False)
+    out = {}
+    if case["kind"] == "resident":
+        st = eng.upload_dataset(case["x"], case["y"], case["lens"])
+        out["loss"] = eng.train_epoch_resident(
+            st, batch_size=case["batch_size"], rng=ranks.NoShuffle(),
+            jax_rng=key)
+    else:
+        out["loss"] = eng.train_epoch(
+            case["x"], case["y"], case["lens"],
+            batch_size=case["batch_size"],
+            rng=np.random.RandomState(case["shuffle_seed"]),
+            jax_rng=key, pad_time_to=case["pad_time_to"])
+    out["params"] = {k: np.asarray(v)
+                     for k, v in flatten_tree(eng.params).items()}
+    if case["evaluate"]:
+        cccs, _, _, loss, _, _ = eng.evaluate_per_video(case["x"], case["y"],
+                                                        case["lens"])
+        out["per_video"] = (cccs, loss)
+        cccs, loss, _ = eng.evaluate_batched(case["x"], case["y"],
+                                             case["lens"], batch_size=4,
+                                             time_multiple=4)
+        out["batched"] = (cccs, loss)
+    return out
+
+
+def _run_ranks_in_thread(fn, nprocs, *args):
+    """Start the ranks on a thread (the JAX side runs meanwhile); returns
+    a function that joins it and gives the ranks' results."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = spawn(fn, nprocs, *args, device_type="cpu")
+        except BaseException as e:  # raised again in the test
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join(timeout=300)
+        assert not th.is_alive(), "the ranks did not finish in 300 s"
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
+
+
+def _params_close(got: dict, want: dict) -> bool:
+    return all(np.allclose(got[k].numpy(), w, rtol=PARAM_RTOL,
+                           atol=PARAM_ATOL) for k, w in want.items())
+
+
+@pytest.mark.parametrize("name", list(DP_CASES))
+def test_dp_epoch_matches_jax_mesh_engine(dp_runs, name):
+    want, got = dp_runs
+    for rank in range(RANKS):
+        res = got[rank][name]
+        assert res["loss"] == pytest.approx(want[name]["loss"], rel=1e-3)
+        for k, w in want[name]["params"].items():
+            np.testing.assert_allclose(res["params"][k].numpy(), w,
+                                       rtol=PARAM_RTOL, atol=PARAM_ATOL,
+                                       err_msg=f"{name} rank {rank} {k}")
+
+
+@pytest.mark.parametrize("name", list(DP_CASES) + list(CONTROLS))
+def test_dp_ranks_end_equal(dp_runs, name):
+    _, got = dp_runs
+    first = got[0][name]["params"]
+    for rank in range(1, RANKS):
+        for k, v in got[rank][name]["params"].items():
+            assert torch.equal(v, first[k]), f"{name} rank {rank} {k}"
+
+
+@pytest.mark.parametrize("name", list(CONTROLS))
+def test_dp_negative_controls_disagree_with_jax(dp_runs, name):
+    want, got = dp_runs
+    base = CONTROLS[name][0]
+    assert _params_close(got[0][base]["params"], want[base]["params"])
+    assert not _params_close(got[0][name]["params"], want[base]["params"])
+
+
+@pytest.mark.parametrize("evaluation", ["per_video", "batched"])
+def test_dp_evaluation_matches_jax_mesh_engine(dp_runs, evaluation):
+    want, got = dp_runs
+    w_cccs, w_loss = want["b2"][evaluation]
+    assert len(w_cccs) == len(DP_CASES["b2"]["lens"])
+    for rank in range(RANKS):
+        cccs, loss = got[rank]["b2"][evaluation]
+        np.testing.assert_allclose(cccs, w_cccs, rtol=CCC_RTOL,
+                                   atol=CCC_ATOL)
+        assert loss == pytest.approx(w_loss, rel=1e-3)
+
+
+# ---------------------------------------------------------- tensor parallel
+
+TP_DATA, TP_MODEL = 2, 2
+TP_CASES = {
+    "b2_query": ("B2-Trans", "query"),
+    "b2_key_query": ("B2-Trans", "key_query"),
+    "mft_key_query": ("MFT", "key_query"),
+}
+
+
+def _tp_case(family, mask_mode):
+    rs = np.random.RandomState(2)
+    B, T = 4, 6
+    mask = np.ones((B, T, 1), np.float32)
+    mask[3, 4:] = 0
+    mask[1, 5:] = 0
+    return dict(family=family, mods=AL, mask_mode=mask_mode,
+                dims=SMALL_DIMS, seed=2, mask=mask,
+                x={m: rs.randn(B, T, 3, SMALL_DIMS[m]).astype(np.float32)
+                   for m in AL})
+
+
+def _spec_axis(sharding):
+    """The axis a JAX NamedSharding splits over "model" (None: replicated)."""
+    spec = tuple(sharding.spec)
+    return spec.index("model") if "model" in spec else None
+
+
+def _jax_tp() -> dict:
+    """{case: (the JAX single-device output, the JAX shard_params_tp shards
+    by (data, model) position, the JAX layout)} of TP_CASES."""
+    jax.config.update("jax_platforms", "cpu")
+    want = {}
+    mesh = jmake_mesh_2d(TP_DATA, TP_MODEL)
+    pos = {d: i for i, d in enumerate(mesh.devices.ravel())}
+    for name, case in _tp_cases().items():
+        cfg = ranks.config(case)
+        tree = export_params(build_model(
+            cfg, generator=torch.Generator().manual_seed(case["seed"])))
+        _, apply = jbuild_model(_jax_cfg(case))
+        params = jax.tree_util.tree_map(jnp.asarray, tree)
+        out = np.asarray(jax.jit(lambda p, d, m: apply(p, d, m, rng=None))(
+            params, {m: jnp.asarray(v) for m, v in case["x"].items()},
+            jnp.asarray(case["mask"])))
+        sharded, shardings = jshard_params_tp(params, mesh)
+        shards = {}
+        for k, arr in flatten_tree(sharded).items():
+            for s in arr.addressable_shards:
+                shards[(pos[s.device], k)] = np.asarray(s.data)
+        layout = {k: _spec_axis(s) for k, s in flatten_tree(shardings).items()}
+        want[name] = (out, shards, layout)
+    return want
+
+
+def _tp_cases() -> dict:
+    return {name: _tp_case(*spec) for name, spec in TP_CASES.items()}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """(DP: {case: the JAX mesh Engine's results} and [each rank's
+    results], the negative controls' under their own names; TP: the JAX
+    side and [each rank's results]).  Everything runs at once: both spawns
+    of ranks, the first DP case's JAX Engine here, the other DP cases' and
+    the TP JAX side in a pool of spawned processes."""
+    jbasic.set_dropout_impl("hash")
+    try:
+        tp_join = _run_ranks_in_thread(ranks.tp_cases, TP_DATA * TP_MODEL,
+                                       _tp_cases(), TP_DATA, TP_MODEL)
+        trees = {name: export_params(build_model(
+            ranks.config(case),
+            generator=torch.Generator().manual_seed(case["seed"])))
+            for name, case in DP_CASES.items()}
+        first, *rest = DP_CASES
+        with ProcessPoolExecutor(
+                len(rest), mp_context=multiprocessing.get_context("spawn")
+                ) as pool:
+            futures = {name: pool.submit(_jax_mesh_engine, name, trees[name])
+                       for name in rest}
+            tp_future = pool.submit(_jax_tp)
+            rank_cases = {}
+            for name, case in DP_CASES.items():
+                cfg, key = ranks.config(case), jax.random.PRNGKey(case["key"])
+                rank_cases[name] = dict(case, seeds=[
+                    jax_family_seeds(jax.random.fold_in(key, i), cfg, T)
+                    for i, T in enumerate(_steps_T(case))])
+            for name, (base, control) in CONTROLS.items():
+                rank_cases[name] = dict(rank_cases[base], evaluate=False,
+                                        control=control)
+            dp_join = _run_ranks_in_thread(ranks.dp_cases, RANKS, rank_cases)
+            dp_want = {first: _jax_mesh_engine(first, trees[first])}
+            dp_want.update({name: f.result(timeout=300)
+                            for name, f in futures.items()})
+            tp_want = tp_future.result(timeout=300)
+        return (dp_want, dp_join()), (tp_want, tp_join())
+    finally:
+        jbasic.set_dropout_impl(None)
+
+
+@pytest.fixture(scope="module")
+def dp_runs(runs):
+    return runs[0]
+
+
+@pytest.fixture(scope="module")
+def tp_runs(runs):
+    return runs[1]
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_tp_forward_matches_jax(tp_runs, name):
+    want, got = tp_runs
+    out = want[name][0]
+    per_data = out.shape[0] // TP_DATA
+    for rank in range(TP_DATA * TP_MODEL):
+        res = got[rank][name]
+        r0 = res["r0"]
+        assert r0 == (rank // TP_MODEL) * per_data
+        np.testing.assert_allclose(res["pred"].numpy(),
+                                   out[r0:r0 + per_data], rtol=TP_RTOL,
+                                   atol=TP_ATOL, err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_tp_shards_equal_jax_shard_params_tp(tp_runs, name):
+    want, got = tp_runs
+    _, shards, layout = want[name]
+    assert any(ax is not None for ax in layout.values())
+    for rank in range(TP_DATA * TP_MODEL):
+        res = got[rank][name]
+        assert res["layout"] == layout
+        for k, v in res["params"].items():
+            assert np.array_equal(v.numpy(), shards[(rank, k)]), (rank, k)
+
+
+def test_make_mesh_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(device_type="cuda")

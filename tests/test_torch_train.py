@@ -41,6 +41,8 @@ from multimodal_transformer_tpu_torch.models.families import ENCODER_LAYERS
 from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 AVL = ("acoustic", "image", "linguistic")
 GRAD_RTOL, GRAD_FLOOR = 2e-3, 1e-6

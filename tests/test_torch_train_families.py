@@ -41,6 +41,8 @@ from multimodal_transformer_tpu_torch.engine import Engine
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree,
                                                            load_jax_params)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 AVL = ("acoustic", "image", "linguistic")
 # the training configurations: (family, modalities, variant)

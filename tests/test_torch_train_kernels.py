@@ -37,6 +37,8 @@ from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as enct
 from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            load_jax_params)
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 D, H, F, N_LAYERS, B, T = 64, 4, 32, 2, 3, 13
 LENGTHS = [13, 9, 1]

@@ -30,6 +30,8 @@ from multimodal_transformer_tpu_torch.models.frontend import (add_frontend,
                                                               frontend_apply)
 from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 NAMES = ("x", "conv_w", "conv_b", "wp", "bp", "wg", "bg")

@@ -26,6 +26,8 @@ import torch
 
 import multimodal_transformer_tpu.ops.pallas.window_embed as jwe
 from multimodal_transformer_tpu_torch.ops.cuda import window_embed as we
+from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
+
 
 NAMES = ("x", "conv_w", "conv_b", "wp", "bp", "wg", "bg")
 
