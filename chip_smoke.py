@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Sixteen phases,
+Run from the repository root: `python3 chip_smoke.py`.  Seventeen phases,
 any failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -63,20 +63,32 @@ any failure exits nonzero:
    SFT, B2-Trans, B3-MFN and B1-LSTM (A+V+L), B1-LSTM legacy (L) and MFT
    (L), with the same checks, each family's launch counts and tolerance,
    and timed B=32, T=160 bf16 forwards on both paths;
-7. long videos: one request of 16 videos of 520-1,100 windows (buckets
+7. legacy heads and tools: MultiEDLSTM and MultiARLSTM at their default
+   widths (embed 128, h 512), B=32, T=160, fp32, within 1e-4 of the same
+   modules on the CPU, ms a forward; three MFT A+V+L serving forwards
+   (B=32, T=160, bf16) inside `engine.profiling.trace`, whose exported
+   Chrome trace must hold every CUDA kernel of every launch of kernels A, B
+   and 10 that the launch counters count (found/expected printed, beside
+   the runtime's launch events); StepTimer over ten forwards and
+   device_memory_stats(); the native SENDv1 parser (native/fastload.cpp)
+   built here with g++ and reading a split; the walkthrough (`python -m
+   multimodal_transformer_tpu_torch.walkthrough`, 2 epochs) as a
+   subprocess: exit 0, its checkpoint, PerfSave, PredSave and served
+   traces, its wall time;
+8. long videos: one request of 16 videos of 520-1,100 windows (buckets
    544-1,120) for MFT A+V+L, SFT A+V+L, B2-Trans A+V+L and MFT L in bf16,
    with the same checks: every encoder takes the flash route (kernel 11 six
    times per encoder and batch, kernel A never); the MFT A+V+L request is
    profiled; then the B=32 encoder stack through kernel A and through the
    flash route at T = 137, 160, 544, 640 and 1,024, bf16 and fp32,
    alternated;
-8. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
+9. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
    A+V+L widths over 24 videos of 20-1,100 windows, fp32 and (batched)
    eval_dtype=bf16: exact launch counts, the per-video CCCs of both paths
    within their tolerance and equal to `ccc` on the returned predictions,
    the `Evaluation` line printed; a "query"-mode per-video evaluation
    launches no encoder kernel;
-9. train kernels: the five training kernels (encoder stack forward, layer
+10. train kernels: the five training kernels (encoder stack forward, layer
    backward and whole-stack backward, MFN forward and reverse recurrence)
    against their plain versions at B=32, T=160 and T=400, and at p = 0
    (the dropout-free route) at T=160, fp32 and bf16, the bound applied to
@@ -94,7 +106,7 @@ any failure exits nonzero:
    T=1,120; then kernels 6 and 7's device ms per stage and kernel 3's and
    kernel 4's device ms per launch name at B=32, T=160 (torch.profiler),
    bf16 and fp32;
-10. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
+11. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
    epoch with encoder_backward="stack" (kernel 5 in place of kernel 4,
@@ -105,23 +117,23 @@ any failure exits nonzero:
    and with kernel 10's autograd Function on the plain forward; the same
    step twice gives bit-identical gradients; B=32, T=160 mixed steps are
    timed on both paths and profiled;
-11. dropout-free training: fp32 steps without seeds for MFT A+V+L and
+12. dropout-free training: fp32 steps without seeds for MFT A+V+L and
    B3-MFN A+V+L at B=32, T=160: the training kernels at p = 0 and never
    kernel A or B, exact launches, every parameter with a gradient that is
    not all zero, loss and gradients within the train phase's limits of the
    plain path; kernels A and B called directly under autograd raise;
-12. query mode: an MFT A+V+L forward and one training step in the
+13. query mode: an MFT A+V+L forward and one training step in the
    reference's default "query" mask mode, which no encoder kernel takes:
    the encoder kernels' counters stay at 0 while the MFN and window-embed
    kernels launch;
-13. families train: Engine steps of SFT (A+V+L and A), B2-Trans A+V+L,
+14. families train: Engine steps of SFT (A+V+L and A), B2-Trans A+V+L,
    B3-MFN (A+V+L and A), B1-LSTM A+V+L, B1-LSTM legacy L and MFT L at full
    widths, B=32, T=160: the fp32 kernel-path step against the plain path
    (the train phase's limits), a repeated step bit-identical, the same step
    on the "stack" encoder backward bit-identical to "perlayer", exact
    launch counts per step on both routes; bf16 mixed ms/step from a batch
    on the card and from a host batch; one "query"-mode step;
-14. parallel: 2 ranks started by `parallel.spawn` after the build (NCCL
+15. parallel: 2 ranks started by `parallel.spawn` after the build (NCCL
    with a card each, else gloo with both on cuda:0), against one process
    on the same weights and global batches (padded to the ranks as the
    ranks pad them): an fp32 data-parallel epoch of MFT A+V+L, 3 steps of
@@ -143,7 +155,7 @@ any failure exits nonzero:
    ranks and in one process, ms per gradient all_reduce (with the copies
    into and out of the flat buffer, and the collective alone), the
    phase's wall time, each beside the card's name and power limit;
-15. CLI: `python -m multimodal_transformer_tpu_torch.train` on the
+16. CLI: `python -m multimodal_transformer_tpu_torch.train` on the
    synthetic SENDv1 tree that --synthetic_data writes (8/3/3 videos of
    45-75 s, GloVe and BERT features), in a temporary directory: MFT A+V+L
    trained 2 epochs in bf16 mixed precision, key_query, as a subprocess;
@@ -153,10 +165,13 @@ any failure exits nonzero:
    `.pth` (exact launches of A, B and 10); `--perf` (14 PerfSave rows); a
    B2-Trans `--resident_train` epoch (kernels 3, 4 and 10); every logged
    loss and CCC finite; the reader, the checkpoint files and epochs with
-   and without the prefetcher timed; `ValencePredictor.from_checkpoint`'s
+   and without the prefetcher timed; every split of the training run read
+   by the native parser (the CLI's log), and the Train split read with
+   the native and the Python parser, alternated;
+   `ValencePredictor.from_checkpoint`'s
    Test traces within the slice's bf16 tolerance of the plain fp32 forward
    of the same weights; seconds per epoch and per evaluation pass;
-16. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
+17. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
    and "stack", alternated, ms/step and launches (kernel 5 three times per
    step on "stack", kernel 4 never).
 
@@ -1748,6 +1763,13 @@ def run_cli(torch, np, device) -> None:
             raise SmokeFailure(f"no {ckpt} or its .state after training")
         print(f"CLI train (subprocess): MFT A+V+L, 2 epochs of "
               f"{CLI_SUBSETS['Train']} videos, {wall:.1f} s wall", flush=True)
+        read = native_files((tmp / "train.log").read_text().splitlines())
+        print(f"CLI reader: {read} (split, files read by the native parser, "
+              "files)", flush=True)
+        if ({r[0] for r in read} != {"Train", "Valid"}
+                or any(n != total for _, n, total in read)):
+            raise SmokeFailure("the CLI did not read Train and Valid with the "
+                               "native parser")
 
         parse = lambda *a: cli.build_arg_parser().parse_args(list(a))
         mods = ("acoustic", "image", "linguistic")
@@ -1848,6 +1870,15 @@ def run_cli(torch, np, device) -> None:
         t0 = time.perf_counter()
         _, x, y, lens = cli.prepare_data(cfg, str(data_dir), "Train")
         read_s = time.perf_counter() - t0
+        reads = {True: [], False: []}
+        for native in (True, False, False, True, True, False):
+            t0 = time.perf_counter()
+            load_send(mods, str(data_dir), "Train", use_native=native)
+            reads[native].append(time.perf_counter() - t0)
+        print(f"CLI reader: Train split read, s, native parser "
+              f"{[round(v, 4) for v in reads[True]]}, Python parser "
+              f"{[round(v, 4) for v in reads[False]]} (alternated) on "
+              f"{card_line()}", flush=True)
         eng = Engine(cfg, train_dtype=torch.bfloat16, device=device)
         io = {}
         for what, fn in (
@@ -2025,6 +2056,250 @@ def run_families(torch, np, device):
               f"{plain_ms:.3f} ms", flush=True)
         if err > tol:
             raise SmokeFailure(f"{name}: bf16 serving outside the tolerance")
+
+
+# the legacy heads and tools phase: the heads at their default widths (the
+# families smoke's 108 input features: acoustic + emotient), fp32, held to
+# the same module on the CPU
+LEGACY_B, LEGACY_T, LEGACY_WE = 32, 160, 108
+LEGACY_TOL = 1e-4
+TRACE_FORWARDS, TIMER_FORWARDS = 3, 10
+WALKTHROUGH_EPOCHS = 2
+
+
+@contextlib.contextmanager
+def reader_log():
+    """The SENDv1 reader's log lines ("mmtx.data": which parser read each
+    split's files), whatever handlers its parent logger has."""
+    lines = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    lg, h = logging.getLogger("mmtx.data"), Handler()
+    level = lg.level
+    lg.addHandler(h)
+    lg.setLevel(logging.INFO)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(h)
+        lg.setLevel(level)
+
+
+def native_files(lines) -> list:
+    """(split, files read natively, files) of each reader log line."""
+    import re
+    pat = re.compile(r"SENDv1 (\w+): (\d+) of (\d+) files read by the "
+                     r"native parser")
+    return [(m.group(1), int(m.group(2)), int(m.group(3)))
+            for m in map(pat.search, lines) if m]
+
+
+def trace_kernel_counts(path: Path) -> tuple:
+    """(kernel events by name, runtime launch events, the least lag in us
+    of a kernel's GPU start after its launch on the host: negative where
+    the GPU timestamps run early, the places in launch order of the
+    launches whose kernel the trace lacks) of a Chrome trace from
+    torch.profiler; the throwaway kernels of engine.profiling.pad_window
+    are counted under the name "pad"."""
+    from multimodal_transformer_tpu_torch.engine.profiling import \
+        PAD_KERNEL_MARK
+
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels: dict = {}
+    starts, launched = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = "pad" if PAD_KERNEL_MARK in e["name"] else e["name"]
+            kernels[name] = kernels.get(name, 0) + 1
+            starts[e["args"].get("correlation")] = e["ts"]
+        elif (e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "LaunchKernel" in e.get("name", "")):
+            launched[e["args"].get("correlation")] = e["ts"]
+    lags = [t - launched[c] for c, t in starts.items() if c in launched]
+    order = sorted(launched, key=launched.get)
+    lost = [i for i, c in enumerate(order) if c not in starts]
+    return kernels, len(launched), min(lags, default=math.nan), lost
+
+
+def run_legacy_and_tools(torch, np, device) -> None:
+    """The legacy ED/AR heads on the card against the CPU; a user's `trace`
+    of three MFT A+V+L serving forwards holding every counted launch of
+    kernels A, B and 10; StepTimer and device_memory_stats; the native
+    SENDv1 parser built here; the walkthrough as a user runs it."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_transformer_tpu_torch import ValencePredictor, build_model
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import (
+        generate_synthetic_send, load_send, native_loader)
+    from multimodal_transformer_tpu_torch.engine.profiling import (
+        PAD_KERNELS, StepTimer, device_memory_stats, trace)
+    from multimodal_transformer_tpu_torch.models.families import ENCODER_LAYERS
+    from multimodal_transformer_tpu_torch.models.legacy_lstm import (
+        MultiARLSTM, MultiEDLSTM)
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
+
+    # the legacy heads, fp32 (TF32 off since the gate), card against CPU
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((LEGACY_B, LEGACY_T, LEGACY_WE), dtype=np.float32)
+    lens = rng.integers(LEGACY_T // 4, LEGACY_T + 1, size=LEGACY_B)
+    lens[0] = LEGACY_T
+    mask = (np.arange(LEGACY_T)[None, :] < lens[:, None]).astype(
+        np.float32)[..., None]
+    for name, cls in (("MultiEDLSTM", MultiEDLSTM),
+                      ("MultiARLSTM", MultiARLSTM)):
+        module = cls(LEGACY_WE, gen=torch.Generator().manual_seed(3)).eval()
+        card = copy.deepcopy(module).to(device)
+        xc, mc = torch.from_numpy(x).to(device), torch.from_numpy(mask).to(
+            device)
+        with torch.no_grad():
+            want = module(torch.from_numpy(x), torch.from_numpy(mask))
+            got = card(xc, mc)
+            ms = time_ms(lambda: card(xc, mc), reps=5)
+        err = float((got.cpu() - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        print(f"{name} (embed 128, h 512) B={LEGACY_B} T={LEGACY_T} fp32: "
+              f"|card - CPU| = {err:.3e} (tol {LEGACY_TOL:.0e}), "
+              f"{ms:.3f} ms a forward on {card_line()}", flush=True)
+        if err > LEGACY_TOL or not finite:
+            raise SmokeFailure(f"{name}: the card's forward is not within "
+                               f"{LEGACY_TOL} of the CPU's, or not finite")
+
+    # a user's trace of the main path's serving forward
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    predictor = ValencePredictor(
+        cfg, build_model(cfg, generator=torch.Generator().manual_seed(0)),
+        device=device, bf16=True)
+    mod = predictor.module
+    gen = torch.Generator().manual_seed(2)
+    inputs = {m: torch.randn(BENCH_B, BENCH_T, FRAMES[m],
+                             cfg.mod_dimension[m], generator=gen).to(
+        device=device, dtype=torch.bfloat16) for m in AVL}
+    bmask = torch.ones(BENCH_B, BENCH_T, 1, device=device,
+                       dtype=torch.bfloat16)
+
+    def forward():
+        with torch.inference_mode():
+            return mod(inputs, bmask, mask_mode="key_query")
+
+    forward()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        with trace(tmp):
+            for _ in range(TRACE_FORWARDS):
+                forward()
+        counts = read_counters()
+        files = list(Path(tmp).glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise SmokeFailure(f"trace wrote {files}, not one Chrome trace")
+        kernels, runtime_launches, lag, lost = trace_kernel_counts(files[0])
+        # the same forwards in a session without the padding, for the
+        # record: events it drops are those the padding keeps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_FORWARDS):
+                forward()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(Path(tmp) / "control.json"))
+        control = trace_kernel_counts(Path(tmp) / "control.json")
+    # CUDA kernels a counted launch makes: kernel A's bf16 path 2 a layer +
+    # 1, kernel B one LSTM scan and one memory scan (and its GEMMs), kernel
+    # 10's wgmma route one
+    per_launch = {"encoder_stack_fused": ("enc_wgmma::",
+                                          2 * ENCODER_LAYERS + 1),
+                  "mfn_scan_fused": (("lstm_scan_kernel", "mem_scan_kernel"),
+                                     2),
+                  "window_embed_highway": ("window_embed_wgmma_kernel", 1)}
+    found_all = []
+    for name, (keys, n) in per_launch.items():
+        keys = (keys,) if isinstance(keys, str) else keys
+        found = sum(c for k, c in kernels.items()
+                    if "mmtx::" in k and any(key in k for key in keys))
+        expected = n * counts[name]
+        found_all.append((name, found, expected))
+    pad = kernels.pop("pad", 0)
+    print(f"trace of {TRACE_FORWARDS} MFT A+V+L serving forwards (B={BENCH_B} "
+          f"T={BENCH_T} bf16): "
+          + "; ".join(f"{k} {f} of {e} kernel events ({counts[k]} launches)"
+                      for k, f, e in found_all)
+          + f"; the forwards' kernel events {sum(kernels.values())} of "
+          f"{runtime_launches - PAD_KERNELS} launches, {pad} of "
+          f"{PAD_KERNELS} throwaway kernels, the earliest GPU start "
+          f"{lag:.1f} us after its launch, lost launches at places "
+          f"{lost[:20]} in launch order; without the padding "
+          f"{sum(control[0].values())} of {control[1]}, {control[2]:.1f} us, "
+          f"lost {control[3][:20]}", flush=True)
+    if any(f != e or e == 0 for _, f, e in found_all):
+        raise SmokeFailure("the trace does not hold every counted launch of "
+                           "kernels A, B and 10")
+
+    timer = StepTimer("serve")
+    for _ in range(TIMER_FORWARDS):
+        with timer:
+            forward()
+    print(f"StepTimer over {TIMER_FORWARDS} forwards: {timer.summary()}; "
+          f"device_memory_stats(): {device_memory_stats()}", flush=True)
+    stats = device_memory_stats()
+    if timer.summary()["n"] != TIMER_FORWARDS or str(device) not in stats:
+        raise SmokeFailure("StepTimer or device_memory_stats() is wrong")
+
+    # the native parser, built on this host, read a split
+    fresh = not native_loader.library_path().is_file()
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_synthetic_send(tmp, {"Train": 2}, duration_s=20.0, seed=4)
+        with reader_log() as lines:
+            load_send(list(AVL), tmp, "Train")
+    read = native_files(lines)
+    print(f"native SENDv1 parser: {native_loader.library_path().name} "
+          f"{'built' if fresh else 'found'} in {build_s:.3f} s "
+          f"({native_loader.build_error or 'no error'}); reader: {lines}",
+          flush=True)
+    if not built or not read or any(n != total for _, n, total in read):
+        raise SmokeFailure("the native SENDv1 parser was not built here or "
+                           "did not read the split")
+
+    # the walkthrough, as a user runs it
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(here)] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "multimodal_transformer_tpu_torch.walkthrough", "--workdir",
+             str(tmp), "--epochs", str(WALKTHROUGH_EPOCHS), "--device",
+             str(device)],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SmokeFailure(f"the walkthrough exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        perf = (tmp / "PerfSave" / "B3-MFN.csv").read_text().splitlines()
+        preds = list((tmp / "PredSave").glob("B3-MFN*.csv"))
+        ckpt = tmp / "ModelSave" / "B3-MFN" / "B3-MFN-AL.pth"
+        served = [ln for ln in proc.stdout.splitlines()
+                  if "videos served" in ln]
+        print(f"walkthrough, {WALKTHROUGH_EPOCHS} epochs: exit 0, "
+              f"{wall:.1f} s wall; {ckpt.name} {ckpt.is_file()}, PerfSave "
+              f"{len(perf) - 1} rows, PredSave {[p.name for p in preds]}; "
+              f"{served}", flush=True)
+        if (not ckpt.is_file() or perf[0] != "Model,Combination,VidID,Set,CCC"
+                or len(perf) != 4 or len(preds) != 1
+                or preds[0].read_text().splitlines()[0] != "time,pred,actual"
+                or not served or not served[0].strip().startswith("3 videos")):
+            raise SmokeFailure("the walkthrough's artifacts are missing: "
+                               f"{proc.stdout[-2000:]}")
 
 
 def run_query_mode(torch, np, device):
@@ -2369,6 +2644,9 @@ def main() -> int:
 
     phase("families")
     run_families(torch, np, device)
+
+    phase("legacy heads and tools")
+    run_legacy_and_tools(torch, np, device)
 
     phase("long videos")
     long_counts = run_long_videos(torch, np, device)

@@ -20,20 +20,30 @@ a timer per modality always added.  The port gives the same arrays:
     column;
   * the sequence length of a video comes from its tsv modality.
 
-The JAX package's native parser (native/fastload.cpp) parses to float32, so
-its timers are float32 values widened to float64; the port does not bind
-it.
+`load_send(..., use_native=True)`, the default as in the JAX package, reads
+each table with the native parser (native/fastload.cpp through
+data/native_loader.py, built with g++ at first use) and slices its header
+as the JAX native path does; the parser reads float32, so its timers are
+float32 values widened to float64.  A table it refuses (a row wider than
+its header), or any table when the library cannot be built, is read by the
+Python path above.  One line on the "mmtx.data" logger (the CLI's log)
+says which parser read each split's files.
 """
 
 from __future__ import annotations
 
 import csv
+import logging
 import os
 import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from . import native_loader
+
+log = logging.getLogger("mmtx.data")
 
 
 @dataclass(frozen=True)
@@ -159,6 +169,23 @@ def read_table(path: str, fmt: str) -> Tuple[List[str], np.ndarray]:
     return header, values.reshape(len(body), n)
 
 
+def _load_native(path: str, spec: ChannelSpec):
+    """The JAX package's native path: (features [T, D] float32, timer [T]
+    float64) from the native parser and its header, or None where the
+    parser refuses the file or lacks the first feature column."""
+    parsed = native_loader.parse_table(path, spec.fmt)
+    if parsed is None:
+        return None
+    arr, header = parsed
+    idx = {h: i for i, h in enumerate(header)}
+    if spec.col_start not in idx:
+        return None
+    start = idx[spec.col_start]
+    stop = idx.get(spec.col_stop, len(header) - 1)
+    feats = arr[:, start:stop + 1].astype(np.float32) * spec.scale
+    return feats, arr[:, idx[spec.timer_col]].astype(np.float64)
+
+
 def _load_columns(path: str, spec: ChannelSpec):
     """Returns (features [T, D] float32, timer [T] float64)."""
     header, table = read_table(path, spec.fmt)
@@ -188,12 +215,15 @@ def _discover(dir_path: str, regex: str) -> List[Tuple[Tuple[str, str], str]]:
 
 
 def load_send(modalities: Sequence[str], base_dir: str, subset: str,
-              linguistic_variant: str = "glove") -> SendDataset:
+              linguistic_variant: str = "glove",
+              use_native: bool = True) -> SendDataset:
     """Load aligned SENDv1 sequences for the given modalities.
 
     modalities: subset of {linguistic, emotient, image, acoustic}; `ratings`
     is always added (reference datasets.py:281-282).  Each modality also gets
-    a timer array from its own file's timestamp column.
+    a timer array from its own file's timestamp column.  use_native: read
+    with the native parser where it can (float32 timers), else the Python
+    path alone.
     """
     mods = [m for m in modalities if m != "ratings"] + ["ratings"]
     specs = {m: SCHEMA["linguistic_bert" if m == "linguistic"
@@ -217,10 +247,14 @@ def load_send(modalities: Sequence[str], base_dir: str, subset: str,
     data = {m: [] for m in mods}
     timers = {m: [] for m in mods}
     lengths = []
+    n_native = 0
     for i in range(len(seq_ids)):
         seq_len = None
         for m, spec in specs.items():
-            feats, t = _load_columns(discovered[m][i][1], spec)
+            path = discovered[m][i][1]
+            got = _load_native(path, spec) if use_native else None
+            n_native += got is not None
+            feats, t = got if got is not None else _load_columns(path, spec)
             data[m].append(feats)
             timers[m].append(t)
             if spec.fmt == "tsv":
@@ -231,4 +265,12 @@ def load_send(modalities: Sequence[str], base_dir: str, subset: str,
             seq_len = len(data[mods[0]][-1])
         lengths.append(seq_len)
 
+    n_files = len(seq_ids) * len(specs)
+    if use_native and not native_loader.available():
+        why = f" (native parser unavailable: {native_loader.build_error})"
+    else:
+        why = ""
+    log.info("SENDv1 %s: %d of %d files read by the native parser "
+             "(native/fastload.cpp), %d by the Python parser%s", subset,
+             n_native, n_files, n_files - n_native, why)
     return SendDataset(tuple(mods), seq_ids, data, timers, lengths)

@@ -22,7 +22,9 @@ assignment without the loop: the edges are the running sum of window_size,
 frame i's first window with an edge at or past its time is
 searchsorted(edges, t_i), and its window is the running maximum of those
 (frames with earlier times than a frame before them stay in the open
-window, as in the loop).
+window, as in the loop).  As in the JAX package, `window_channel` first
+asks the native library (data/native_loader.py) for the loop's assignment
+in C++, and takes `window_bounds` where the library is unavailable.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from . import native_loader
 from .send import SendDataset
 
 
@@ -56,9 +59,16 @@ def window_channel(features: np.ndarray, times: np.ndarray,
                    window_size: float, oversample: int) -> List[np.ndarray]:
     """Group per-frame features [T, D] into wall-clock windows: a list of
     [n_frames_w, D] arrays (0 rows for an empty window), each window
-    `oversample` times in a row."""
+    `oversample` times in a row.  The native assignment
+    (native_loader.window_assign, the loop in C++) runs first, as in the
+    JAX package; window_bounds where it gives none."""
     feats = np.nan_to_num(np.asarray(features, dtype=np.float32), nan=0.0,
                           posinf=np.inf, neginf=-np.inf)
+    times = np.asarray(times, dtype=np.float64).reshape(-1)
+    assign = native_loader.window_assign(times, window_size)
+    if assign is not None:
+        return [feats[s:s + c] for s, c in zip(*assign)
+                for _ in range(oversample)]
     bounds = window_bounds(times, window_size)
     return [feats[s:e] for s, e in zip(bounds[:-1], bounds[1:])
             for _ in range(oversample)]

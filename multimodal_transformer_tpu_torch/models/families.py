@@ -39,7 +39,7 @@ from ..ops.attention import Encoder
 from ..ops.mfn_core import MFN, mfn_scan
 from ..ops.seeds import DropoutSites
 from ..utils.init import make_linear
-from .config import FAMILIES, MFT_EMBED_DIM, ModelConfig
+from .config import FAMILIES, MFT_EMBED_DIM, ModelConfig, default_config
 from .frontend import add_frontend, frontend_apply
 from .heads import (HEADS, MultiLSTM, UniFullTransformer, UniTransformer,
                     encode)
@@ -266,3 +266,58 @@ def build_model(cfg: ModelConfig, *,
         raise ValueError(f"unknown family {cfg.family!r}; expected one of "
                          f"{FAMILIES}")
     return FAMILY_MODULES[cfg.family](cfg, generator)
+
+
+def legacy_ar_smoke(module: nn.Module, data_dir: str, subset: str,
+                    device: torch.device | str = "cuda"):
+    """The body of the smoke run below, on a given `MultiARLSTM` (108 input
+    features): B3-MFN's acoustic + emotient windows of `subset` read and
+    windowed, the first frame of each window of the first video passed
+    through the module in eval mode, its valences printed as the JAX
+    package's smoke prints them.  Returns them, [W] float32."""
+    from ..data import load_send, window_pipeline
+
+    print("Loading data...")
+    cfg = default_config("B3-MFN", ("acoustic", "emotient"))
+    dataset = load_send(list(cfg.modalities), data_dir, subset)
+    padded, _, _ = window_pipeline(dataset, cfg.window_size, cfg.modalities,
+                                   cfg.mod_dimension)
+    print("Passing a sample through the model...")
+    device = torch.device(device)
+    x = torch.cat([torch.from_numpy(padded[m][:1, :, 0, :])
+                   for m in cfg.modalities], dim=2).to(device)
+    mask = torch.ones(1, x.shape[1], 1, device=device)
+    module = module.to(device).eval()
+    with torch.no_grad():
+        out = module(x, mask).reshape(-1).cpu().numpy()
+    print("Predicted valences:")
+    for o in out:
+        print("{:+0.3f}".format(float(o)))
+    return out
+
+
+if __name__ == "__main__":
+    # The smoke run of the JAX package's models/families.py (the analog of
+    # the reference's `python models.py --dir --subset`, MFT/models.py:
+    # 402-428): a MultiARLSTM on windowed SENDv1, on the card unless
+    # --device cpu.  The weights come from a seed and differ from the JAX
+    # run's (jax.random); a test carries the JAX weights across.
+    import argparse
+    import sys
+
+    from .legacy_lstm import MultiARLSTM
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--dir', type=str, default="../data")
+    parser.add_argument('--subset', type=str, default="Train")
+    parser.add_argument('--device', type=str, default="cuda")
+    args = parser.parse_args()
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        sys.exit(f"error: --device {args.device}: no CUDA device is "
+                 "available (pass --device cpu to run on the CPU)")
+    print("Building model...")
+    cfg = default_config("B3-MFN", ("acoustic", "emotient"))
+    total = sum(cfg.mod_dimension[m] for m in cfg.modalities)
+    legacy_ar_smoke(MultiARLSTM(total, gen=torch.Generator().manual_seed(0)),
+                    args.dir, args.subset, args.device)

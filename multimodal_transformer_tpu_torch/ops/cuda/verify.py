@@ -271,23 +271,29 @@ def check_encoder(B: int, T: int, dtype: torch.dtype, *, device, seed: int = 0,
 def kernel_device_ms(fn, calls: int, name_of, per_launch: bool = False,
                      seen: Dict[str, int] | None = None) -> Dict[str, float]:
     """Device ms per call of fn's kernels, from torch.profiler's kernel
-    events over `calls` calls after a warm one, summed by name_of(event
-    name) (events it maps to None are left out); per_launch: the mean ms of
-    a name's events instead, which for kernels launched once a call is
-    their ms per call even when the profiler drops some events; seen, where
-    given, receives the number of events captured of each name."""
+    events over `calls` calls after a warm one (the window padded by
+    engine.profiling.pad_window, whose kernels are left out, so that no
+    event is dropped), summed by name_of(event name) (events it maps to
+    None are left out); per_launch: the mean ms of a name's events instead,
+    which for kernels launched once a call is their ms per call even when
+    the profiler drops some events; seen, where given, receives the number
+    of events captured of each name."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ...engine.profiling import PAD_KERNEL_MARK, pad_window
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_window(start=True)
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
+        pad_window(start=False)
     out: Dict[str, float] = {}
     seen = {} if seen is None else seen
     for e in prof.events():
-        key = name_of(e.name) if str(e.device_type).endswith("CUDA") else None
+        key = (name_of(e.name) if str(e.device_type).endswith("CUDA")
+               and PAD_KERNEL_MARK not in e.name else None)
         if key is not None:
             out[key] = out.get(key, 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e3

@@ -151,7 +151,8 @@ def test_predictor_from_checkpoint_equals_jax(workdir, trained):
         p = ValencePredictor.from_checkpoint(path, "B2-Trans", device="cpu",
                                              bf16=False)
         assert p.cfg.mask_mode == "key_query"
-        got = p.predict_dataset(load_send(mods, data_dir, "Test"))
+        got = p.predict_dataset(load_send(mods, data_dir, "Test",
+                                          use_native=False))
         assert got.keys() == want.keys() == {"100_1", "101_2"}
         for k in want:
             assert got[k].shape == want[k].shape

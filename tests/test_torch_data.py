@@ -4,14 +4,14 @@ prefetcher against the JAX package, on the CLI tests' synthetic fixture
 
   * the port's generator writes the JAX generator's bytes (both linguistic
     variants);
-  * `load_send` equals the JAX `load_send(use_native=False)` (the pandas
-    path) exactly: features, timers, lengths, IDs, for every modality and
+  * `load_send(use_native=False)` (the port's Python path) equals the JAX
+    `load_send(use_native=False)` (the pandas path) exactly: features, timers, lengths, IDs, for every modality and
     both linguistic variants, also after `normalize` and `split`;
   * the JAX native parser differs from it only in the timers, which it
     parses to float32 (each native timer is the port's rounded to float32);
   * `window_pipeline` equals the JAX `window_pipeline` exactly, with the
-    JAX package's while loop (native assignment off) and with its native
-    assignment; `window_channel` / `window_ratings` equal the loop on
+    JAX package's while loop (native assignment off in both packages) and
+    with both native assignments; `window_channel` / `window_ratings` equal the loop on
     unsorted times with gaps and fractional window sizes, and an empty
     rating window raises the loop's message;
   * `len_to_mask`, `pad_and_merge`, `seq_collate_dict` equal the JAX ones;
@@ -32,6 +32,7 @@ from multimodal_transformer_tpu.data import synthetic as jsynthetic
 from multimodal_transformer_tpu.data import windowing as jwindowing
 from multimodal_transformer_tpu_torch.data import (batching, load_send,
                                                    window_pipeline)
+from multimodal_transformer_tpu_torch.data import native_loader as pnative
 from multimodal_transformer_tpu_torch.data import windowing
 from multimodal_transformer_tpu_torch.data.prefetch import DevicePrefetcher
 from multimodal_transformer_tpu_torch.data.send import read_table
@@ -87,7 +88,8 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("variant", ["glove", "bert"])
 @pytest.mark.parametrize("subset", ["Train", "Valid"])
 def test_load_send_equals_the_pandas_path(data_dir, subset, variant):
-    got = load_send(MODS, str(data_dir), subset, linguistic_variant=variant)
+    got = load_send(MODS, str(data_dir), subset, linguistic_variant=variant,
+                    use_native=False)
     want = jsend.load_send(MODS, str(data_dir), subset,
                            linguistic_variant=variant, use_native=False)
     _assert_same(got, want)
@@ -101,7 +103,7 @@ def test_load_send_equals_the_pandas_path(data_dir, subset, variant):
 def test_native_parser_differs_only_in_float32_timers(data_dir):
     """What the JAX native parser (`use_native=True`) gives on the fixture:
     the same features, and timers parsed to float32 and widened."""
-    got = load_send(MODS, str(data_dir), "Train")
+    got = load_send(MODS, str(data_dir), "Train", use_native=False)
     if native_loader.available():
         native = jsend.load_send(MODS, str(data_dir), "Train",
                                  use_native=True)
@@ -154,7 +156,9 @@ def test_window_pipeline_equals_jax(data_dir, monkeypatch, family, mods,
     if not native:
         monkeypatch.setattr(native_loader, "window_assign",
                             lambda *a: None)
-    ds = load_send(mods, str(data_dir), "Train", linguistic_variant=variant)
+        monkeypatch.setattr(pnative, "window_assign", lambda *a: None)
+    ds = load_send(mods, str(data_dir), "Train", linguistic_variant=variant,
+                   use_native=False)
     jds = jsend.load_send(mods, str(data_dir), "Train",
                           linguistic_variant=variant, use_native=False)
     got = window_pipeline(ds, ws, mods, cfg.mod_dimension)
@@ -168,6 +172,7 @@ def test_window_pipeline_equals_jax(data_dir, monkeypatch, family, mods,
 
 def test_window_assignment_equals_the_loop(monkeypatch):
     monkeypatch.setattr(native_loader, "window_assign", lambda *a: None)
+    monkeypatch.setattr(pnative, "window_assign", lambda *a: None)
     rs = np.random.RandomState(3)
     feats = rs.randn(60, 4).astype(np.float32)
     feats[5, 1] = np.nan
