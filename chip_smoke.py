@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-Run from the repository root: `python3 chip_smoke.py`.  Seventeen phases,
+Run from the repository root: `python3 chip_smoke.py`.  Eighteen phases,
 any failure exits nonzero:
 
 1. gate: a CUDA device must be present (there is no CPU path); prints the
@@ -75,13 +75,13 @@ any failure exits nonzero:
    multimodal_transformer_tpu_torch.walkthrough`, 2 epochs) as a
    subprocess: exit 0, its checkpoint, PerfSave, PredSave and served
    traces, its wall time;
-8. long videos: one request of 16 videos of 520-1,100 windows (buckets
-   544-1,120) for MFT A+V+L, SFT A+V+L, B2-Trans A+V+L and MFT L in bf16,
-   with the same checks: every encoder takes the flash route (kernel 11 six
-   times per encoder and batch, kernel A never); the MFT A+V+L request is
-   profiled; then the B=32 encoder stack through kernel A and through the
-   flash route at T = 137, 160, 544, 640 and 1,024, bf16 and fp32,
-   alternated;
+8. long videos: one request of 8 videos of 520-1,100 windows, the longest
+   at 1,100 (buckets 544-1,120) for MFT A+V+L, SFT A+V+L, B2-Trans A+V+L
+   and MFT L in bf16, with the same checks: every encoder takes the flash
+   route (kernel 11 six times per encoder and batch, kernel A never); the
+   MFT A+V+L request is profiled; then the B=32 encoder stack through
+   kernel A and through the flash route at T = 137, 160, 544, 640 and
+   1,024, bf16 and fp32, alternated;
 9. evaluation: Engine.evaluate_per_video and evaluate_batched at full MFT
    A+V+L widths over 24 videos of 20-1,100 windows, fp32 and (batched)
    eval_dtype=bf16: exact launch counts, the per-video CCCs of both paths
@@ -171,12 +171,26 @@ any failure exits nonzero:
    `ValencePredictor.from_checkpoint`'s
    Test traces within the slice's bf16 tolerance of the plain fp32 forward
    of the same weights; seconds per epoch and per evaluation pass;
-17. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
+17. random streams and plots: kernel T (csrc/threefry.cu, jax.random's
+   threefry bits and bernoulli masks) bit for bit against its plain
+   version at [32, 8, 160, 160], at an odd shape and on the MFN's gamma
+   keys in one call (320 keys, one launch; 1,088 keys at T = 544, three
+   launches counted), timed beside its bound; MFT A+V+L weights drawn
+   on the card equal to those drawn on the CPU; an fp32 MFT A+V+L train
+   step on the "threefry" dropout (B=32, T=160) on the card within 1e-4 of
+   the same step on the CPU, kernel T launched 77 times and kernel 10
+   three times, no encoder or MFN kernel; the host's ms to derive one hash
+   step's seeds; `python -m multimodal_transformer_tpu_torch.train
+   --family B3-MFN --comb AL --epochs 1 --dropout_impl threefry
+   --visualize --synthetic_data` as a subprocess, then `--test
+   --visualize` on its checkpoint in process (the JAX CLI plots when it
+   evaluates), whose B3-MFN_Test_eval.png and _fits.png must decode;
+18. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
    and "stack", alternated, ms/step and launches (kernel 5 three times per
    step on "stack", kernel 4 never).
 
 The line before the last is a JSON object with each kernel's launches
-(the variants' from phase 5),
+(the variants' from phase 5, kernel T's from phase 17's threefry step),
 error, times, bound (the least time an H100 SXM could take, from the
 check's shapes) and, for kernel 11, the time of PyTorch's
 scaled_dot_product_attention on the same inputs; the last line is
@@ -238,9 +252,9 @@ WINDOW_EMBED_SHAPES = ((4, 88, 88), (4, 88, 256), (4, 1000, 256),
 # copies)
 WINDOW_EMBED_RAGGED = (3, 7, 200, 33, 45)
 MFT_WINDOW_EMBED = ((4, 88, 88), (4, 1000, 256), (32, 300, 300))
-# (B, T) of the long-video phase's front ends: LONG_VIDEOS videos padded to
-# 1,120 windows, where kernel 10's wgmma route runs a block's tiles in more
-# than one group (all but MFT's acoustic front end)
+# (B, T) of a batch of 16 long videos padded to 1,120 windows, where kernel
+# 10's wgmma route runs a block's tiles in more than one group (all but
+# MFT's acoustic front end)
 WINDOW_EMBED_LONG = (16, 1120)
 # The serving configurations of the families phase: (name, family,
 # modalities, variant, kernel launches per batch, tolerance of the bf16
@@ -276,10 +290,10 @@ FLASH_SHAPES = ((32, 8, 544, 32, 0), (32, 8, 640, 32, 0),
                 (32, 8, 601, 32, 2), (32, 8, 544, 16, 0), (5, 8, 601, 2, 2))
 FLASH_GRAD = (4, 8, 544, 32)
 # long videos: one request of LONG_VIDEOS videos of LONG_MIN..LONG_MAX
-# windows, every bucket past 512; (name, family, modalities, kernel
+# windows, the longest at LONG_MAX, every bucket past 512; (name, family, modalities, kernel
 # launches per batch, tolerance against the plain fp32 forward as in the
 # families phase).  Each encoder runs kernel 11 once per layer.
-LONG_VIDEOS, LONG_MIN, LONG_MAX = 16, 520, 1100
+LONG_VIDEOS, LONG_MIN, LONG_MAX = 8, 520, 1100
 LONG_FAMILIES = (
     ("MFT A+V+L", "MFT", AVL, {"window_embed_highway": 3, "mfn_scan_fused": 1,
                                "flash_attention_masked": 3 * 6}, SLICE_TOL),
@@ -707,7 +721,7 @@ def run_slice(torch, np, device):
     from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
 
     cfg = default_config("MFT", AVL, mask_mode="key_query")
-    module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    module = build_model(cfg, seed=0, device=device)
     predictor = ValencePredictor(cfg, module, device=device, bf16=True)
     print(f"model: MFT A+V+L, mod dims {[cfg.mod_dimension[m] for m in AVL]}, "
           f"window embeds {[cfg.window_embed_size[m] for m in AVL]}, frames "
@@ -998,23 +1012,30 @@ def _on_card(torch, Batch, batch, device):
 def _profile(torch, step, n: int):
     """Device time by kernel over n steps, and the device's busy share: the
     union of the intervals in which a kernel or a copy ran, over the host's
-    wall time.  User annotations (e.g. the optimizer's step range) are not
-    device work and are left out."""
+    wall time of the steps.  User annotations (e.g. the optimizer's step
+    range) are not device work and are left out.  The window is padded
+    (engine.profiling.pad_window), so that it loses none of the steps'
+    kernel records; the pad's own kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_transformer_tpu_torch.engine.profiling import (
+        PAD_KERNEL_MARK, pad_window)
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=acts) as prof:
+        pad_window(start=True)
+        t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
+        pad_window(start=False)
     events = prof.events()
     cpu_names = {e.name for e in events if not str(e.device_type).endswith("CUDA")}
     dev = [e for e in events if str(e.device_type).endswith("CUDA")
            and not getattr(e, "is_user_annotation", False)
-           and e.name not in cpu_names]
+           and e.name not in cpu_names and PAD_KERNEL_MARK not in e.name]
     busy, end = 0.0, -math.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         if b > end:
@@ -1103,12 +1124,12 @@ def run_train(torch, np, device):
 
     # one fp32 step, kernel path against plain path
     from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+    from multimodal_transformer_tpu_torch.utils import prng
 
     B, T = BENCH_B, BENCH_T
     batch = _bench_batch(np, Batch, cfg, B, T, seed=3)
     f32 = Engine(cfg, seed=1, device=device)
-    seeds = DropoutSeeds.draw(f32.module.dropout_sites(), T,
-                              torch.Generator().manual_seed(4))
+    seeds = DropoutSeeds.from_key(f32.module.dropout_sites(), prng.key(4), T)
     loss_k, g_k = _grads(torch, f32, batch, seeds, plain=False)
     loss_p, g_p = _grads(torch, f32, batch, seeds, plain=True)
     _, g_k2 = _grads(torch, f32, batch, seeds, plain=False)
@@ -1267,6 +1288,7 @@ def run_families_train(torch, np, device):
     from multimodal_transformer_tpu_torch.engine import Engine
     from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
     from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+    from multimodal_transformer_tpu_torch.utils import prng
 
     B, T = BENCH_B, BENCH_T
     times = {}
@@ -1275,8 +1297,8 @@ def run_families_train(torch, np, device):
                              variant=variant)
         batch = _bench_batch(np, Batch, cfg, B, T, seed=10 + i)
         f32 = Engine(cfg, seed=1, device=device)
-        seeds = DropoutSeeds.draw(f32.module.dropout_sites(), T,
-                                  torch.Generator().manual_seed(4))
+        seeds = DropoutSeeds.from_key(f32.module.dropout_sites(),
+                                      prng.key(4), T)
         counts, grads, losses = {}, {}, {}
         for route in ("perlayer", "stack"):
             f32.encoder_backward = route
@@ -1483,8 +1505,7 @@ def _parallel_rank(rank: int, device_type: str) -> dict:
     out["tp"] = {}
     for i, (name, family, _) in enumerate(PAR_TP):
         cfg = default_config(family, AVL, mask_mode="key_query")
-        module = build_model(cfg, generator=torch.Generator().manual_seed(
-            40 + i)).to(device).eval()
+        module = build_model(cfg, seed=40 + i, device=device).eval()
         tp, _ = shard_params_tp(module, mesh2)
         batch = _bench_batch(np, Batch, cfg, BENCH_B, BENCH_T, seed=50 + i)
         reset_counters()
@@ -1630,8 +1651,7 @@ def run_parallel(torch, np, device) -> None:
 
     for i, (name, family, want) in enumerate(PAR_TP):
         tcfg = default_config(family, AVL, mask_mode="key_query")
-        module = build_model(tcfg, generator=torch.Generator().manual_seed(
-            40 + i)).to(device).eval()
+        module = build_model(tcfg, seed=40 + i, device=device).eval()
         batch = _bench_batch(np, Batch, tcfg, BENCH_B, BENCH_T, seed=50 + i)
         with torch.inference_mode():
             ref = module({m: torch.from_numpy(v).to(device)
@@ -2012,7 +2032,7 @@ def run_families(torch, np, device):
     for name, family, mods, variant, per_batch, tol in FAMILIES:
         cfg = default_config(family, mods, mask_mode="key_query",
                              variant=variant)
-        module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        module = build_model(cfg, seed=0, device=device)
         predictor = ValencePredictor(cfg, module, device=device, bf16=True)
         data, lens = _request(np, cfg, rng)
         batches = n_batches(lens, predictor.batch_size,
@@ -2141,7 +2161,9 @@ def run_legacy_and_tools(torch, np, device) -> None:
         PAD_KERNELS, StepTimer, device_memory_stats, trace)
     from multimodal_transformer_tpu_torch.models.families import ENCODER_LAYERS
     from multimodal_transformer_tpu_torch.models.legacy_lstm import (
-        MultiARLSTM, MultiEDLSTM)
+        MultiARLSTM, MultiEDLSTM, multi_ar_lstm_init, multi_ed_lstm_init)
+    from multimodal_transformer_tpu_torch.utils import prng
+    from multimodal_transformer_tpu_torch.utils.params import load_jax_params
     from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
 
     # the legacy heads, fp32 (TF32 off since the gate), card against CPU
@@ -2151,9 +2173,11 @@ def run_legacy_and_tools(torch, np, device) -> None:
     lens[0] = LEGACY_T
     mask = (np.arange(LEGACY_T)[None, :] < lens[:, None]).astype(
         np.float32)[..., None]
-    for name, cls in (("MultiEDLSTM", MultiEDLSTM),
-                      ("MultiARLSTM", MultiARLSTM)):
-        module = cls(LEGACY_WE, gen=torch.Generator().manual_seed(3)).eval()
+    for name, cls, init in (
+            ("MultiEDLSTM", MultiEDLSTM, multi_ed_lstm_init),
+            ("MultiARLSTM", MultiARLSTM, multi_ar_lstm_init)):
+        module = load_jax_params(cls(LEGACY_WE), init(prng.key(3),
+                                                      LEGACY_WE)).eval()
         card = copy.deepcopy(module).to(device)
         xc, mc = torch.from_numpy(x).to(device), torch.from_numpy(mask).to(
             device)
@@ -2173,7 +2197,7 @@ def run_legacy_and_tools(torch, np, device) -> None:
     # a user's trace of the main path's serving forward
     cfg = default_config("MFT", AVL, mask_mode="key_query")
     predictor = ValencePredictor(
-        cfg, build_model(cfg, generator=torch.Generator().manual_seed(0)),
+        cfg, build_model(cfg, seed=0, device=device),
         device=device, bf16=True)
     mod = predictor.module
     gen = torch.Generator().manual_seed(2)
@@ -2344,6 +2368,7 @@ def run_long_videos(torch, np, device):
 
     rng = np.random.default_rng(11)
     lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=LONG_VIDEOS)
+    lens[0] = LONG_MAX  # the request reaches the last bucket, 1,120
     W = int(lens.max())
     data = {m: rng.standard_normal((LONG_VIDEOS, W, FRAMES[m], dim),
                                    dtype=np.float32)
@@ -2352,7 +2377,7 @@ def run_long_videos(torch, np, device):
     mft_counts = None
     for name, family, mods, per_batch, tol in LONG_FAMILIES:
         cfg = default_config(family, mods, mask_mode="key_query")
-        module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        module = build_model(cfg, seed=0, device=device)
         predictor = ValencePredictor(cfg, module, device=device, bf16=True)
         request = {m: data[m] for m in mods}
         batches = n_batches(lens, predictor.batch_size,
@@ -2535,6 +2560,200 @@ def run_evaluation(torch, np, device):
                            "value that is not finite")
 
 
+# The random-streams phase.  Kernel T against its plain version at the
+# attention probabilities' [B, h, T, T] site of the bench shape, at an odd
+# shape, and on the MFN's 2T gamma keys in one call (T = 160 and 544); the
+# keep rate of the encoders' p = 0.1.
+THREEFRY_SHAPES = ((BENCH_B, 8, BENCH_T, BENCH_T), (3, 7, 1001))
+THREEFRY_KEEP = 0.9
+# the H100 SXM's 32-bit integer pipes: 64 lanes an SM (NVIDIA's Hopper
+# architecture white paper) x 132 SMs x its 1,980 MHz boost clock
+INT_OPS_PER_S = 64 * 132 * 1.98e9
+# the threefry train step, card against CPU: float32 sums in another order
+THREEFRY_STEP_TOL = 1e-4
+# kernel T's launches in an MFT A+V+L threefry step: a front end each, an
+# encoder's 6 layers x 4 sites each, the MFN's gamma masks in one call,
+# its head's `out` site
+THREEFRY_STEP_LAUNCHES = 3 + 3 * 6 * 4 + 1 + 1
+RNG_SEED_REPS = 30
+
+
+def run_random_streams(torch, np, device) -> dict:
+    """Kernel T (csrc/threefry.cu) bit for bit against its plain version
+    and timed; MFT A+V+L weights drawn on the card equal to those drawn on
+    the CPU; an fp32 MFT A+V+L threefry train step (B=32, T=160) on the card
+    against the same step on the CPU, with kernel T's launches counted; the
+    host's seed derivation of one hash step; the training CLI with
+    `--dropout_impl threefry --visualize`, then `--test --visualize` on its
+    checkpoint, whose two PNGs must decode.  Returns kernel T's JSON
+    entry."""
+    import statistics
+    import tempfile
+
+    from multimodal_transformer_tpu_torch import build_model, default_config
+    from multimodal_transformer_tpu_torch import train as cli
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.engine.plots import read_png
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry as tf_k
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import (
+        HBM_BYTES_PER_S, time_ms)
+    from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    card = card_line()
+    key = prng.fold_in(prng.split(prng.key(20), 3)[2], 7)
+    cases = [("[" + ", ".join(map(str, s)) + "]", key[None], math.prod(s))
+             for s in THREEFRY_SHAPES]
+    # the gamma keys at the bench length, and at the first long-video bucket
+    # (1,088 keys: three launches of at most 480)
+    cases += [(f"gamma keys [{T}, 2] x [{BENCH_B}, 64]",
+               prng.split(prng.split(key, T), 2).reshape(-1, 2), BENCH_B * 64)
+              for T in (BENCH_T, FLASH_MAIN_T)]
+    for name, keys, n in cases:
+        tf_k.reset_launches()
+        bits = tf_k.threefry_bits(keys, n, device)
+        blocks = -(-len(keys) // tf_k.MAX_KEYS)
+        if tf_k.launches != blocks:
+            raise SmokeFailure(f"kernel T counted {tf_k.launches} launches "
+                               f"for {len(keys)} keys, want {blocks}")
+        mask = tf_k.threefry_keep_mask(keys, n, THREEFRY_KEEP, device)
+        again = tf_k.threefry_keep_mask(keys, n, THREEFRY_KEEP, device)
+        same_bits = torch.equal(bits.long() & prng.M32,
+                                prng.random_bits_plain(keys, n, device))
+        same_mask = torch.equal(mask, prng.keep_mask_plain(
+            keys, n, THREEFRY_KEEP, device)) and torch.equal(mask, again)
+        print(f"threefry {name}: {blocks} launch(es); bits equal to the "
+              f"plain version {same_bits}, keep mask equal {same_mask} (kept "
+              f"{mask.float().mean().item():.5f} at keep {THREEFRY_KEEP})",
+              flush=True)
+        if not (same_bits and same_mask):
+            raise SmokeFailure(f"kernel T differs from its plain version at "
+                               f"{name}")
+    n = math.prod(THREEFRY_SHAPES[0])
+    mask_ms = time_ms(lambda: tf_k.threefry_keep_mask(
+        key[None], n, THREEFRY_KEEP, device), burst=5)
+    bits_ms = time_ms(lambda: tf_k.threefry_bits(key[None], n, device),
+                      burst=5)
+    plain_ms = time_ms(lambda: prng.keep_mask_plain(
+        key[None], n, THREEFRY_KEEP, device), reps=3)
+    ops_ms = 1e3 * n * tf_k.OPS_KEEP / INT_OPS_PER_S
+    bytes_ms = 1e3 * n / HBM_BYTES_PER_S
+    print(f"threefry keep mask {cases[0][0]}: kernel {mask_ms:.4f} ms, "
+          f"bits {bits_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms ({tf_k.OPS_KEEP} integer "
+          f"operations an element at {INT_OPS_PER_S / 1e12:.2f} T/s; "
+          f"{bytes_ms:.4f} ms for its bytes); {card}", flush=True)
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    t0 = time.perf_counter()
+    drawn = build_model(cfg, seed=5, device=device).state_dict()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = build_model(cfg, seed=5).state_dict()
+    cpu_s = time.perf_counter() - t0
+    differ = [k for k, v in want.items() if not torch.equal(v,
+                                                            drawn[k].cpu())]
+    print(f"MFT A+V+L weights (seed 5): {len(want)} tensors drawn on the "
+          f"card in {card_s:.3f} s and on the CPU in {cpu_s:.3f} s, "
+          f"{len(differ)} differ", flush=True)
+    if differ:
+        raise SmokeFailure(f"weights drawn on the card differ from the "
+                           f"CPU's: {differ[:5]}")
+
+    batch = _bench_batch(np, Batch, cfg, BENCH_B, BENCH_T, seed=60)
+    losses, secs = {}, {}
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, seed=1, device=dev, dropout_impl="threefry")
+        if dev.type == "cuda":
+            tf_k.reset_launches()
+            reset_counters()
+        t0 = time.perf_counter()
+        losses[dev.type] = eng.train_step(batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            step_launches = tf_k.launches
+            others = {k: v for k, v in read_counters().items() if v}
+        secs[dev.type] = time.perf_counter() - t0
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"threefry fp32 train step, MFT A+V+L B={BENCH_B} T={BENCH_T}: "
+          f"loss card {losses['cuda']:.7f}, CPU {losses['cpu']:.7f}, "
+          f"relative {rel:.3e} (limit {THREEFRY_STEP_TOL}); "
+          f"{secs['cuda']:.3f} s on the card, {secs['cpu']:.3f} s on the "
+          f"CPU; kernel T {step_launches} launches, others {others}",
+          flush=True)
+    if not (math.isfinite(losses["cuda"]) and rel <= THREEFRY_STEP_TOL):
+        raise SmokeFailure("the threefry step on the card differs from the "
+                           "CPU's")
+    if (step_launches != THREEFRY_STEP_LAUNCHES
+            or others != {"window_embed_highway": 3}):
+        raise SmokeFailure(f"the threefry step launched kernel T "
+                           f"{step_launches} times (want "
+                           f"{THREEFRY_STEP_LAUNCHES}) and {others} (want "
+                           "kernel 10 three times, no encoder or MFN "
+                           "kernel)")
+
+    sites = eng.module.dropout_sites()
+    times = []
+    for i in range(RNG_SEED_REPS):
+        t0 = time.perf_counter()
+        DropoutSeeds.from_key(sites, prng.fold_in(prng.key(1), i), BENCH_T)
+        times.append(time.perf_counter() - t0)
+    print(f"host seed derivation of one MFT A+V+L hash step (T={BENCH_T}): "
+          f"median {1e3 * statistics.median(times):.3f} ms, min "
+          f"{1e3 * min(times):.3f} ms over {RNG_SEED_REPS}; {card}",
+          flush=True)
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(here)] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        common = ["--data_dir", str(tmp / "SENDv1-data"),
+                  "--save_dir", str(tmp / "ModelSave"),
+                  "--pred_save_dir", str(tmp / "PredSave"),
+                  "--perf_save_dir", str(tmp / "PerfSave"),
+                  "--log_file", str(tmp / "train.log"),
+                  "--device", str(device), "--family", "B3-MFN"]
+        args = ["--comb", "AL", "--epochs", "1", "--dropout_impl",
+                "threefry", "--visualize", "--synthetic_data"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "multimodal_transformer_tpu_torch.train",
+             *common, *args], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=300)
+        print(f"CLI {' '.join(args)} (subprocess): exit {proc.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if proc.returncode != 0:
+            raise SmokeFailure(f"the CLI exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        # the JAX CLI plots in --eval / --test; in process, as the CLI
+        # phase resumes
+        ckpt = tmp / "ModelSave" / "B3-MFN" / "B3-MFN-AL.pth"
+        t0 = time.perf_counter()
+        cli.main(cli.build_arg_parser().parse_args(
+            common + ["--test", "--visualize", "--load", str(ckpt)]))
+        print(f"CLI --test --visualize (in process): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name, shape in (("eval", (700, 1800, 3)), ("fits", (1000, 800, 3))):
+            img = read_png(str(tmp / "PredSave" / f"B3-MFN_Test_{name}.png"))
+            print(f"CLI plot B3-MFN_Test_{name}.png: {img.shape[1]} x "
+                  f"{img.shape[0]}, {int((img != 255).any(-1).sum())} pixels "
+                  "drawn", flush=True)
+            if img.shape != shape or not (img != 255).any():
+                raise SmokeFailure(f"B3-MFN_Test_{name}.png is not the plot")
+    return {"name": "threefry", "route": "cuda",
+            "source": "multimodal_transformer_tpu_torch/csrc/threefry.cu",
+            "replaces": ("multimodal_transformer_tpu/ops/basic.py:191 "
+                         "(jax.random.bernoulli in XLA; no TPU kernel)"),
+            "launches": step_launches, "max_abs_err": 0.0, "ms": mask_ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
 def _json_entry(name, checks, launches):
     """The kernel's line: its bf16 main-path check (kernel 11's at the first
     long-video bucket, T = 544), and for the window embed the sum over the
@@ -2683,11 +2902,14 @@ def main() -> int:
     phase("CLI")
     run_cli(torch, np, device)
 
+    phase("random streams and plots")
+    rng_entry = run_random_streams(torch, np, device)
+
     phase("train A/B")
     run_train_ab(torch, np, device)
 
     print(json.dumps({"kernels": [_json_entry(name, checks, launches)
-                                  for name in SOURCES]}))
+                                  for name in SOURCES] + [rng_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

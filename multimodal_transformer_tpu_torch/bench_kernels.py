@@ -265,18 +265,25 @@ def _busy_ms(torch, call, calls: int = 5) -> str:
     """The device-busy ms per call of call: the union of the intervals in
     which one of its kernels or copies ran (torch.profiler over `calls`
     calls after a warm one; user annotations left out), which the host's
-    speed does not move, and the device events captured per call."""
+    speed does not move, and the device events captured per call.  The
+    window is padded (engine.profiling.pad_window) so that it loses none of
+    the calls' records; the pad's kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_transformer_tpu_torch.engine.profiling import (
+        PAD_KERNEL_MARK, pad_window)
 
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_window(start=True)
         for _ in range(calls):
             call()
-        torch.cuda.synchronize()
+        pad_window(start=False)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if str(e.device_type).endswith("CUDA")
-                   and not getattr(e, "is_user_annotation", False))
+                   and not getattr(e, "is_user_annotation", False)
+                   and PAD_KERNEL_MARK not in e.name)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -353,7 +360,7 @@ def bench_serve(torch, verify, dev, dtype, dname):
                                                   default_config)
 
     cfg = default_config("MFT", AVL, mask_mode="key_query")
-    module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    module = build_model(cfg, seed=0, device=dev)
     predictor = ValencePredictor(cfg, module, device=dev, bf16=True)
     gen = torch.Generator().manual_seed(1)
     inputs = {m: torch.randn(32, 160, FRAMES[m], cfg.mod_dimension[m],

@@ -37,11 +37,13 @@ from torch import nn
 
 from .models import default_config
 from .models.config import MFT_EMBED_DIM
-from .models.families import MFTHead
+from .models.families import MFTHead, b3_mfn_init
 from .ops.cuda.mfn import mfn_scan_fused, mfn_scan_fused_plain
 from .ops.cuda.mfn_variants import mfn_scan_aligned, mfn_scan_packed
 from .ops.cuda.verify import runs_ms
-from .ops.mfn_core import MFN, hoisted_inputs, mfn_head
+from .ops.mfn_core import MFN, hoisted_inputs, mfn_head, mfn_init
+from .utils import prng
+from .utils.params import load_jax_params
 
 AVL = ("acoustic", "image", "linguistic")
 CONFIGS = ("MFT A+V+L", "B3-MFN A+V+L")
@@ -60,16 +62,22 @@ BURST = 5
 class Case(nn.Module):
     """One configuration: the MFN, the embeds before it for B3-MFN."""
 
-    def __init__(self, config: str, gen: torch.Generator):
+    def __init__(self, config: str, seed: int, device="cuda"):
         super().__init__()
+        key = prng.key(seed)
         if config == "MFT A+V+L":
             self.embeds = None
-            self.mfn = MFN(AVL, {m: MFT_EMBED_DIM[m] for m in AVL},
-                           output_dim=1, gen=gen)
+            with torch.device(device):
+                mfn = MFN(AVL, MFT_EMBED_DIM, output_dim=1)
+            self.mfn = load_jax_params(
+                mfn, mfn_init(key, AVL, MFT_EMBED_DIM, 1, device=device))
             self.widths = {m: MFT_EMBED_DIM[m] for m in AVL}
         elif config == "B3-MFN A+V+L":
             cfg = default_config("B3-MFN", AVL)
-            head = MFTHead(cfg, gen, with_encoders=False)
+            with torch.device(device):
+                head = MFTHead(cfg, with_encoders=False)
+            head = load_jax_params(
+                head, b3_mfn_init(key, cfg, device)["Transformer"])
             self.embeds = nn.ModuleDict({m: getattr(head, f"embed_{m}")
                                          for m in AVL})
             self.mfn = head.mfn
@@ -90,7 +98,7 @@ class Case(nn.Module):
 def make_case(config: str, B: int, T: int, dtype, device, seed: int = 0):
     """(Case, inputs mod -> [B, T, width]) in dtype on device, from seed."""
     gen = torch.Generator().manual_seed(seed)
-    case = Case(config, gen).to(device=device, dtype=dtype).eval()
+    case = Case(config, seed, device).to(dtype=dtype).eval()
     inputs = {m: torch.randn(B, T, w, generator=gen).to(device=device,
                                                         dtype=dtype)
               for m, w in case.widths.items()}

@@ -10,7 +10,8 @@ Counterpart of `multimodal_transformer_tpu/engine/checkpoint.py`.
     and the reference read them.
   * Train states (`Engine.save_state`) are `torch.save` dicts: the port's
     state_dict, the Adam state_dict, the scheduler, the epoch and step, the
-    best CCC, the dropout generator's state and the configuration.
+    best CCC and the configuration (the dropout keys follow from the
+    epoch).
   * The JAX package's `.ckpt` (`save_checkpoint`) and `.state`
     (`save_train_state`) files are read with engine/flax_msgpack.py; their
     parameter trees flattened with "." are the port's state_dict keys.

@@ -45,8 +45,7 @@ def _np(t) -> np.ndarray:
 def port_tree(cfg: ModelConfig):
     """The nested tree of the port's parameters for cfg (shapes only: the
     values are zeros)."""
-    with torch.device("meta"):
-        module = build_model(cfg)
+    module = build_model(cfg, device="meta")
     return unflatten_tree({k: np.zeros(tuple(v.shape), np.float32)
                            for k, v in module.state_dict().items()})
 

@@ -19,11 +19,19 @@ parameters and the inputs to bf16 INSIDE the autograd graph, so the
 gradients flow back through the casts and arrive in float32 at the masters;
 the loss is summed in float32.
 
-Every family trains (the JAX `build_model`'s configurations).  Every step
-draws its dropout seeds with `seed_fn(step, T)` -> DropoutSeeds
-(ops/seeds.py), where step counts the engine's steps from 0 and T is the
-batch's length; the default draws the sites of the configuration's module
-(`dropout_sites()`) from the engine's torch.Generator.  `encoder_backward`
+Every family trains (the JAX `build_model`'s configurations), from the
+JAX Engine's initial weights for the same seed (`build_model(cfg,
+seed=seed)`, drawn on the engine's device).  Every step takes the JAX
+Engine's dropout: the key fold_in(PRNGKey(epoch), batch), with batch
+counted from 0 in each epoch (`step_seeds`), split along the configuration's
+key tree (`DropoutSeeds.from_key` over `dropout_sites()`), hashed into
+seeds on the "hash" stream (the default; kernels 3-7 and 10 draw their
+masks) or kept as keys on the "threefry" stream (`dropout_impl=
+"threefry"`: kernel T draws every mask, and the encoders and the MFN run
+their plain paths on the card, as the JAX package routes that stream off
+its kernels).  `seed_fn(step, T)` -> DropoutSeeds, where given, replaces
+that derivation (step counts the engine's steps from 0, T is the batch's
+length).  `encoder_backward`
 picks the encoders' training backward on the card: "perlayer" (kernel 4 per
 layer, the JAX package's default) or "stack" (kernel 5 per stack, the JAX
 package's opt-in MMTX_ENC_BWD=stack); both give the same bits.
@@ -72,8 +80,9 @@ from ..data.prefetch import DevicePrefetcher
 from ..models import ModelConfig, build_model
 from ..ops.dispatch import check_encoder_backward
 from ..ops.metrics import ccc, ccc_masked, masked_mse_sum, pearson
-from ..ops.seeds import DropoutSeeds
+from ..ops.seeds import DROPOUT_IMPLS, DropoutSeeds
 from ..parallel import mesh as dp
+from ..utils import prng
 from ..utils.params import flatten_tree
 from . import checkpoint
 from .guards import NanGuard
@@ -92,39 +101,54 @@ class Engine:
                  seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None,
                  eval_dtype: Optional[torch.dtype] = None,
                  encoder_backward: str = "perlayer", nan_guard: bool = True,
-                 mesh=None):
+                 mesh=None, dropout_impl: str = "hash"):
         """train_dtype: bf16 mixed training when set; eval_dtype: the dtype
         of `evaluate_batched`'s forward (None: float32), as in the JAX
         Engine, whose per-video evaluation stays float32; encoder_backward:
         "perlayer" or "stack" (anything else raises); nan_guard: check
         losses and parameters for NaN and infinity (NanGuard); mesh: a 1-D
         "data" DeviceMesh (parallel.make_mesh) for data parallelism, this
-        process being one of its ranks, device its device."""
+        process being one of its ranks, device its device; dropout_impl:
+        "hash" or "threefry" (one device only)."""
         self.cfg = cfg
         self.encoder_backward = check_encoder_backward(encoder_backward)
+        if dropout_impl not in DROPOUT_IMPLS:
+            raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, "
+                             f"got {dropout_impl!r}")
+        if dropout_impl == "threefry" and mesh is not None:
+            raise NotImplementedError(
+                "the threefry dropout runs on one device: a rank's rows of a "
+                "threefry mask are not a shifted seed (use dropout_impl="
+                "'hash' with a mesh)")
+        self.dropout_impl = dropout_impl
         self.device = torch.device(device)
         self.logger = logger
         self.train_dtype = train_dtype
         self.eval_dtype = eval_dtype
-        self.module = build_model(
-            cfg, generator=torch.Generator().manual_seed(seed)).to(self.device)
+        self.module = build_model(cfg, seed=seed, device=self.device)
         self.module.train()
         self.optimizer = make_adam(self.module.parameters(), lr, weight_decay)
         self.scheduler = ReduceLROnPlateau(lr=lr)
-        self.generator = torch.Generator().manual_seed(seed)
-        self.seed_fn = seed_fn or self._draw_seeds
+        self.seed_fn = seed_fn
         self.nan_guard = NanGuard() if nan_guard else None
         self.steps = 0
         self._epoch = 0
+        self._batch = 0  # train steps in this epoch: the key's fold_in
         self.mesh = mesh
         self.rank = 0 if mesh is None else mesh.get_local_rank()
         if mesh is not None:
             dp.broadcast_flat(self.module.parameters(), mesh)
             self._grad_buffer = dp.FlatBuffer()
 
-    def _draw_seeds(self, step: int, T: int) -> DropoutSeeds:
-        return DropoutSeeds.draw(self.module.dropout_sites(), T,
-                                 self.generator)
+    def step_seeds(self, T: int) -> DropoutSeeds:
+        """The next step's dropout seeds: `seed_fn` where given, else those
+        of the JAX Engine's key of the step, fold_in(PRNGKey(epoch),
+        batch), on the engine's stream."""
+        if self.seed_fn is not None:
+            return self.seed_fn(self.steps, T)
+        key = prng.fold_in(prng.key(self._epoch), self._batch)
+        return DropoutSeeds.from_key(self.module.dropout_sites(), key, T,
+                                     self.dropout_impl)
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         if isinstance(a, np.ndarray):
@@ -161,7 +185,7 @@ class Engine:
         if self.mesh is not None and not isinstance(batch, dp.Shard):
             batch = dp.shard_batch(batch, self.mesh)
         T = batch.mask.shape[1]
-        seeds = self.seed_fn(self.steps, T)
+        seeds = self.step_seeds(T)
         if isinstance(batch, dp.Shard):
             seeds = seeds.for_rows(self.module.dropout_sites(), batch.r0,
                                    batch.rows, T)
@@ -179,6 +203,7 @@ class Engine:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.steps += 1
+        self._batch += 1
         return float(loss)
 
     def _after_step(self, batch_num: int, loss: float, loss_sum: float,
@@ -207,6 +232,7 @@ class Engine:
         host thread stages on the device ahead of the step (0: none, the
         batches are built in the loop)."""
         self._epoch += 1
+        self._batch = 0
         loss_sum, data_num = 0.0, 0
         batches = make_batches(data, target, seq_lens, batch_size=batch_size,
                                shuffle=True, rng=rng, pad_time_to=pad_time_to)
@@ -246,6 +272,7 @@ class Engine:
         With a mesh each rank gathers only its rows of that batch (padded
         to a multiple of the mesh size the same way)."""
         self._epoch += 1
+        self._batch = 0
         n = len(store["lengths"])  # real videos only
         index = np.arange(n)
         (rng or np.random).shuffle(index)
@@ -380,8 +407,9 @@ class Engine:
 
     def save_state(self, path: str, best_ccc: float = -1.0) -> None:
         """Write the whole training state (parameters, Adam state,
-        scheduler, epoch and step, best CCC, the dropout generator's state
-        and the configuration) atomically, for `restore_state`.  With a
+        scheduler, epoch and step, best CCC and the configuration)
+        atomically, for `restore_state` (the dropout keys follow from the
+        epoch).  With a
         mesh, rank 0 writes and every rank waits for it."""
         if self.rank == 0:
             self._write_state(path, best_ccc)
@@ -402,14 +430,13 @@ class Engine:
                           "best": self.scheduler.best,
                           "num_bad": self.scheduler.num_bad},
             "epoch": self._epoch, "steps": self.steps,
-            "best_ccc": float(best_ccc),
-            "generator": self.generator.get_state()}, path)
+            "best_ccc": float(best_ccc)}, path)
 
     def restore_state(self, path: str) -> float:
         """Restore a `save_state` file, or the JAX package's msgpack
         `.state` (its Adam moments mapped onto torch's Adam state, the step
-        count from its Adam step; the dropout generator stays as it is,
-        since the JAX package draws its keys from the epoch).  Returns the
+        count from its Adam step).  Both packages draw the dropout keys
+        from the epoch, so a resumed run continues the same stream.  Returns the
         recorded best CCC.  With a mesh every rank reads the file, and the
         parameters are broadcast from rank 0."""
         st = checkpoint.load_train_state(path)
@@ -417,7 +444,6 @@ class Engine:
             self.module.load_state_dict(st["model"])
             self.optimizer.load_state_dict(st["optimizer"])
             self.steps = int(st["steps"])
-            self.generator.set_state(st["generator"])
         else:
             with torch.no_grad():
                 for k, v in flatten_tree(st["model"]).items():

@@ -11,10 +11,14 @@ with inputs mod -> [B, W, F, D] windows and mask [B, W, 1]; it returns
 [B, W, 1].  mask_mode defaults to the config's; plain=True runs the plain
 PyTorch front end, encoders and MFN recurrence on any device (the reference
 that the CUDA path is checked against).  seeds (ops/seeds.py) selects the
-training forward, with hash dropout at every site of the family's JAX
-apply; `dropout_sites()` lists those sites, so that a trainer draws seeds
-for exactly them.  encoder_backward picks the encoders' training backward
-on the card: "perlayer" (kernel 4 per layer) or "stack" (kernel 5).
+training forward, with dropout at every site of the family's JAX apply
+(hash seeds, or threefry keys for the "threefry" stream); `dropout_sites()`
+lists those sites and `dropout_keys(key, T)` splits a step's key along the
+JAX apply's key tree into theirs, so that a trainer derives the seeds of
+exactly them (`DropoutSeeds.from_key`).  encoder_backward picks the encoders' training
+backward on the card: "perlayer" (kernel 4 per layer) or "stack" (kernel
+5).  `build_model(cfg, seed=s)` draws the weights of the JAX package's
+`<family>_init(PRNGKey(s))`, the same numbers, on the given device.
 
   MFT      per modality CNN+Highway -> Linear embed -> 6-layer encoder ->
            MFN -> head; one modality: UniTransformer.
@@ -35,14 +39,17 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops.attention import Encoder
-from ..ops.mfn_core import MFN, mfn_scan
-from ..ops.seeds import DropoutSites
-from ..utils.init import make_linear
+from ..ops.attention import Encoder, encoder_init
+from ..ops.mfn_core import MFN, mfn_init, mfn_scan
+from ..ops.seeds import DropoutSeeds, DropoutSites, encoder_keys, mfn_keys
+from ..utils import prng
+from ..utils.init import linear_init
+from ..utils.params import load_jax_params
 from .config import FAMILIES, MFT_EMBED_DIM, ModelConfig, default_config
-from .frontend import add_frontend, frontend_apply
+from .frontend import add_frontend, frontend_apply, frontend_init
 from .heads import (HEADS, MultiLSTM, UniFullTransformer, UniTransformer,
-                    encode)
+                    encode, multi_lstm_init, uni_full_transformer_init,
+                    uni_transformer_init)
 
 ENCODER_FF, ENCODER_LAYERS = 128, 6
 SFT_FUSE_EMBED = 512
@@ -53,11 +60,11 @@ class _Family(nn.Module):
 
     relu_proj = False
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None):
+    def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         add_frontend(self, cfg.modalities, cfg.mod_dimension,
-                     cfg.window_embed_size, gen)
+                     cfg.window_embed_size)
 
     def front(self, inputs, seeds, plain: bool) -> dict:
         return frontend_apply(self, inputs, self.cfg.modalities,
@@ -65,9 +72,24 @@ class _Family(nn.Module):
                               relu_proj=self.relu_proj, plain=plain)
 
     def dropout_sites(self) -> DropoutSites:
-        """The head's sites: one encoder, as every single-modality head and
-        the SFT/B2 heads have."""
+        """The head's sites: the UniTransformer's encoder, as every
+        single-modality head and the SFT's have."""
         return self._sites(encoders=("encoder",))
+
+    def head(self) -> nn.Module:
+        return self.Transformer
+
+    def dropout_keys(self, key, T: int) -> DropoutSeeds:
+        """The keys of dropout_sites() from a step's key, as the JAX apply
+        splits it: the front ends' from its first half, the head's from its
+        second (the head's `dropout_keys`)."""
+        mods = self.cfg.modalities
+        r_front, r_head = prng.split(key)
+        head = self.head().dropout_keys(r_head, T)
+        if not self.dropout_sites().embed:
+            head.pop("embed", None)
+        return DropoutSeeds(dict(zip(mods, prng.split(r_front, len(mods)))),
+                            **head)
 
     def _sites(self, encoders=(), **kw) -> DropoutSites:
         """DropoutSites with the front ends' and the named encoders' widths
@@ -80,7 +102,7 @@ class _Family(nn.Module):
         return DropoutSites(
             mods, tuple(encoders), ENCODER_LAYERS,
             front_widths=tuple(self.cfg.window_embed_size[m] for m in mods),
-            encoder_dims=tuple(dims), **kw)
+            encoder_dims=tuple(dims), split_keys=self.dropout_keys, **kw)
 
     def fused(self, outs) -> torch.Tensor:
         return torch.cat([outs[m] for m in self.cfg.modalities], dim=-1)
@@ -89,17 +111,27 @@ class _Family(nn.Module):
 class MFTHead(nn.Module):
     """Per modality Linear embed (+ encoder when with_encoders) and the MFN."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None,
-                 with_encoders: bool = True):
+    def __init__(self, cfg: ModelConfig, with_encoders: bool = True):
         super().__init__()
+        self.with_encoders = with_encoders
         for m in cfg.modalities:
-            setattr(self, f"embed_{m}", make_linear(cfg.window_embed_size[m],
-                                                    MFT_EMBED_DIM[m], gen))
+            setattr(self, f"embed_{m}", nn.Linear(cfg.window_embed_size[m],
+                                                  MFT_EMBED_DIM[m]))
             if with_encoders:
                 setattr(self, f"transformer_{m}",
-                        Encoder(MFT_EMBED_DIM[m], ENCODER_FF, ENCODER_LAYERS,
-                                gen))
-        self.mfn = MFN(cfg.modalities, MFT_EMBED_DIM, output_dim=1, gen=gen)
+                        Encoder(MFT_EMBED_DIM[m], ENCODER_FF, ENCODER_LAYERS))
+        self.mfn = MFN(cfg.modalities, MFT_EMBED_DIM, output_dim=1)
+
+    def dropout_keys(self, key, T: int) -> dict:
+        """The MFT's split of the head's key: an encoder a modality, then
+        the MFN; B3-MFN's MFN takes the head's key itself."""
+        if not self.with_encoders:
+            return dict(zip(("mfn", "out"), mfn_keys(key, T)))
+        names = [f"transformer_{m}" for m in self.mfn.mods]
+        keys = prng.split(key, len(names) + 1)
+        tables = encoder_keys(keys[:-1], ENCODER_LAYERS)  # all at once
+        return dict(zip(("mfn", "out"), mfn_keys(keys[-1], T)),
+                    encoder=dict(zip(names, tables)))
 
 
 def _mfn_sites(head: MFTHead) -> dict:
@@ -118,10 +150,10 @@ def _mfn_pred(head: MFTHead, mfn_in, mask, seeds, plain: bool):
 class MFT(_Family):
     """The MFT; with one modality its head is the UniTransformer."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
-        super().__init__(cfg, gen)
-        self.Transformer = (MFTHead(cfg, gen) if len(cfg.modalities) > 1
-                            else UniTransformer(cfg.total_embed_size, gen=gen))
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.Transformer = (MFTHead(cfg) if len(cfg.modalities) > 1
+                            else UniTransformer(cfg.total_embed_size))
 
     def dropout_sites(self) -> DropoutSites:
         mods = self.cfg.modalities
@@ -152,14 +184,13 @@ class MFT(_Family):
 
 
 class SFT(_Family):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
-        super().__init__(cfg, gen)
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
         # with one modality the reference still creates the fusion layer
-        self.fusionLayer = make_linear(cfg.total_embed_size, SFT_FUSE_EMBED,
-                                       gen)
+        self.fusionLayer = nn.Linear(cfg.total_embed_size, SFT_FUSE_EMBED)
         self.Transformer = UniTransformer(
             SFT_FUSE_EMBED if len(cfg.modalities) > 1
-            else cfg.total_embed_size, gen=gen)
+            else cfg.total_embed_size)
 
     def dropout_sites(self) -> DropoutSites:
         sites = super().dropout_sites()
@@ -186,18 +217,21 @@ class B1LSTM(_Family):
     MultiLSTM at embed 512, embed and decoder dropout 0.4; "legacy": the
     plain Highway, embed 128, embed dropout 0.1 and no decoder dropout."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
-        super().__init__(cfg, gen)
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
         legacy = cfg.variant == "legacy"
         self.relu_proj = not legacy
         self.dropouts = (0.1, 0.0) if legacy else (0.4, 0.4)
         self.LSTM = MultiLSTM(cfg.total_embed_size,
-                              embed_dim=128 if legacy else 512, h_dim=256,
-                              gen=gen)
+                              embed_dim=128 if legacy else 512, h_dim=256)
+
+    def head(self) -> nn.Module:
+        return self.LSTM
 
     def dropout_sites(self) -> DropoutSites:
         return self._sites(
-            embed=True, decoder=True, embed_width=self.cfg.total_embed_size,
+            embed=True, decoder=True,
+            embed_width=self.cfg.total_embed_size,
             decoder_width=self.LSTM.decoder_fc1.out_features)
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
@@ -211,9 +245,12 @@ class B1LSTM(_Family):
 
 
 class B2Trans(_Family):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
-        super().__init__(cfg, gen)
-        self.Transformer = UniFullTransformer(cfg.total_embed_size, gen=gen)
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.Transformer = UniFullTransformer(cfg.total_embed_size)
+
+    def dropout_sites(self) -> DropoutSites:
+        return self._sites(encoders=("encoder",))
 
     def forward(self, inputs, mask, *, mask_mode: str | None = None,
                 seeds=None, plain: bool = False,
@@ -229,11 +266,11 @@ class B3MFN(_Family):
     """B3's MFN takes the head's seeds itself (the JAX apply passes it
     r_head, where the MFT passes the last key of a split)."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None):
-        super().__init__(cfg, gen)
-        self.Transformer = (MFTHead(cfg, gen, with_encoders=False)
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.Transformer = (MFTHead(cfg, with_encoders=False)
                             if len(cfg.modalities) > 1
-                            else UniTransformer(cfg.total_embed_size, gen=gen))
+                            else UniTransformer(cfg.total_embed_size))
 
     def dropout_sites(self) -> DropoutSites:
         if len(self.cfg.modalities) == 1:
@@ -258,14 +295,108 @@ FAMILY_MODULES = {"MFT": MFT, "SFT": SFT, "B1-LSTM": B1LSTM,
                   "B2-Trans": B2Trans, "B3-MFN": B3MFN}
 
 
-def build_model(cfg: ModelConfig, *,
-                generator: torch.Generator | None = None) -> nn.Module:
-    """The family's module on the CPU, weights drawn from `generator`
-    (PyTorch's own default init when it is None)."""
+# ------------------------------------------- the JAX package's key trees
+
+
+def _frontend(key, cfg: ModelConfig, device) -> dict:
+    return frontend_init(key, cfg.modalities, cfg.mod_dimension,
+                         cfg.window_embed_size, device=device)
+
+
+def _mfn_head_init(key, cfg: ModelConfig, with_encoders: bool,
+                   device) -> dict:
+    """The multi-modality MFT head (embed + encoder a modality, then the
+    MFN: split(key, 2M + 1)) or B3-MFN's (embed a modality, then the MFN:
+    split(key, M + 1))."""
+    mods = cfg.modalities
+    per = 2 if with_encoders else 1
+    keys = prng.split(key, per * len(mods) + 1)
+    head = {}
+    for i, m in enumerate(mods):
+        head[f"embed_{m}"] = linear_init(keys[per * i],
+                                         cfg.window_embed_size[m],
+                                         MFT_EMBED_DIM[m], device)
+        if with_encoders:
+            head[f"transformer_{m}"] = encoder_init(
+                keys[per * i + 1], MFT_EMBED_DIM[m], ENCODER_FF,
+                ENCODER_LAYERS, device)
+    head["mfn"] = mfn_init(keys[-1], mods, MFT_EMBED_DIM, 1, device)
+    return head
+
+
+def mft_init(key, cfg: ModelConfig, device="cpu") -> dict:
+    k_front, k_head = prng.split(key)
+    params = _frontend(k_front, cfg, device)
+    params["Transformer"] = (
+        _mfn_head_init(k_head, cfg, True, device) if len(cfg.modalities) > 1
+        else uni_transformer_init(k_head, cfg.total_embed_size,
+                                  device=device))
+    return params
+
+
+def sft_init(key, cfg: ModelConfig, device="cpu") -> dict:
+    k_front, k_fuse, k_head = prng.split(key, 3)
+    params = _frontend(k_front, cfg, device)
+    params["fusionLayer"] = linear_init(k_fuse, cfg.total_embed_size,
+                                        SFT_FUSE_EMBED, device)
+    params["Transformer"] = uni_transformer_init(
+        k_head, SFT_FUSE_EMBED if len(cfg.modalities) > 1
+        else cfg.total_embed_size, device=device)
+    return params
+
+
+def b1_lstm_init(key, cfg: ModelConfig, device="cpu") -> dict:
+    k_front, k_head = prng.split(key)
+    params = _frontend(k_front, cfg, device)
+    embed_dim = 128 if cfg.variant == "legacy" else 512
+    params["LSTM"] = multi_lstm_init(k_head, cfg.total_embed_size,
+                                     embed_dim=embed_dim, h_dim=256,
+                                     device=device)
+    return params
+
+
+def b2_trans_init(key, cfg: ModelConfig, device="cpu") -> dict:
+    k_front, k_head = prng.split(key)
+    params = _frontend(k_front, cfg, device)
+    params["Transformer"] = uni_full_transformer_init(
+        k_head, cfg.total_embed_size, device=device)
+    return params
+
+
+def b3_mfn_init(key, cfg: ModelConfig, device="cpu") -> dict:
+    k_front, k_head = prng.split(key)
+    params = _frontend(k_front, cfg, device)
+    params["Transformer"] = (
+        _mfn_head_init(k_head, cfg, False, device) if len(cfg.modalities) > 1
+        else uni_transformer_init(k_head, cfg.total_embed_size,
+                                  device=device))
+    return params
+
+
+FAMILY_INITS = {"MFT": mft_init, "SFT": sft_init, "B1-LSTM": b1_lstm_init,
+                "B2-Trans": b2_trans_init, "B3-MFN": b3_mfn_init}
+
+
+def build_model(cfg: ModelConfig, *, seed: int | None = None,
+                device: torch.device | str = "cpu") -> nn.Module:
+    """The family's module on `device`, the CPU unless the caller names
+    another, as a module's constructor is (the Engine, the CLI, serving
+    and the benches pass the card).  With a seed, its weights are the JAX
+    package's `<family>_init(PRNGKey(seed))`, drawn on that device (kernel
+    T on the card, its plain version on the CPU); without one, PyTorch's
+    default init, for a module whose weights are loaded next."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; expected one of "
                          f"{FAMILIES}")
-    return FAMILY_MODULES[cfg.family](cfg, generator)
+    cls = FAMILY_MODULES[cfg.family]
+    if seed is None:
+        with torch.device(device):
+            return cls(cfg)
+    with torch.device("meta"):  # every tensor is drawn below
+        module = cls(cfg)
+    module = module.to_empty(device=device)
+    tree = FAMILY_INITS[cfg.family](prng.key(seed), cfg, device)
+    return load_jax_params(module, tree)
 
 
 def legacy_ar_smoke(module: nn.Module, data_dir: str, subset: str,
@@ -300,12 +431,11 @@ if __name__ == "__main__":
     # The smoke run of the JAX package's models/families.py (the analog of
     # the reference's `python models.py --dir --subset`, MFT/models.py:
     # 402-428): a MultiARLSTM on windowed SENDv1, on the card unless
-    # --device cpu.  The weights come from a seed and differ from the JAX
-    # run's (jax.random); a test carries the JAX weights across.
+    # --device cpu, with the JAX run's weights (PRNGKey(0)).
     import argparse
     import sys
 
-    from .legacy_lstm import MultiARLSTM
+    from .legacy_lstm import MultiARLSTM, multi_ar_lstm_init
 
     parser = argparse.ArgumentParser()
     parser.add_argument('--dir', type=str, default="../data")
@@ -319,5 +449,8 @@ if __name__ == "__main__":
     print("Building model...")
     cfg = default_config("B3-MFN", ("acoustic", "emotient"))
     total = sum(cfg.mod_dimension[m] for m in cfg.modalities)
-    legacy_ar_smoke(MultiARLSTM(total, gen=torch.Generator().manual_seed(0)),
-                    args.dir, args.subset, args.device)
+    with torch.device(args.device):
+        module = MultiARLSTM(total)
+    legacy_ar_smoke(load_jax_params(module, multi_ar_lstm_init(
+        prng.key(0), total, device=args.device)), args.dir, args.subset,
+        args.device)

@@ -19,37 +19,51 @@ from torch import nn
 from ..ops.basic import Highway, conv1d_window_embed, dropout
 from ..ops.cuda.window_embed import WindowEmbedHighway
 from ..ops.dispatch import use_kernel
-from ..utils.init import init_conv1d
+from ..utils import prng
+from ..utils.init import conv1d_init, linear_init
 
 DROPOUT = 0.3
 
 
 class CNN(nn.Module):
-    def __init__(self, in_dim: int, embed: int, k: int = 2,
-                 gen: torch.Generator | None = None):
+    def __init__(self, in_dim: int, embed: int, k: int = 2):
         super().__init__()
         self.conv1d = nn.Conv1d(in_dim, embed, k)
-        if gen is not None:
-            init_conv1d(self.conv1d, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1d_window_embed(x, self.conv1d.weight, self.conv1d.bias)
 
 
-def add_frontend(module: nn.Module, mods, dims, window_embed_size,
-                 gen: torch.Generator | None = None) -> None:
+def add_frontend(module: nn.Module, mods, dims, window_embed_size) -> None:
     """Registers cnn_<mod> and highway_<mod> on module, in the JAX
     package's parameter names."""
     for m in mods:
         e = window_embed_size[m]
-        setattr(module, f"cnn_{m}", CNN(dims[m], e, gen=gen))
-        setattr(module, f"highway_{m}", Highway(e, gen))
+        setattr(module, f"cnn_{m}", CNN(dims[m], e))
+        setattr(module, f"highway_{m}", Highway(e))
+
+
+def frontend_init(key, mods, dims, window_embed_size, k: int = 2,
+                  device="cpu") -> dict:
+    """The JAX package's `frontend_init` tree: split(key, 3 * len(mods)),
+    three keys a modality (conv, Highway projection, Highway gate)."""
+    keys = prng.split(key, 3 * len(mods))
+    params = {}
+    for i, m in enumerate(mods):
+        e = window_embed_size[m]
+        params[f"cnn_{m}"] = {"conv1d": conv1d_init(keys[3 * i], dims[m], e, k,
+                                                    device)}
+        params[f"highway_{m}"] = {
+            "linear_projection": linear_init(keys[3 * i + 1], e, e, device),
+            "linear_gate": linear_init(keys[3 * i + 2], e, e, device)}
+    return params
 
 
 def frontend_apply(module: nn.Module, inputs, mods, seeds=None, *,
                    relu_proj: bool = False, plain: bool = False) -> dict:
-    """inputs: mod -> [B, W, F, D]; seeds: mod -> dropout seed in training,
-    None in eval.  Returns mod -> [B, W, E_mod]."""
+    """inputs: mod -> [B, W, F, D]; seeds: mod -> dropout seed (or threefry
+    key, whose mask is applied here in torch after kernel 10 as the hash's
+    is) in training, None in eval.  Returns mod -> [B, W, E_mod]."""
     outs = {}
     for m in mods:
         x = inputs[m]

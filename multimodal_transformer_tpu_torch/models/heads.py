@@ -14,7 +14,8 @@ in training (with `seeds`, ops/seeds.py):
 
 Parameter names follow the JAX trees: `embed`, `encoder`, `decoder`,
 `dec_h0`, `dec_c0`, `out_fc1`, `out_fc2`; `embed`, `attn_fc1`, `attn_fc2`,
-`lstm`, `decoder_fc1`, `decoder_fc2`.  The encoders dispatch as
+`lstm`, `decoder_fc1`, `decoder_fc2`; each head's `*_init` draws them
+along the JAX package's key tree.  The encoders dispatch as
 `ops.attention.encoder_stack` does (plain=True takes the plain encoder on
 any device; `encoder_backward` picks the training backward on the card);
 the LSTM recurrences are plain PyTorch with autograd, as in the JAX package.
@@ -31,10 +32,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.attention import Encoder, encoder_stack, encoder_stack_plain
+from ..ops.attention import (Encoder, encoder_init, encoder_stack,
+                             encoder_stack_plain)
 from ..ops.basic import dropout
 from ..ops.recurrent import convolve_local_attn, lstm_cell_update, lstm_scan
-from ..utils.init import make_linear, make_lstm
+from ..ops.seeds import encoder_keys
+from ..utils import prng
+from ..utils.init import linear_init, lstm_init
 
 HEADS = 8
 NEG_INF = -1e9
@@ -71,16 +75,22 @@ def _mlp_out(head: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class UniTransformer(nn.Module):
     def __init__(self, window_embed_size: int, embed_dim: int = 256,
-                 h_dim: int = 128, n_enc: int = 6, d_ff: int = 128,
-                 gen: torch.Generator | None = None):
+                 h_dim: int = 128, n_enc: int = 6, d_ff: int = 128):
         super().__init__()
-        self.embed = make_linear(window_embed_size, embed_dim, gen)
-        self.encoder = Encoder(embed_dim, d_ff, n_enc, gen)
-        self.decoder = make_lstm(2 * embed_dim, embed_dim, gen)
+        self.embed = nn.Linear(window_embed_size, embed_dim)
+        self.encoder = Encoder(embed_dim, d_ff, n_enc)
+        self.decoder = nn.LSTMCell(2 * embed_dim, embed_dim)
         self.dec_h0 = nn.Parameter(torch.zeros(1, embed_dim))
         self.dec_c0 = nn.Parameter(torch.zeros(1, embed_dim))
-        self.out_fc1 = make_linear(embed_dim, h_dim, gen)
-        self.out_fc2 = make_linear(h_dim, 1, gen)
+        self.out_fc1 = nn.Linear(embed_dim, h_dim)
+        self.out_fc2 = nn.Linear(h_dim, 1)
+
+    def dropout_keys(self, key, T: int) -> dict:
+        """The JAX apply's split of the head's key: 3, the MLP embed's [0]
+        and the encoder's [1]."""
+        keys = prng.split(key, 3)
+        return {"embed": keys[0], "encoder": {
+            "encoder": encoder_keys(keys[1], len(self.encoder.layers))}}
 
     def forward(self, x, mask, *, mask_mode: str, plain: bool = False,
                 embed_is_mlp: bool = False, seeds=None,
@@ -95,6 +105,20 @@ class UniTransformer(nn.Module):
             e = self.embed(x)
         enc = _encode(self, e, mask, mask_mode, plain, seeds, encoder_backward)
         return _mlp_out(self, lstm_decoder_scan(self, enc)) * mask
+
+
+def uni_transformer_init(key, window_embed_size: int, embed_dim: int = 256,
+                         h_dim: int = 128, n_enc: int = 6, d_ff: int = 128,
+                         device="cpu") -> dict:
+    k_embed, k_enc, k_dec, k_o1, k_o2 = prng.split(key, 5)
+    return {"embed": linear_init(k_embed, window_embed_size, embed_dim,
+                                 device),
+            "encoder": encoder_init(k_enc, embed_dim, d_ff, n_enc, device),
+            "decoder": lstm_init(k_dec, 2 * embed_dim, embed_dim, device),
+            "dec_h0": torch.zeros(1, embed_dim, device=device),
+            "dec_c0": torch.zeros(1, embed_dim, device=device),
+            "out_fc1": linear_init(k_o1, embed_dim, h_dim, device),
+            "out_fc2": linear_init(k_o2, h_dim, 1, device)}
 
 
 def lstm_decoder_scan(head: UniTransformer, enc: torch.Tensor) -> torch.Tensor:
@@ -120,19 +144,35 @@ def lstm_decoder_scan(head: UniTransformer, enc: torch.Tensor) -> torch.Tensor:
 
 class UniFullTransformer(nn.Module):
     def __init__(self, window_embed_size: int, embed_dim: int = 256,
-                 h_dim: int = 128, n_enc: int = 6, d_ff: int = 128,
-                 gen: torch.Generator | None = None):
+                 h_dim: int = 128, n_enc: int = 6, d_ff: int = 128):
         super().__init__()
-        self.embed = make_linear(window_embed_size, embed_dim, gen)
-        self.encoder = Encoder(embed_dim, d_ff, n_enc, gen)
-        self.out_fc1 = make_linear(embed_dim, h_dim, gen)
-        self.out_fc2 = make_linear(h_dim, 1, gen)
+        self.embed = nn.Linear(window_embed_size, embed_dim)
+        self.encoder = Encoder(embed_dim, d_ff, n_enc)
+        self.out_fc1 = nn.Linear(embed_dim, h_dim)
+        self.out_fc2 = nn.Linear(h_dim, 1)
+
+    def dropout_keys(self, key, T: int) -> dict:
+        """The JAX apply's split of the head's key: 1, the encoder's."""
+        return {"encoder": {"encoder": encoder_keys(
+            prng.split(key, 1)[0], len(self.encoder.layers))}}
 
     def forward(self, x, mask, *, mask_mode: str, plain: bool = False,
                 seeds=None, encoder_backward: str = "perlayer") -> torch.Tensor:
         enc = _encode(self, self.embed(x), mask, mask_mode, plain, seeds,
                       encoder_backward)
         return _mlp_out(self, enc) * mask
+
+
+def uni_full_transformer_init(key, window_embed_size: int,
+                              embed_dim: int = 256, h_dim: int = 128,
+                              n_enc: int = 6, d_ff: int = 128,
+                              device="cpu") -> dict:
+    k_embed, k_enc, k_o1, k_o2 = prng.split(key, 4)
+    return {"embed": linear_init(k_embed, window_embed_size, embed_dim,
+                                 device),
+            "encoder": encoder_init(k_enc, embed_dim, d_ff, n_enc, device),
+            "out_fc1": linear_init(k_o1, embed_dim, h_dim, device),
+            "out_fc2": linear_init(k_o2, h_dim, 1, device)}
 
 
 def time_softmax_attn_weights(head: "MultiLSTM", e: torch.Tensor,
@@ -150,15 +190,20 @@ def time_softmax_attn_weights(head: "MultiLSTM", e: torch.Tensor,
 
 class MultiLSTM(nn.Module):
     def __init__(self, window_embed_size: int, embed_dim: int = 512,
-                 h_dim: int = 256, attn_len: int = 5,
-                 gen: torch.Generator | None = None):
+                 h_dim: int = 256, attn_len: int = 5):
         super().__init__()
-        self.embed = make_linear(window_embed_size, embed_dim, gen)
-        self.attn_fc1 = make_linear(embed_dim, embed_dim, gen)
-        self.attn_fc2 = make_linear(embed_dim, attn_len, gen)
-        self.lstm = make_lstm(embed_dim, h_dim, gen)
-        self.decoder_fc1 = make_linear(h_dim, embed_dim, gen)
-        self.decoder_fc2 = make_linear(embed_dim, 1, gen)
+        self.embed = nn.Linear(window_embed_size, embed_dim)
+        self.attn_fc1 = nn.Linear(embed_dim, embed_dim)
+        self.attn_fc2 = nn.Linear(embed_dim, attn_len)
+        self.lstm = nn.LSTMCell(embed_dim, h_dim)
+        self.decoder_fc1 = nn.Linear(h_dim, embed_dim)
+        self.decoder_fc2 = nn.Linear(embed_dim, 1)
+
+    def dropout_keys(self, key, T: int) -> dict:
+        """The JAX apply's split of the head's key: 2, the embed's and the
+        decoder's."""
+        embed, decoder = prng.split(key)
+        return {"embed": embed, "decoder": decoder}
 
     def forward(self, x, mask, *, mask_mode: str, seeds=None,
                 embed_dropout: float = 0.4,
@@ -176,3 +221,15 @@ class MultiLSTM(nn.Module):
         d = torch.relu(self.decoder_fc1(convolve_local_attn(h, a)))
         d = dropout(d, _site(seeds, "decoder"), decoder_dropout)
         return self.decoder_fc2(d) * mask
+
+
+def multi_lstm_init(key, window_embed_size: int, embed_dim: int = 512,
+                    h_dim: int = 256, attn_len: int = 5,
+                    device="cpu") -> dict:
+    k_e, k_a1, k_a2, k_l, k_d1, k_d2 = prng.split(key, 6)
+    return {"embed": linear_init(k_e, window_embed_size, embed_dim, device),
+            "attn_fc1": linear_init(k_a1, embed_dim, embed_dim, device),
+            "attn_fc2": linear_init(k_a2, embed_dim, attn_len, device),
+            "lstm": lstm_init(k_l, embed_dim, h_dim, device),
+            "decoder_fc1": linear_init(k_d1, h_dim, embed_dim, device),
+            "decoder_fc2": linear_init(k_d2, embed_dim, 1, device)}

@@ -19,7 +19,9 @@ families`) drives `MultiARLSTM`, as the reference's `python models.py` does.
 
 Parameter names are the JAX trees' (`embed`, `attn_fc1`, `attn_fc2`,
 `encoder`, `enc_h0`, ..., `autoreg`), so `utils.params.load_jax_params`
-carries a JAX tree across key for key.  The one dropout site is the embed
+carries a JAX tree across key for key; `multi_ed_lstm_init` and
+`multi_ar_lstm_init` draw that tree along the JAX key tree, the same
+numbers for the same key.  The one dropout site is the embed
 dropout on the input x [B, T, window_embed] (`seeds.embed`, the hash
 dropout of ops/basic.py).  Both heads are plain PyTorch: the JAX package
 has no kernel for them.
@@ -33,8 +35,9 @@ from torch import nn
 from ..ops.basic import dropout
 from ..ops.recurrent import (convolve_local_attn, lstm_cell_update, lstm_scan,
                              pad_shift)
-from ..ops.seeds import DropoutSites
-from ..utils.init import make_linear, make_lstm
+from ..ops.seeds import DropoutSeeds, DropoutSites
+from ..utils import prng
+from ..utils.init import linear_init, lstm_init
 from .heads import time_softmax_attn_weights
 
 EMBED_DROPOUT = 0.1
@@ -49,27 +52,34 @@ def _initial(state: nn.Parameter, B: int, like: torch.Tensor) -> torch.Tensor:
     return state.to(like.dtype).expand(B, state.shape[1])
 
 
+def _legacy_keys(key, T: int) -> DropoutSeeds:
+    """A legacy head's split of its key: 1, the embed's (no front end)."""
+    return DropoutSeeds({}, embed=prng.split(key, 1)[0])
+
+
 class MultiEDLSTM(nn.Module):
     def __init__(self, window_embed_size: int, embed_dim: int = 128,
-                 h_dim: int = 512, attn_len: int = 3,
-                 gen: torch.Generator | None = None):
+                 h_dim: int = 512, attn_len: int = 3):
         super().__init__()
         self.window_embed_size = window_embed_size
-        self.embed = make_linear(window_embed_size, embed_dim, gen)
-        self.attn_fc1 = make_linear(embed_dim, embed_dim, gen)
-        self.attn_fc2 = make_linear(embed_dim, attn_len, gen)
-        self.encoder = make_lstm(embed_dim, h_dim, gen)
+        self.embed = nn.Linear(window_embed_size, embed_dim)
+        self.attn_fc1 = nn.Linear(embed_dim, embed_dim)
+        self.attn_fc2 = nn.Linear(embed_dim, attn_len)
+        self.encoder = nn.LSTMCell(embed_dim, h_dim)
         self.enc_h0 = nn.Parameter(torch.zeros(1, h_dim))
         self.enc_c0 = nn.Parameter(torch.zeros(1, h_dim))
-        self.decoder = make_lstm(1 + h_dim, h_dim, gen)
+        self.decoder = nn.LSTMCell(1 + h_dim, h_dim)
         self.dec_h0 = nn.Parameter(torch.zeros(1, h_dim))
         self.dec_c0 = nn.Parameter(torch.zeros(1, h_dim))
-        self.out_fc1 = make_linear(h_dim, embed_dim, gen)
-        self.out_fc2 = make_linear(embed_dim, 1, gen)
+        self.out_fc1 = nn.Linear(h_dim, embed_dim)
+        self.out_fc2 = nn.Linear(embed_dim, 1)
 
     def dropout_sites(self) -> DropoutSites:
         return DropoutSites(front=(), embed=True,
-                            embed_width=self.window_embed_size)
+                            embed_width=self.window_embed_size,
+                            split_keys=self.dropout_keys)
+
+    dropout_keys = staticmethod(_legacy_keys)
 
     def forward(self, x, mask, *, seeds=None, tgt_init: float = 0.0,
                 embed_dropout: float = EMBED_DROPOUT) -> torch.Tensor:
@@ -99,24 +109,43 @@ class MultiEDLSTM(nn.Module):
         return torch.stack(preds, dim=1) * mask
 
 
+def multi_ed_lstm_init(key, window_embed_size: int, embed_dim: int = 128,
+                       h_dim: int = 512, attn_len: int = 3,
+                       device="cpu") -> dict:
+    k_e, k_a1, k_a2, k_enc, k_dec, k_o1, k_o2 = prng.split(key, 7)
+    return {"embed": linear_init(k_e, window_embed_size, embed_dim, device),
+            "attn_fc1": linear_init(k_a1, embed_dim, embed_dim, device),
+            "attn_fc2": linear_init(k_a2, embed_dim, attn_len, device),
+            "encoder": lstm_init(k_enc, embed_dim, h_dim, device),
+            "enc_h0": torch.zeros(1, h_dim, device=device),
+            "enc_c0": torch.zeros(1, h_dim, device=device),
+            "decoder": lstm_init(k_dec, 1 + h_dim, h_dim, device),
+            "dec_h0": torch.zeros(1, h_dim, device=device),
+            "dec_c0": torch.zeros(1, h_dim, device=device),
+            "out_fc1": linear_init(k_o1, h_dim, embed_dim, device),
+            "out_fc2": linear_init(k_o2, embed_dim, 1, device)}
+
+
 class MultiARLSTM(nn.Module):
     def __init__(self, window_embed_size: int, embed_dim: int = 128,
-                 h_dim: int = 512, attn_len: int = 7, ar_order: int = 1,
-                 gen: torch.Generator | None = None):
+                 h_dim: int = 512, attn_len: int = 7, ar_order: int = 1):
         super().__init__()
         self.window_embed_size = window_embed_size
         self.ar_order = ar_order
-        self.embed = make_linear(window_embed_size, embed_dim, gen)
-        self.attn_fc1 = make_linear(embed_dim, embed_dim, gen)
-        self.attn_fc2 = make_linear(embed_dim, attn_len, gen)
-        self.lstm = make_lstm(embed_dim, h_dim, gen)
-        self.decoder_fc1 = make_linear(h_dim, embed_dim, gen)
-        self.decoder_fc2 = make_linear(embed_dim, 1, gen)
-        self.autoreg = make_linear(h_dim, ar_order, gen)
+        self.embed = nn.Linear(window_embed_size, embed_dim)
+        self.attn_fc1 = nn.Linear(embed_dim, embed_dim)
+        self.attn_fc2 = nn.Linear(embed_dim, attn_len)
+        self.lstm = nn.LSTMCell(embed_dim, h_dim)
+        self.decoder_fc1 = nn.Linear(h_dim, embed_dim)
+        self.decoder_fc2 = nn.Linear(embed_dim, 1)
+        self.autoreg = nn.Linear(h_dim, ar_order)
 
     def dropout_sites(self) -> DropoutSites:
         return DropoutSites(front=(), embed=True,
-                            embed_width=self.window_embed_size)
+                            embed_width=self.window_embed_size,
+                            split_keys=self.dropout_keys)
+
+    dropout_keys = staticmethod(_legacy_keys)
 
     def forward(self, x, mask, *, seeds=None, target=None,
                 tgt_init: float = 0.0,
@@ -147,3 +176,16 @@ class MultiARLSTM(nn.Module):
             hist = torch.cat([hist[:, 1:], p], dim=1)
             preds.append(p)
         return torch.stack(preds, dim=1) * mask
+
+
+def multi_ar_lstm_init(key, window_embed_size: int, embed_dim: int = 128,
+                       h_dim: int = 512, attn_len: int = 7,
+                       ar_order: int = 1, device="cpu") -> dict:
+    k_e, k_a1, k_a2, k_l, k_d1, k_d2, k_ar = prng.split(key, 7)
+    return {"embed": linear_init(k_e, window_embed_size, embed_dim, device),
+            "attn_fc1": linear_init(k_a1, embed_dim, embed_dim, device),
+            "attn_fc2": linear_init(k_a2, embed_dim, attn_len, device),
+            "lstm": lstm_init(k_l, embed_dim, h_dim, device),
+            "decoder_fc1": linear_init(k_d1, h_dim, embed_dim, device),
+            "decoder_fc2": linear_init(k_d2, embed_dim, 1, device),
+            "autoreg": linear_init(k_ar, h_dim, ar_order, device)}

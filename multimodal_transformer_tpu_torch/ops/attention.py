@@ -3,8 +3,13 @@
 Counterpart of `multimodal_transformer_tpu/ops/attention.py`.  Training
 mode takes the stack's [N, 4] dropout seed table (one seed per layer for
 each of the four sites: attention probabilities, attention output, FFN
-hidden, FFN output) and applies the hash dropout of ops/basic.py; without
-seeds the stack runs in eval mode.  Two mask modes, as in the JAX package:
+hidden, FFN output) and applies the dropout of ops/basic.py; without seeds
+the stack runs in eval mode.  A table of threefry keys ([N, 4, 2], the
+"threefry" dropout) takes the plain path on any device, with each site's
+mask drawn by kernel T on the card, as the JAX package keeps that stream on
+its jnp encoder (no kernel regenerates its bits).  `encoder_init` draws the
+weights along the JAX key tree (one layer drawn, copied N times, as the
+reference's `clones()`).  Two mask modes, as in the JAX package:
 
   * "query" (the reference's quirk, kept as it is): the [B, T, 1] mask is
     broadcast over the query rows only, so padded query rows get -1e9
@@ -47,7 +52,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.init import init_linear
+from ..utils import prng
+from ..utils.init import linear_init, norm_init
 from .basic import dropout
 from .dispatch import encoder_route, needs_grad, use_kernel
 from .norm import LayerNorm
@@ -57,24 +63,17 @@ DROPOUT = 0.1
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, gen: torch.Generator | None = None):
+    def __init__(self, d_model: int):
         super().__init__()
         self.linears = nn.ModuleList(nn.Linear(d_model, d_model)
                                      for _ in range(4))
-        if gen is not None:
-            for lin in self.linears:
-                init_linear(lin, gen)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int,
-                 gen: torch.Generator | None = None):
+    def __init__(self, d_model: int, d_ff: int):
         super().__init__()
         self.w_1 = nn.Linear(d_model, d_ff)
         self.w_2 = nn.Linear(d_ff, d_model)
-        if gen is not None:
-            init_linear(self.w_1, gen)
-            init_linear(self.w_2, gen)
 
 
 class Sublayer(nn.Module):
@@ -84,11 +83,10 @@ class Sublayer(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, d_ff: int,
-                 gen: torch.Generator | None = None):
+    def __init__(self, d_model: int, d_ff: int):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, gen)
-        self.feed_forward = FeedForward(d_model, d_ff, gen)
+        self.self_attn = MultiHeadAttention(d_model)
+        self.feed_forward = FeedForward(d_model, d_ff)
         self.sublayer = nn.ModuleList(Sublayer(d_model) for _ in range(2))
 
 
@@ -100,13 +98,33 @@ class Encoder(nn.Module):
     tp_group = None
     tp_size = 1
 
-    def __init__(self, d_model: int, d_ff: int, n_layers: int,
-                 gen: torch.Generator | None = None):
+    def __init__(self, d_model: int, d_ff: int, n_layers: int):
         super().__init__()
-        layer = EncoderLayer(d_model, d_ff, gen)
+        layer = EncoderLayer(d_model, d_ff)
         self.layers = nn.ModuleList(copy.deepcopy(layer)
                                     for _ in range(n_layers))
         self.norm = LayerNorm(d_model)
+
+
+def mha_init(key, d_model: int, device="cpu") -> dict:
+    return {"linears": [linear_init(k, d_model, d_model, device)
+                        for k in prng.split(key, 4)]}
+
+
+def encoder_layer_init(key, d_model: int, d_ff: int, device="cpu") -> dict:
+    k_attn, k_ff1, k_ff2 = prng.split(key, 3)
+    return {"self_attn": mha_init(k_attn, d_model, device),
+            "feed_forward": {"w_1": linear_init(k_ff1, d_model, d_ff, device),
+                             "w_2": linear_init(k_ff2, d_ff, d_model, device)},
+            "sublayer": [{"norm": norm_init(d_model, device)}
+                         for _ in range(2)]}
+
+
+def encoder_init(key, d_model: int, d_ff: int, n_layers: int,
+                 device="cpu") -> dict:
+    """N identical layers (the JAX package's `encoder_init`) + final norm."""
+    layer = encoder_layer_init(key, d_model, d_ff, device)
+    return {"layers": [layer] * n_layers, "norm": norm_init(d_model, device)}
 
 
 def attention_heads(attn: MultiHeadAttention, query, key, value, mask=None,
@@ -165,10 +183,12 @@ def row_parallel(lin: nn.Linear, x, group):
 def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str,
                   seeds=None, dropout_p: float = DROPOUT, flash: bool = False,
                   group=None):
-    """seeds: the layer's 4 site seeds, or None in eval; flash: attention
-    through kernel 11 (see attention_heads); group: the "model" group
-    of a tensor-parallel layer, whose h heads are this rank's."""
-    s = [None] * 4 if seeds is None else [int(v) for v in seeds]
+    """seeds: the layer's 4 site seeds (or threefry keys), or None in eval;
+    flash: attention through kernel 11 (see attention_heads); group: the
+    "model" group of a tensor-parallel layer, whose h heads are this
+    rank's."""
+    s = [None] * 4 if seeds is None else [
+        v if prng.is_keys(v) else int(v) for v in seeds]
     attn, ff = layer.self_attn, layer.feed_forward
     normed = layer.sublayer[0].norm(x)
     heads = attention_heads(attn, normed, normed, normed, mask, h=h,
@@ -217,7 +237,8 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
                   mask_mode: str = "query", seeds=None,
                   dropout_p: float = DROPOUT, backward: str = "perlayer"):
     """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
-    seeds: the [N, 4] dropout seed table in training, None in eval;
+    seeds: the [N, 4] dropout seed table (or [N, 4, 2] threefry keys) in
+    training, None in eval;
     backward: the training backward on the card, "perlayer" (kernel 4) or
     "stack" (kernel 5).  A tensor-parallel encoder takes the flash route
     in "key_query" mode with a mask, else the plain one."""
@@ -228,7 +249,8 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
                                    seeds=seeds, dropout_p=dropout_p)
     route = encoder_route(use_kernel(x) and mask is not None, x.shape[1],
                           mask_mode, seeds is not None, backward,
-                          needs_grad(x, *enc.parameters()))
+                          needs_grad(x, *enc.parameters()),
+                          threefry=prng.is_keys(seeds))
     if route == "fused":
         from .cuda.encoder import encoder_stack_fused
         return encoder_stack_fused(enc, x, mask, h=h)

@@ -1,10 +1,13 @@
 """Basic building blocks: linear, the windowed CNN embed, the Highway gate
-and the counter-based hash dropout.
+and dropout.
 
 Counterparts of `multimodal_transformer_tpu/ops/basic.py`.  Parameters are in
-torch layout, the same as the JAX package's.  Dropout is the JAX package's
-"hash" impl: a murmur3 fmix32 of (seed, flat position), so the same seed
-gives the same mask bits here, in the CUDA kernels and in the JAX package.
+torch layout, the same as the JAX package's.  Dropout takes a site's seed
+in one of the JAX package's two streams: a uint32 seed is its "hash" impl,
+a murmur3 fmix32 of (seed, flat position), so the same seed gives the same
+mask bits here, in the CUDA kernels and in the JAX package; a threefry key
+(utils/prng.py) is its "threefry" impl, `jax.random.bernoulli(key, 1 - p,
+shape)`, whose mask kernel T draws on the card.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.init import init_linear
+from ..utils import prng
 
 _M32 = 0xFFFFFFFF
 
@@ -45,21 +48,30 @@ def hash_keep_mask(seed: int, idx: torch.Tensor, p: float) -> torch.Tensor:
     return h >= keep_threshold(p)
 
 
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Inverted dropout with a given keep mask: where(keep, x / (1 - p), 0)."""
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 def dropout_with_idx(x: torch.Tensor, seed: int, p: float,
                      idx: torch.Tensor) -> torch.Tensor:
     """Inverted dropout whose mask bits hash the given positions."""
     if p == 0.0:
         return x
-    keep = hash_keep_mask(seed, idx, p)
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+    return apply_keep(x, hash_keep_mask(seed, idx, p), p)
 
 
-def dropout(x: torch.Tensor, seed: int | None, p: float) -> torch.Tensor:
-    """Inverted dropout, where(keep, x / (1 - p), 0), with the keep bits of
-    x's flat positions; seed=None (eval) or p == 0 is the identity."""
+def dropout(x: torch.Tensor, seed, p: float) -> torch.Tensor:
+    """Inverted dropout, where(keep, x / (1 - p), 0).  seed: a uint32 hash
+    seed (the keep bits of x's flat positions), a threefry key
+    (`jax.random.bernoulli(key, 1 - p, x.shape)`), or None (eval); p == 0
+    is the identity."""
     if seed is None or p == 0.0:
         return x
+    if prng.is_keys(seed):
+        return apply_keep(x, prng.bernoulli(seed, 1.0 - p, x.shape, x.device),
+                          p)
     idx = torch.arange(x.numel(), dtype=torch.int64,
                        device=x.device).view(x.shape)
     return dropout_with_idx(x, seed, p, idx)
@@ -98,13 +110,10 @@ def highway_fn(x: torch.Tensor, wp, bp, wg, bg,
 
 
 class Highway(nn.Module):
-    def __init__(self, size: int, gen: torch.Generator | None = None):
+    def __init__(self, size: int):
         super().__init__()
         self.linear_projection = nn.Linear(size, size)
         self.linear_gate = nn.Linear(size, size)
-        if gen is not None:
-            init_linear(self.linear_projection, gen)
-            init_linear(self.linear_gate, gen)
 
     def forward(self, x: torch.Tensor, relu_proj: bool = False) -> torch.Tensor:
         return highway_fn(x, self.linear_projection.weight,

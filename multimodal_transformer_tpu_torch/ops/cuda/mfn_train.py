@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..basic import dropout_with_idx, keep_threshold
+from ..basic import apply_keep, dropout_with_idx, keep_threshold
 from ..dispatch import acc_dtype, use_kernel
 from . import _build
 from .mfn import (_RING, MAX_MODS, MAX_ROW_TILES, MAX_THREADS, SMEM_OPT_IN,
@@ -64,8 +64,11 @@ def reset_launches() -> None:
     fwd_launches = bwd_launches = 0
 
 
-def _gamma_drop(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
-    """Dropout of a [B, width] gamma hidden at positions b * width + c."""
+def _gamma_drop(x: torch.Tensor, seed, p: float) -> torch.Tensor:
+    """Dropout of a [B, width] gamma hidden at positions b * width + c
+    (seed: a hash seed), or with a given [B, width] keep mask."""
+    if isinstance(seed, torch.Tensor):
+        return apply_keep(x, seed, p)
     idx = torch.arange(x.numel(), dtype=torch.int64,
                        device=x.device).view(x.shape)
     return dropout_with_idx(x, seed, p, idx)
@@ -74,7 +77,8 @@ def _gamma_drop(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
 def mfn_step(xp_t, h, c, mem, W, G, seed_row, ps):
     """One step of the recurrence in plain PyTorch (differentiable).
     xp_t, h, c: per-modality lists; W: W_hh list; G: the 16 gate tensors;
-    seed_row: (gamma1 seed, gamma2 seed).  Returns (h, c, mem) of step t."""
+    seed_row: (gamma1 seed, gamma2 seed), or the step's two keep masks.
+    Returns (h, c, mem) of step t."""
     hid = [w.shape[1] for w in W]
     prev_cs = torch.cat(c, dim=1)
     h_new, c_new = [], []
@@ -97,7 +101,7 @@ def mfn_step(xp_t, h, c, mem, W, G, seed_row, ps):
     def gamma(i, seed, p):
         hmid = torch.relu(F.linear(both, G[i], G[i + 1]))
         if p > 0.0:
-            hmid = _gamma_drop(hmid, int(seed), p)
+            hmid = _gamma_drop(hmid, seed, p)
         return torch.sigmoid(F.linear(hmid, G[i + 2], G[i + 3]))
 
     g1 = gamma(8, seed_row[0], ps[0])
@@ -111,7 +115,8 @@ def _split(x: torch.Tensor, hid) -> list:
 
 def mfn_train_fwd_plain(xps, whhs, gates, seeds, ps):
     """(hs [B, T, TH], cs [B, T, TH], mems [B, T, MEM]) in the storage dtype.
-    Differentiable: the model's plain path trains through it."""
+    Differentiable: the model's plain path trains through it.  seeds may
+    also be [T, 2, B, width] bool keep masks (the "threefry" dropout)."""
     dtype = xps[0].dtype
     acc = acc_dtype(dtype)
     B, T = xps[0].shape[:2]
@@ -123,7 +128,8 @@ def mfn_train_fwd_plain(xps, whhs, gates, seeds, ps):
     h = [torch.zeros(B, H, dtype=acc, device=dev) for H in hid]
     c = [torch.zeros(B, H, dtype=acc, device=dev) for H in hid]
     mem = torch.zeros(B, mem_dim, dtype=acc, device=dev)
-    seeds = torch.as_tensor(seeds).tolist()
+    if not (isinstance(seeds, torch.Tensor) and seeds.dtype == torch.bool):
+        seeds = torch.as_tensor(seeds).tolist()
     hs, cs, mems = [], [], []
     for t in range(T):
         h, c, mem = mfn_step([x[:, t].to(acc) for x in xps], h, c, mem, W, G,

@@ -1,0 +1,91 @@
+"""Kernel T: jax.random's threefry2x32 bits and bernoulli keep masks
+(csrc/threefry.cu).
+
+The JAX package computes these in XLA (`jax.random.uniform`,
+`jax.random.bernoulli`), not in Pallas, so kernel T replaces no TPU kernel.
+The port draws its initial weights from the bits (utils/init.py) and, on
+the "threefry" dropout route, every site's keep mask, both along the JAX
+key tree (utils/prng.py).
+
+`threefry_bits(keys, n, device)` gives, for each key of keys [K, 2] (numpy
+uint32), the bits of the n flat positions 0..n-1 as int32 [K, n];
+`threefry_keep_mask(keys, n, p, device)` gives uniform < p as bool [K, n].
+On a CUDA device each launches the kernel once for each block of up to 480
+keys (the keys travel in its parameters); on the CPU each runs its plain version,
+`utils/prng.py random_bits_plain` / `keep_mask_plain`.  Nothing falls back:
+a launch that fails raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ...utils import prng
+from ..dispatch import use_kernel
+from . import _build
+
+MODE_BITS, MODE_KEEP = 0, 1
+MAX_KEYS = 480  # keys a launch (csrc/threefry.cu kMaxKeys)
+# integer operations an element (csrc/threefry.cu): 20 rounds of add,
+# rotate, xor; 17 key-schedule adds; the output xor; for the mask, the
+# threshold's shift, or, subtract and compare
+OPS_BITS = 20 * 3 + 17 + 1
+OPS_KEEP = OPS_BITS + 4
+
+# Launches since the last reset: one for each block of MAX_KEYS keys.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _launch(keys: np.ndarray, n: int, mode: int, p: float,
+            out: torch.Tensor) -> None:
+    global launches
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    lib = _build.load()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for k0 in range(0, keys.shape[0], MAX_KEYS):
+            block = keys[k0:k0 + MAX_KEYS]
+            rc = lib.mmtx_threefry(block.ctypes.data_as(ctypes.c_void_p),
+                                   block.shape[0], n, mode, p,
+                                   out[k0:k0 + MAX_KEYS].data_ptr(), stream)
+            _build.check(rc, "threefry")
+            launches += 1
+
+
+def _check(keys: np.ndarray, n: int) -> np.ndarray:
+    keys = np.asarray(keys, dtype=np.uint32)
+    if keys.ndim != 2 or keys.shape[1] != 2 or keys.shape[0] < 1:
+        raise ValueError(f"threefry: keys must be [K >= 1, 2], got "
+                         f"{keys.shape}")
+    if n < 1:
+        raise ValueError(f"threefry: n must be positive, got {n}")
+    return keys
+
+
+def threefry_bits(keys, n: int, device="cuda") -> torch.Tensor:
+    """The bits of positions 0..n-1 under each key, int32 [K, n]."""
+    keys = _check(keys, n)
+    out = torch.empty(keys.shape[0], n, dtype=torch.int32, device=device)
+    if not use_kernel(out):
+        bits = prng.random_bits_plain(keys, n, out.device)
+        return (((bits + 2 ** 31) & prng.M32) - 2 ** 31).to(torch.int32)
+    _launch(keys, n, MODE_BITS, 0.0, out)
+    return out
+
+
+def threefry_keep_mask(keys, n: int, p: float, device="cuda") -> torch.Tensor:
+    """jax.random.bernoulli(key, p, (n,)) of each key, bool [K, n]."""
+    keys = _check(keys, n)
+    out = torch.empty(keys.shape[0], n, dtype=torch.bool, device=device)
+    if not use_kernel(out):
+        return prng.keep_mask_plain(keys, n, p, out.device)
+    _launch(keys, n, MODE_KEEP, p, out)
+    return out

@@ -32,7 +32,9 @@ import torch
 from ...models.config import MFT_EMBED_DIM
 from ..attention import Encoder
 from ..basic import conv1d_window_embed, highway_fn
-from ..mfn_core import DROPOUTS, MFN, hoisted_inputs
+from ...utils import prng
+from ...utils.params import load_jax_params
+from ..mfn_core import DROPOUTS, MFN, hoisted_inputs, mfn_init
 from . import encoder as enc_k
 from . import encoder_train as enct_k
 from . import flash_attention as fa_k
@@ -379,8 +381,10 @@ def _mfn_case(B, T, dtype, device, seed, mods):
     """An MFN with the MFT's embed widths as inputs, and its hoisted xps,
     W_hh list and gate tensors in dtype on device."""
     gen = torch.Generator().manual_seed(seed)
-    mfn = MFN(mods, MFT_EMBED_DIM, output_dim=1, gen=gen).to(device=device,
-                                                            dtype=dtype)
+    with torch.device(device):
+        mfn = MFN(mods, MFT_EMBED_DIM, output_dim=1)
+    mfn = load_jax_params(mfn, mfn_init(prng.key(seed), mods, MFT_EMBED_DIM,
+                                        1, device=device)).to(dtype=dtype)
     with torch.no_grad():
         inputs = {m: torch.randn(B, T, MFT_EMBED_DIM[m], generator=gen).to(
             device=device, dtype=dtype) for m in mods}

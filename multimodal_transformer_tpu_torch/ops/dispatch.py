@@ -17,7 +17,10 @@ package's `ops/attention.py` routes it on the TPU:
   * "train_stack": the same with kernel 5 for the backward, one call per
     stack; the caller asks for it with backward="stack" (the JAX package's
     opt-in MMTX_ENC_BWD=stack, an argument here rather than a variable);
-  * "plain": the plain encoder, for a CPU tensor, "query" mode or no mask.
+  * "plain": the plain encoder, for a CPU tensor, "query" mode or no mask,
+    and for training on the "threefry" dropout (threefry keys in place of
+    hash seeds: the JAX package keeps that stream off its kernels, whose
+    masks are the hash's).
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ def check_encoder_backward(backward: str) -> str:
 
 
 def encoder_route(on_card: bool, T: int, mask_mode: str, training: bool,
-                  backward: str = "perlayer", needs_grad: bool = False) -> str:
+                  backward: str = "perlayer", needs_grad: bool = False,
+                  threefry: bool = False) -> str:
     """The route of an encoder stack over T steps: on_card is whether its
     input is on a CUDA device and masked; training whether it carries
     dropout seeds; backward the training backward, "perlayer" (kernel 4 per
@@ -57,9 +61,10 @@ def encoder_route(on_card: bool, T: int, mask_mode: str, training: bool,
     instead, with the same dropout masks, so only the route differs (ROADMAP
     Queue 3).  A call that needs gradients without seeds takes the training
     route too, at p = 0, as the JAX package differentiates `apply(rng=None)`
-    through its trainable kernels."""
+    through its trainable kernels.  threefry: the training seeds are
+    threefry keys, which only the plain encoder takes."""
     check_encoder_backward(backward)
-    if not on_card or mask_mode != "key_query":
+    if not on_card or mask_mode != "key_query" or (training and threefry):
         return "plain"
     if training or needs_grad:
         return "train_stack" if backward == "stack" else "train"

@@ -10,7 +10,12 @@ instead (kernel B has no backward).  In training it takes the
 kernels (ops/cuda/mfn_train.py, forward and reverse recurrence), a CPU
 tensor to the plain recurrence with autograd; the head drops out its hidden
 with the `out` seed.  Both CUDA wrappers run a plain Python loop over T for
-CPU tensors.
+CPU tensors.  On the "threefry" dropout the seeds are [T, 2, 2] threefry
+keys: every step's two [B, 64] keep masks are drawn at once (kernel T on
+the card) and fed to the plain recurrence with autograd on any device, as
+the JAX package runs that stream through its `lax.scan` and not its
+kernels; the head's `out` key draws `bernoulli(key, 0.5, [T, B, 64])`.
+`mfn_init` draws the weights along the JAX key tree.
 
 The head's dropout indexes the TIME-major [T, B, 64] hidden, as the JAX
 package's head does (it runs time-major): element [b, t, c] of the port's
@@ -31,8 +36,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..utils.init import init_linear, init_lstm
-from .basic import dropout_with_idx
+from ..utils import prng
+from ..utils.init import linear_init, lstm_init
+from .basic import apply_keep, dropout_with_idx
 from .cuda.mfn import mfn_scan_fused, mfn_scan_fused_plain
 from .cuda.mfn_train import mfn_states_train, mfn_train_fwd_plain
 from .dispatch import needs_grad, use_kernel
@@ -49,31 +55,13 @@ GATE_NAMES = ("att1_fc1", "att1_fc2", "att2_fc1", "att2_fc2",
 class MFN(nn.Module):
     """dims: per-modality input width (the per-modality embed dims)."""
 
-    def __init__(self, mods, dims, output_dim: int,
-                 gen: torch.Generator | None = None):
+    def __init__(self, mods, dims, output_dim: int):
         super().__init__()
         self.mods = tuple(mods)
-        total_h = sum(HIDDEN_DIM[m] for m in self.mods)
-        att_in = 2 * total_h
-        gamma_in = att_in + MEM_DIM
         for m in self.mods:
-            cell = nn.LSTMCell(dims[m], HIDDEN_DIM[m])
-            if gen is not None:
-                init_lstm(cell, gen)
-            setattr(self, f"lstm_{m}", cell)
-        shapes = [("att1_fc1", att_in, H_ATT1), ("att1_fc2", H_ATT1, att_in),
-                  ("att2_fc1", att_in, H_ATT2), ("att2_fc2", H_ATT2, MEM_DIM),
-                  ("gamma1_fc1", gamma_in, H_GAMMA1),
-                  ("gamma1_fc2", H_GAMMA1, MEM_DIM),
-                  ("gamma2_fc1", gamma_in, H_GAMMA2),
-                  ("gamma2_fc2", H_GAMMA2, MEM_DIM),
-                  ("out_fc1", total_h + MEM_DIM, H_OUT),
-                  ("out_fc2", H_OUT, output_dim)]
-        for name, fan_in, fan_out in shapes:
-            lin = nn.Linear(fan_in, fan_out)
-            if gen is not None:
-                init_linear(lin, gen)
-            setattr(self, name, lin)
+            setattr(self, f"lstm_{m}", nn.LSTMCell(dims[m], HIDDEN_DIM[m]))
+        for name, fan_in, fan_out in _linear_shapes(self.mods, output_dim):
+            setattr(self, name, nn.Linear(fan_in, fan_out))
 
     def gate_tensors(self) -> list:
         """The 16 gate-MLP tensors in kernel order (weight, bias per layer)."""
@@ -82,6 +70,34 @@ class MFN(nn.Module):
             lin = getattr(self, name)
             out += [lin.weight, lin.bias]
         return out
+
+
+def _linear_shapes(mods, output_dim: int) -> list:
+    """(name, fan_in, fan_out) of the gate and head MLPs, in the JAX
+    package's `mfn_init` order."""
+    total_h = sum(HIDDEN_DIM[m] for m in mods)
+    att_in = 2 * total_h
+    gamma_in = att_in + MEM_DIM
+    return [("att1_fc1", att_in, H_ATT1), ("att1_fc2", H_ATT1, att_in),
+            ("att2_fc1", att_in, H_ATT2), ("att2_fc2", H_ATT2, MEM_DIM),
+            ("gamma1_fc1", gamma_in, H_GAMMA1),
+            ("gamma1_fc2", H_GAMMA1, MEM_DIM),
+            ("gamma2_fc1", gamma_in, H_GAMMA2),
+            ("gamma2_fc2", H_GAMMA2, MEM_DIM),
+            ("out_fc1", total_h + MEM_DIM, H_OUT),
+            ("out_fc2", H_OUT, output_dim)]
+
+
+def mfn_init(key, mods, dims, output_dim: int, device="cpu") -> dict:
+    """The JAX package's `mfn_init` tree: split(key, len(mods) + 10), the
+    modalities' LSTMs first, then the ten MLP layers."""
+    keys = prng.split(key, len(mods) + 10)
+    params = {f"lstm_{m}": lstm_init(keys[i], dims[m], HIDDEN_DIM[m], device)
+              for i, m in enumerate(mods)}
+    for k, (name, fan_in, fan_out) in zip(
+            keys[len(mods):], _linear_shapes(mods, output_dim)):
+        params[name] = linear_init(k, fan_in, fan_out, device)
+    return params
 
 
 def hoisted_inputs(mfn: MFN, inputs) -> list:
@@ -95,8 +111,9 @@ def hoisted_inputs(mfn: MFN, inputs) -> list:
 
 def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
     """(hs [B, T, total_h], mems [B, T, MEM_DIM]) of the recurrence; seeds:
-    [T, 2] in training, None in eval; plain=True takes the plain PyTorch
-    recurrence on any device."""
+    [T, 2] in training ([T, 2, 2] threefry keys on the "threefry"
+    dropout), None in eval; plain=True takes the plain PyTorch recurrence
+    on any device."""
     xps = hoisted_inputs(mfn, inputs)
     whhs = [getattr(mfn, f"lstm_{m}").weight_hh for m in mfn.mods]
     gates = mfn.gate_tensors()
@@ -110,10 +127,25 @@ def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
         scan = mfn_scan_fused if on_card else mfn_scan_fused_plain
         return scan(xps, whhs, gates)
     ps = (DROPOUTS["gamma1"], DROPOUTS["gamma2"])
+    if prng.is_keys(seeds):
+        hs, _, mems = mfn_train_fwd_plain(xps, whhs, gates,
+                                          gamma_masks(mfn, seeds, xps[0]), ps)
+        return hs, mems
     if not on_card:
         hs, _, mems = mfn_train_fwd_plain(xps, whhs, gates, seeds, ps)
         return hs, mems
     return mfn_states_train(xps, whhs, gates, seeds, ps)
+
+
+def gamma_masks(mfn: MFN, keys, like: torch.Tensor) -> torch.Tensor:
+    """The threefry stream's gamma keep masks, [T, 2, B, 64] bool on like's
+    device: `bernoulli(keys[t, k], 1 - p_k, [B, 64])` for every step t and
+    gamma k, drawn in one call (both rates are 0.2)."""
+    B, T = like.shape[:2]
+    p = DROPOUTS["gamma1"]
+    assert DROPOUTS["gamma2"] == p and keys.shape == (T, 2, 2)
+    return prng.bernoulli(keys, 1.0 - p, (B, mfn.gamma1_fc1.out_features),
+                          like.device)
 
 
 def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
@@ -121,10 +153,16 @@ def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
     """out_rows: (r0, rows) when these B rows are rows r0.. of a global
     batch of `rows` rows (a data-parallel rank): row b then takes the keep
     bits of the global hidden's row r0 + b, position
-    (t * rows + r0 + b) * 64 + c."""
+    (t * rows + r0 + b) * 64 + c.  out_seed may be a threefry key, whose
+    mask is drawn over the time-major [T, B, 64] hidden and transposed."""
     feats = torch.cat([hs, mems], dim=-1)
     h = torch.relu(mfn.out_fc1(feats))
-    if out_seed is not None:
+    if prng.is_keys(out_seed):
+        B, T, W = h.shape
+        keep = prng.bernoulli(out_seed, 1.0 - DROPOUTS["out"], (T, B, W),
+                              h.device)
+        h = apply_keep(h, keep.transpose(0, 1), DROPOUTS["out"])
+    elif out_seed is not None:
         B, T, W = h.shape
         r0, rows = out_rows or (0, B)
         ar = lambda n: torch.arange(n, dtype=torch.int64, device=h.device)

@@ -29,23 +29,48 @@ first row times the site's elements per row; the MFN head's `out` site
 indexes a time-major hidden, which no shift can express, so it carries the
 rows (first row, global rows) to `ops/mfn_core.mfn_head` instead.
 
-The port takes the seeds as a value, so it needs no JAX: a trainer draws
-them from a `torch.Generator`, and a test can build the very seeds the JAX
-package would use from a key.
+`DropoutSeeds.from_key(sites, key, T)` derives every site's seed from a
+step's key without JAX: the module that listed the sites splits the key
+along its JAX apply's key tree (`sites.split_keys`, each family's and
+head's `dropout_keys` in models/, from `encoder_keys` and `mfn_keys`
+below), and the keys are hashed; the Engine's key of a step is
+`fold_in(PRNGKey(epoch), batch_num)` (utils/prng.py).  With
+impl="threefry" the sites keep their keys instead of hashing them (the
+JAX package's "threefry" dropout, `jax.random.bernoulli` at every site):
+the tables are then [N, 4, 2] and [T, 2, 2] numpy uint32 keys, and each
+site's mask is drawn by kernel T.
+The port still takes the seeds as a value, and a trainer may pass any
+(`Engine(seed_fn=...)`).
 
-Seeds are uint32 values held in int64 CPU tensors (or Python ints); the
-kernels' wrappers pass them to the card themselves.
+Hash seeds are uint32 values held in int64 CPU tensors (or Python ints);
+the kernels' wrappers pass them to the card themselves.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..utils import prng
 
 HASH_MUL = 0x9E3779B1  # the hash's first multiply (ops/basic.py, csrc/common.cuh)
 _M32 = 0xFFFFFFFF
+DROPOUT_IMPLS = ("hash", "threefry")
+
+
+def encoder_keys(keys, n_layers: int) -> np.ndarray:
+    """An encoder's [..., N, 4, 2] table of keys: split N a layer, then 4
+    a site (the JAX package's ops/pallas/encoder.py dropout_seed_table)."""
+    return prng.split(prng.split(keys, n_layers), 4)
+
+
+def mfn_keys(key, T: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The MFN's [T, 2, 2] gamma keys, split(split(key, T), 2), and its
+    head's `out` key, fold_in(key, 7) (ops/mfn_core.py there)."""
+    return prng.split(prng.split(key, T), 2), prng.fold_in(key, 7)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +84,9 @@ class DropoutSites:
     mfn: bool = False                 # the [T, 2] gamma table and `out`
     embed: bool = False
     decoder: bool = False
+    # the module's dropout_keys(key, T): the keys of these sites from a
+    # step's key, along its JAX apply's key tree
+    split_keys: Optional[Callable[..., "DropoutSeeds"]] = None
     front_widths: Tuple[int, ...] = ()  # E of each front end's [B, W, E]
     # (d_model, d_ff, heads) of each encoder, in `encoders` order
     encoder_dims: Tuple[Tuple[int, int, int], ...] = ()
@@ -69,6 +97,8 @@ class DropoutSites:
 
 @dataclasses.dataclass(frozen=True)
 class DropoutSeeds:
+    # hash seeds (ints, int64 tables) or, on the threefry stream, keys
+    # (numpy uint32 [2], tables [N, 4, 2] and [T, 2, 2])
     front: Dict[str, int]             # modality -> seed of the [B, W, E] site
     encoder: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     mfn: Optional[torch.Tensor] = None  # [T, 2] int64 (gamma1, gamma2)
@@ -78,12 +108,40 @@ class DropoutSeeds:
     # (first row, global rows) of a data-parallel rank, for the `out` site
     rows: Optional[Tuple[int, int]] = None
 
+    @staticmethod
+    def from_key(sites: DropoutSites, key, T: int,
+                 impl: str = "hash") -> "DropoutSeeds":
+        """The seeds that the JAX apply draws from `key` at every site of
+        `sites` (a step of T windows): impl "hash" hashes each site's key
+        (`basic.hash_seed`), "threefry" keeps the keys."""
+        if impl not in DROPOUT_IMPLS:
+            raise ValueError(f"dropout impl must be one of {DROPOUT_IMPLS}, "
+                             f"got {impl!r}")
+        keys = sites.split_keys(np.asarray(key, dtype=np.uint32), T)
+        return keys if impl == "threefry" else keys.hashed()
+
+    def hashed(self) -> "DropoutSeeds":
+        """These keys' hash seeds: ints, int64 tables."""
+        def val(k):
+            return None if k is None else int(prng.hash_seed(k))
+
+        def table(k):
+            return torch.from_numpy(prng.hash_seed(k).astype(np.int64))
+
+        return DropoutSeeds(
+            {m: val(k) for m, k in self.front.items()},
+            {name: table(k) for name, k in self.encoder.items()},
+            None if self.mfn is None else table(self.mfn), val(self.out),
+            val(self.embed), val(self.decoder), self.rows)
+
     def for_rows(self, sites: DropoutSites, r0: int, rows: int,
                  T: int) -> "DropoutSeeds":
         """The seeds of a rank that runs rows [r0, r0 + local) of a padded
         global batch of `rows` rows and T steps: each batch-major site's
         seed shifted by r0 times the site's elements per row, so that the
-        rank's masks are the global batch's masks at its rows."""
+        rank's masks are the global batch's masks at its rows.  Hash seeds
+        only (a threefry mask has no such shift; the Engine refuses the
+        threefry stream with a mesh)."""
         def shift(seed, per_row):
             if seed is None:
                 return None
@@ -106,21 +164,3 @@ class DropoutSeeds:
                             shift(self.embed, T * sites.embed_width),
                             shift(self.decoder, T * sites.decoder_width),
                             (r0, rows))
-
-    @staticmethod
-    def draw(sites: DropoutSites, T: int,
-             generator: torch.Generator) -> "DropoutSeeds":
-        """Fresh uniform uint32 seeds for every site of `sites`, from
-        `generator`, in a fixed order (front, encoders, MFN, out, embed,
-        decoder)."""
-        def u32(*shape):
-            return torch.randint(0, 2 ** 32, shape, generator=generator,
-                                 dtype=torch.int64)
-
-        front = {m: int(u32(1)) for m in sites.front}
-        encoder = {e: u32(sites.n_layers, 4) for e in sites.encoders}
-        mfn = u32(T, 2) if sites.mfn else None
-        out = int(u32(1)) if sites.mfn else None
-        embed = int(u32(1)) if sites.embed else None
-        decoder = int(u32(1)) if sites.decoder else None
-        return DropoutSeeds(front, encoder, mfn, out, embed, decoder)

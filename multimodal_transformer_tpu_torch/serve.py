@@ -6,7 +6,7 @@ buckets (padding-invariant "key_query" masking is forced), run through the
 model on the card unless the caller names another device (optionally in
 bf16), and each trace is returned in float32, cut to its true length.
 
-    module = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    module = build_model(cfg, seed=0, device="cuda")
     predictor = ValencePredictor(cfg, module)
     traces = predictor.predict_padded(data, seq_lens)
 

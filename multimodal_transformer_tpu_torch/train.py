@@ -15,14 +15,25 @@ Checkpoints are the reference's `.pth` (`{modalities, mod_dimension,
 window_size, model}`, named `{family}-{comb}[-{acoustic_dim}].pth`), which
 the JAX CLI also reads; `--eval`, `--test` and `--perf` also read the JAX
 package's `.ckpt` files.  Log lines, PredSave and PerfSave CSVs are the
-reference's.  Flags that differ from the JAX CLI:
+reference's.  The same flags and seed give the JAX CLI's training run (its
+initial weights, batches and dropout masks; utils/prng.py) up to float32
+rounding.  `--visualize` with `--eval` / `--test` writes
+`{family}_{Valid|Test}_eval.png` and `_fits.png` into --pred_save_dir
+(engine/plots.py, no matplotlib).  Flags that differ from the JAX CLI:
 
   --device          cuda (default) or cpu; without a card, cuda exits
                     nonzero: nothing falls back to the CPU;
-  --dropout_impl    only "hash" (the fmix32 hash dropout of the kernels);
-  --visualize       refused: the plots need matplotlib, which the port
-                    does not import;
-  --fast_rng, --ckpt_backend   not taken (a TPU PRNG and the orbax backend).
+  --dropout_impl    "hash" (the default: the fmix32 hash dropout that the
+                    kernels draw) or "threefry" (jax.random.bernoulli at
+                    every site, its masks from kernel T, the encoders and
+                    the MFN on their plain paths);
+  --ckpt_backend    "msgpack" (the default) writes the single-file train
+                    state; "orbax" exits nonzero: reading or writing orbax
+                    checkpoints needs the orbax and tensorstore packages;
+  --fast_rng        exits nonzero: JAX's rbg PRNG draws its split, fold_in
+                    and bits with lax.rng_bit_generator, whose algorithm
+                    each XLA backend chooses, so its stream has no
+                    backend-independent definition to port.
 
 Flags the reference parses but never uses (--split, --sup_ratio,
 --normalize, ...) are accepted.
@@ -42,6 +53,7 @@ import torch
 from .data import generate_synthetic_send, load_send, window_pipeline
 from .engine import (Engine, append_perf_save, get_logger, load_model,
                      save_checkpoint, seq_id_strings, write_pred_save)
+from .engine.plots import plot_eval, plot_predictions
 from .models import FAMILIES, default_config, modalities_from_comb
 
 # PredSave dump videos (reference SFT/train.py:600-607)
@@ -116,7 +128,8 @@ def train_one(args, cfg, ckpt_path, logger):
     _, va_x, va_y, va_l = prepare_data(cfg, args.data_dir, "Valid", lvar)
     train_dtype = torch.bfloat16 if args.mixed_precision else None
     eng = Engine(cfg, lr=args.lr, seed=1, logger=logger,
-                 train_dtype=train_dtype, device=args.device)
+                 train_dtype=train_dtype, device=args.device,
+                 dropout_impl=args.dropout_impl)
     # Preemption save: on SIGTERM finish the current epoch, save the whole
     # train state and exit 143; `--resume` picks up exactly there.
     preempted = []
@@ -223,6 +236,18 @@ def eval_mode(args, logger):
         write_pred_save(os.path.join(args.pred_save_dir,
                                      f"{family}{vid}.csv"),
                         preds[i], actuals[i])
+    if args.visualize:
+        # the top-10 fits, as the JAX CLI plots them
+        order = np.argsort(cccs)[::-1][:10]
+        os.makedirs(args.pred_save_dir, exist_ok=True)
+        plot_eval([preds[i] for i in order], [cccs[i] for i in order],
+                  [actuals[i] for i in order], [seq_ids[i] for i in order],
+                  os.path.join(args.pred_save_dir,
+                               f"{family}_{eval_dir}_eval.png"),
+                  window_size=eng.cfg.window_size["ratings"])
+        plot_predictions(actuals, preds, cccs,
+                         os.path.join(args.pred_save_dir,
+                                      f"{family}_{eval_dir}_fits.png"))
     return stats
 
 
@@ -310,7 +335,8 @@ def build_arg_parser():
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device (default: cuda; cpu for tests)')
     parser.add_argument('--visualize', action='store_true', default=False,
-                        help='not available: the plots need matplotlib')
+                        help='with --eval/--test: write the top-10 fit '
+                             'plots into --pred_save_dir')
     parser.add_argument('--normalize', action='store_true', default=False)
     parser.add_argument('--test', action='store_true', default=False,
                         help='evaluate on test set')
@@ -323,6 +349,11 @@ def build_arg_parser():
     parser.add_argument('--resume', action='store_true', default=False,
                         help='resume training from the saved .state file '
                              '(written every --save_freq epochs)')
+    parser.add_argument('--ckpt_backend', type=str, default='msgpack',
+                        choices=['msgpack', 'orbax'],
+                        help='training-state backend: msgpack = single '
+                             'atomic file (default); orbax is not available '
+                             '(it needs orbax and tensorstore)')
     parser.add_argument('--data_dir', type=str, default="../../../SENDv1-data")
     parser.add_argument('--save_dir', type=str, default="./ModelSave")
     parser.add_argument('--pred_save_dir', type=str, default="./PredSave")
@@ -342,10 +373,15 @@ def build_arg_parser():
                         default=False,
                         help='bf16 forward/backward with fp32 master '
                              'params + Adam')
+    parser.add_argument('--fast_rng', action='store_true', default=False,
+                        help="not available: JAX's rbg PRNG, whose bits "
+                             'each XLA backend chooses')
     parser.add_argument('--dropout_impl', type=str, default='hash',
-                        choices=['hash'],
-                        help='dropout mask generator: the counter-based '
-                             'fmix32 hash (the only one the kernels draw)')
+                        choices=['hash', 'threefry'],
+                        help='dropout mask generator: "hash" (default, the '
+                             'counter-based fmix32 the kernels draw) or '
+                             '"threefry" (jax.random.bernoulli, the JAX '
+                             "package's round-1 stream)")
     parser.add_argument('--resident_train', action='store_true',
                         default=False,
                         help='device-resident training: upload the split '
@@ -365,9 +401,16 @@ def build_arg_parser():
 
 
 def main(args):
-    if args.visualize:
-        sys.exit("error: --visualize is not available here: the plots need "
-                 "matplotlib, which this package does not import")
+    if args.fast_rng:
+        sys.exit("error: --fast_rng is not available: JAX's rbg PRNG draws "
+                 "its split, fold_in and bits with lax.rng_bit_generator, "
+                 "whose algorithm each XLA backend chooses, so its stream "
+                 "cannot be repeated here (the default threefry keys can)")
+    if args.ckpt_backend == "orbax":
+        sys.exit("error: --ckpt_backend orbax is not available: orbax "
+                 "checkpoints need the orbax and tensorstore packages, which "
+                 "this package does not use; the default msgpack backend "
+                 "writes the single-file train state")
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         sys.exit(f"error: --device {args.device}: no CUDA device is "

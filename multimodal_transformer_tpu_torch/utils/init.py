@@ -1,16 +1,21 @@
-"""Parameter initialisers matching PyTorch's layer defaults.
+"""Parameter initialisers matching PyTorch's layer defaults, drawn along
+`jax.random`'s key tree.
 
-Counterpart of `multimodal_transformer_tpu/utils/torch_init.py`, drawing from
-a `torch.Generator` so that weights can be made on any device from a seed:
+Counterpart of `multimodal_transformer_tpu/utils/torch_init.py`: each
+initialiser takes a threefry key (utils/prng.py) and returns the JAX
+package's parameter tree for the layer, with the same numbers for the same
+key:
 
-  nn.Linear:     weight, bias ~ U(-k, k),  k = 1/sqrt(fan_in)
-  nn.Conv1d:     weight, bias ~ U(-k, k),  k = 1/sqrt(in_channels * kernel)
-  LSTM(Cell):    all params   ~ U(-k, k),  k = 1/sqrt(hidden_size)
-  quirky norm:   a_2 = 1, b_2 = 0
+  linear_init:   weight, bias ~ U(-k, k),  k = 1/sqrt(fan_in)
+  conv1d_init:   weight, bias ~ U(-k, k),  k = 1/sqrt(in_channels * kernel)
+  lstm_init:     all params   ~ U(-k, k),  k = 1/sqrt(hidden_size)
+  norm_init:     the quirky norm's a_2 = 1, b_2 = 0
 
 Shapes are torch layouts (Linear weight [out, in], LSTM weight_ih [4H, in]),
-the same as the JAX package's, so parameter trees cross over key for key.
-The numbers differ from `jax.random`'s for the same seed.
+the same as the JAX package's, so a tree loads into a module key for key
+(`utils/params.py load_jax_params`).  The draws are made on `device`: on
+the card by kernel T, on the CPU by its plain version; the bits are the
+same.
 """
 
 from __future__ import annotations
@@ -19,53 +24,43 @@ import math
 
 import torch
 
-
-def uniform_(t: torch.Tensor, bound: float,
-             gen: torch.Generator) -> torch.Tensor:
-    """Fill t in place with U(-bound, bound) drawn from gen.
-
-    The draw is made on gen's device and copied, so a CPU generator gives
-    the same weights whatever device the module lives on."""
-    with torch.no_grad():
-        u = torch.rand(t.shape, generator=gen, dtype=torch.float32,
-                       device=gen.device)
-        t.copy_(u.mul_(2 * bound).sub_(bound))
-    return t
+from . import prng
 
 
-def init_linear(lin: torch.nn.Linear, gen: torch.Generator) -> None:
-    bound = 1.0 / math.sqrt(lin.in_features)
-    uniform_(lin.weight, bound, gen)
-    uniform_(lin.bias, bound, gen)
+def _uniform(key, shape, bound: float, device):
+    return prng.uniform(key, shape, -bound, bound, device)
 
 
-def init_conv1d(conv: torch.nn.Conv1d, gen: torch.Generator) -> None:
-    bound = 1.0 / math.sqrt(conv.in_channels * conv.kernel_size[0])
-    uniform_(conv.weight, bound, gen)
-    uniform_(conv.bias, bound, gen)
+def linear_init(key, in_dim: int, out_dim: int, device="cpu") -> dict:
+    """nn.Linear's default init (weight [out, in])."""
+    kw, kb = prng.split(key)
+    bound = 1.0 / math.sqrt(in_dim)
+    return {"weight": _uniform(kw, (out_dim, in_dim), bound, device),
+            "bias": _uniform(kb, (out_dim,), bound, device)}
 
 
-def init_lstm(cell: torch.nn.LSTMCell, gen: torch.Generator) -> None:
-    """weight_ih, weight_hh, bias_ih, bias_hh ~ U(-k, k), k = 1/sqrt(H): the
-    default of nn.LSTMCell and of a one-layer nn.LSTM (`lstm_init`)."""
-    bound = 1.0 / math.sqrt(cell.hidden_size)
-    for p in (cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh):
-        uniform_(p, bound, gen)
+def conv1d_init(key, in_ch: int, out_ch: int, kernel: int,
+                device="cpu") -> dict:
+    """nn.Conv1d's default init (weight [out, in, k])."""
+    kw, kb = prng.split(key)
+    bound = 1.0 / math.sqrt(in_ch * kernel)
+    return {"weight": _uniform(kw, (out_ch, in_ch, kernel), bound, device),
+            "bias": _uniform(kb, (out_ch,), bound, device)}
 
 
-def make_linear(fan_in: int, fan_out: int,
-                gen: torch.Generator | None = None) -> torch.nn.Linear:
-    """nn.Linear(fan_in, fan_out), drawn from gen when it is given."""
-    lin = torch.nn.Linear(fan_in, fan_out)
-    if gen is not None:
-        init_linear(lin, gen)
-    return lin
+def lstm_init(key, in_dim: int, hidden: int, device="cpu") -> dict:
+    """nn.LSTMCell's default init, gates along 4H in torch's order
+    (i, f, g, o)."""
+    k1, k2, k3, k4 = prng.split(key, 4)
+    bound = 1.0 / math.sqrt(hidden)
+    return {"weight_ih": _uniform(k1, (4 * hidden, in_dim), bound, device),
+            "weight_hh": _uniform(k2, (4 * hidden, hidden), bound, device),
+            "bias_ih": _uniform(k3, (4 * hidden,), bound, device),
+            "bias_hh": _uniform(k4, (4 * hidden,), bound, device)}
 
 
-def make_lstm(fan_in: int, hidden: int,
-              gen: torch.Generator | None = None) -> torch.nn.LSTMCell:
-    """nn.LSTMCell(fan_in, hidden), drawn from gen when it is given."""
-    cell = torch.nn.LSTMCell(fan_in, hidden)
-    if gen is not None:
-        init_lstm(cell, gen)
-    return cell
+def norm_init(features: int, device="cpu") -> dict:
+    """The reference's LayerNorm parameters (a_2 = 1, b_2 = 0)."""
+    return {"a_2": torch.ones(features, device=device),
+            "b_2": torch.zeros(features, device=device)}
+

@@ -50,8 +50,9 @@ def unflatten_tree(flat: dict):
 
 
 def load_jax_params(module: nn.Module, tree) -> nn.Module:
-    """Copy a JAX parameter tree into module's parameters, in place.  The
-    keys and shapes must match exactly; values are cast to each parameter's
+    """Copy a JAX parameter tree (numpy arrays, or tensors as the port's
+    initialisers draw them) into module's parameters, in place.  The keys
+    and shapes must match exactly; values are cast to each parameter's
     dtype and device."""
     flat = flatten_tree(tree)
     state = module.state_dict()
@@ -62,10 +63,13 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
                        f"unexpected {extra[:5]}")
     with torch.no_grad():
         for k, t in state.items():
-            arr = np.asarray(flat[k])
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{k}: shape {arr.shape} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+            v = flat[k]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v, dtype=np.float32))
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(v)
     return module
 
 

@@ -15,8 +15,8 @@ exits nonzero):
      checkpoint-on-best to ModelSave/B3-MFN/B3-MFN-AL.pth);
   3. reload the checkpoint (its configuration from the file) and evaluate
      each Test video;
-  4. write the PerfSave and PredSave CSVs (the prediction plots of the JAX
-     walkthrough need matplotlib, which this package does not import);
+  4. write the PerfSave and PredSave CSVs and the fit plot,
+     PredSave/fits.png (engine/plots.py, without matplotlib);
   5. serve the Test split in bf16 through
      `ValencePredictor.from_checkpoint(..., batch_size=4, time_multiple=16)`.
 
@@ -55,6 +55,7 @@ def main(argv=None) -> dict:
     from .data import generate_synthetic_send, load_send, window_pipeline
     from .engine import (Engine, append_perf_save, get_logger, load_model,
                          save_checkpoint, seq_id_strings, write_pred_save)
+    from .engine.plots import plot_predictions
     from .models import default_config
     from .serve import ValencePredictor
 
@@ -104,14 +105,14 @@ def main(argv=None) -> dict:
     print(f"    Test CCC {stats['ccc']:+.4f} (±{stats['ccc_std']:.4f})")
 
     # 4. artifacts
-    print("[4/5] writing PerfSave/PredSave artifacts ...")
+    print("[4/5] writing PerfSave/PredSave artifacts + plots ...")
     seq_ids = seq_id_strings(test_ds.seq_ids)
     append_perf_save(os.path.join(wd, "PerfSave", "B3-MFN.csv"),
                      "B3-MFN", "AL", seq_ids, cccs, "Test")
     write_pred_save(os.path.join(wd, "PredSave", f"B3-MFN{seq_ids[0]}.csv"),
                     preds[0], actuals[0])
-    print("    prediction plots are not carried over: they need matplotlib, "
-          "which this package does not import")
+    plot_predictions(actuals, preds, cccs,
+                     os.path.join(wd, "PredSave", "fits.png"))
 
     # 5. serving
     print("[5/5] serving: bucketed bf16 inference ...")

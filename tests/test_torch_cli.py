@@ -5,8 +5,10 @@ seed 7; tests/test_cli.py), and across the two CLIs:
   * train -> `--eval` -> `--perf` on B2-Trans V+L (tests/test_cli.py:36),
     `--resident_train` and `--test --fast_eval` (:69), the PredSave golden
     video (:86), the B1 window lift (:104), `--resume` (:193, on the port's
-    `.state`), SIGTERM preemption (:207), `--visualize` refused and
-    `--device cuda` without a card refused;
+    `.state`), SIGTERM preemption (:207), `--visualize` writing both plots,
+    a `--dropout_impl threefry` run with `--ckpt_backend msgpack`, and the
+    refusals: `--fast_rng`, `--ckpt_backend orbax`, `--device cuda`
+    without a card;
   * the port's `.pth` evaluated by the JAX `train.py --eval --load` gives
     the port's CCC within 1e-4;
   * a JAX-written `.ckpt` swept by the port's `--perf` gives the JAX
@@ -36,6 +38,7 @@ from multimodal_transformer_tpu_torch.data import generate_synthetic_send  # noq
 from multimodal_transformer_tpu_torch.engine.train_engine import Engine  # noqa: E402
 from multimodal_transformer_tpu_torch.models import default_config  # noqa: E402
 from multimodal_transformer_tpu_torch.utils.params import unflatten_tree  # noqa: E402
+from test_torch_plots import decode_png  # noqa: E402
 from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
@@ -252,9 +255,36 @@ def test_resume_and_sigterm_preemption(workdir, monkeypatch):
     assert "at epoch 2" in (workdir / "train_cnn.log").read_text()
 
 
+def test_visualize_writes_the_eval_and_fit_plots(workdir, trained):
+    """--eval --visualize writes {family}_Valid_eval.png and _fits.png,
+    as the JAX CLI names them, and both decode to the figure sizes."""
+    cli.main(_args(workdir, ["--family", "B2-Trans", "--eval", "--visualize",
+                             "--load", str(trained)]))
+    for name, shape in (("eval", (700, 1800, 3)), ("fits", (1000, 800, 3))):
+        img = decode_png(workdir / "PredSave" / f"B2-Trans_Valid_{name}.png")
+        assert img.shape == shape and (img != 255).any()
+
+
+def test_threefry_dropout_run_with_the_msgpack_state(workdir):
+    """A B3-MFN A+L epoch on the threefry stream writes its checkpoint and,
+    with --ckpt_backend msgpack (the default spelled out), its single-file
+    train state, which --resume reads."""
+    save = workdir / "ModelSaveT"
+    args = ["--family", "B3-MFN", "--comb", "AL", "--epochs", "1",
+            "--dropout_impl", "threefry", "--ckpt_backend", "msgpack",
+            "--save_freq", "1", "--save_dir", str(save)]
+    assert np.isfinite(cli.main(_args(workdir, args)))
+    ckpt = save / "B3-MFN" / "B3-MFN-AL.pth"
+    assert ckpt.exists() and (save / "B3-MFN" / "B3-MFN-AL.pth.state").exists()
+    best = cli.main(_args(workdir, args[:4] + ["--epochs", "2", "--resume"]
+                          + args[6:]))
+    assert np.isfinite(best)
+    assert "at epoch 2" in (workdir / "train_cnn.log").read_text()
+
+
 @pytest.mark.parametrize("extra,message", [
-    (["--device", "cpu", "--visualize", "--eval", "--load", "x.pth"],
-     "matplotlib"),
+    (["--device", "cpu", "--fast_rng"], "rng_bit_generator"),
+    (["--device", "cpu", "--ckpt_backend", "orbax"], "tensorstore"),
     (["--device", "cuda", "--eval", "--load", "x.pth"], "no CUDA device"),
     (["--device", "cpu", "--family", "B4-GRU"], "unknown --family")])
 def test_refused(workdir, extra, message):

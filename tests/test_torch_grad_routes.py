@@ -28,8 +28,10 @@ from multimodal_transformer_tpu_torch.ops import attention, dispatch, mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import encoder as enc_k
 from multimodal_transformer_tpu_torch.ops.cuda import encoder_train
 from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
+from multimodal_transformer_tpu_torch.utils import prng
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
-                                                           flatten_tree)
+                                                           flatten_tree,
+                                                           load_jax_params)
 from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
@@ -70,7 +72,8 @@ def test_needs_grad_follows_grad_mode():
 @pytest.fixture
 def encoder_case():
     gen = torch.Generator().manual_seed(0)
-    enc = attention.Encoder(16, 8, 2, gen)
+    enc = load_jax_params(attention.Encoder(16, 8, 2),
+                          attention.encoder_init(prng.key(0), 16, 8, 2))
     x = torch.randn(2, 5, 16, generator=gen)
     mask = torch.ones(2, 5, 1)
     mask[1, 3:] = 0
@@ -114,7 +117,9 @@ def test_encoder_stack_routes_by_grad_mode(encoder_case, monkeypatch, T):
 
 def test_mfn_states_routes_by_grad_mode(monkeypatch):
     gen = torch.Generator().manual_seed(1)
-    mfn = mfn_core.MFN(AVL, {m: 8 for m in AVL}, 1, gen=gen)
+    dims = {m: 8 for m in AVL}
+    mfn = load_jax_params(mfn_core.MFN(AVL, dims, 1),
+                          mfn_core.mfn_init(prng.key(1), AVL, dims, 1))
     inputs = {m: torch.randn(2, 4, 8, generator=gen) for m in AVL}
     calls = []
     monkeypatch.setattr(mfn_core, "use_kernel", lambda t: True)
@@ -162,7 +167,7 @@ def test_seeds_free_grads_match_jax(family, monkeypatch):
     object.__setattr__(jcfg, "mod_dimension", dict(SMALL_DIMS))
     # two encoder layers: the JAX apply follows the parameter tree's depth
     monkeypatch.setattr(families, "ENCODER_LAYERS", 2)
-    module = build_model(cfg, generator=torch.Generator().manual_seed(7))
+    module = build_model(cfg, seed=7)
     params = export_params(module)
     B, T = 2, 6
     rs = np.random.RandomState(8)

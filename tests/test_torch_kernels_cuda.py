@@ -37,7 +37,9 @@ up to T = 512, kernel 11 layer by layer past it, the plain encoder in
 kernels 3/4 and 6/7 at p = 0 for gradients without seeds.  Kernel 6
 (kernel B's stages in training) also at L alone, emotient+acoustic, B=2,
 T=1,120, B=1, T=37 and B = T = 1, both rates, bit-identical when called
-again, and at p = 0 bit-identical to kernel B on hs and mems.
+again, and at p = 0 bit-identical to kernel B on hs and mems.  Kernel T
+(jax.random's threefry bits and keep masks) bit for bit against its plain
+version, and weights drawn with it equal to the CPU's.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  On the card, where JAX
 (which tests/conftest.py sets up) is not installed:
@@ -432,6 +434,8 @@ def test_dropout_free_gradients_take_the_training_kernels(device):
     from multimodal_transformer_tpu_torch.ops.cuda import (encoder,
                                                            encoder_train, mfn,
                                                            mfn_train, verify)
+    from multimodal_transformer_tpu_torch.utils import prng
+    from multimodal_transformer_tpu_torch.utils.params import load_jax_params
     gen = torch.Generator().manual_seed(5)
     enc = verify.random_encoder(gen).to(device)
     x = torch.randn(4, 40, 256, generator=gen).to(device).requires_grad_()
@@ -452,9 +456,10 @@ def test_dropout_free_gradients_take_the_training_kernels(device):
     with pytest.raises(RuntimeError, match="no backward"):
         encoder.encoder_stack_fused(enc, x, mask)
 
-    m = mfn_core.MFN(("acoustic", "image", "linguistic"),
-                     {k: 16 for k in ("acoustic", "image", "linguistic")}, 1,
-                     gen=gen).to(device)
+    avl = ("acoustic", "image", "linguistic")
+    m = load_jax_params(mfn_core.MFN(avl, {k: 16 for k in avl}, 1),
+                        mfn_core.mfn_init(prng.key(5), avl,
+                                          {k: 16 for k in avl}, 1)).to(device)
     inputs = {k: torch.randn(4, 12, 16, generator=gen).to(device)
               for k in m.mods}
     got = torch.autograd.grad(mfn_core.mfn_scan(m, inputs).sum(),
@@ -762,3 +767,36 @@ def test_stack_route_takes_kernel_5_bit_identical_to_kernel_4(device, dtype):
         assert counts == ((1, 6, 0) if backward == "perlayer" else (1, 0, 1))
     for a, b in zip(grads["perlayer"], grads["stack"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(32, 8, 160, 160), (3, 7, 1001)])
+def test_threefry_kernel_equals_its_plain_version(device, shape):
+    """Kernel T's bits and keep masks equal its plain version bit for bit:
+    one key at the shape, and 320 and 1,088 keys (the MFN's gamma masks at
+    T = 160 and 544, B = 32) in one call, counted once for each launch of
+    at most 480 keys; MFT A+V+L weights drawn on the card equal the
+    CPU's."""
+    import math
+
+    from multimodal_transformer_tpu_torch import build_model, default_config
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    n = math.prod(shape)
+    key = prng.fold_in(prng.key(3), 1)
+    # the gamma keys draw [B, 64] = 2,048 elements each
+    cases = [(key[None], n, 1)] + [
+        (prng.split(prng.split(key, T), 2).reshape(-1, 2), 32 * 64, launches)
+        for T, launches in ((160, 1), (544, 3))]
+    for keys, n, launches in cases:
+        threefry.reset_launches()
+        bits = threefry.threefry_bits(keys, n, device)
+        assert threefry.launches == launches
+        assert torch.equal(bits.long() & prng.M32,
+                           prng.random_bits_plain(keys, n, device))
+        mask = threefry.threefry_keep_mask(keys, n, 0.9, device)
+        assert torch.equal(mask, prng.keep_mask_plain(keys, n, 0.9, device))
+    cfg = default_config("MFT", ("acoustic", "image", "linguistic"))
+    card = build_model(cfg, seed=2, device=device).state_dict()
+    for k, v in build_model(cfg, seed=2).state_dict().items():
+        assert torch.equal(v, card[k].cpu()), k

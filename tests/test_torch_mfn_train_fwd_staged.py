@@ -24,6 +24,7 @@ from multimodal_transformer_tpu.ops.pallas.mfn_train import _fwd_call
 from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
 from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
+from multimodal_transformer_tpu_torch.utils import prng
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
 from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
@@ -151,8 +152,10 @@ def test_wrapper_raises_when_w_hh_cannot_fit(monkeypatch, dtype, H):
     block's 227 KB.  The wrapper raises before building anything (here,
     without nvcc, a build would raise another error)."""
     monkeypatch.setitem(mfn_core.HIDDEN_DIM, "linguistic", H)
-    mfn = mfn_core.MFN(("linguistic",), {"linguistic": DIM}, 1,
-                       gen=torch.Generator().manual_seed(0))
+    mfn = load_jax_params(
+        mfn_core.MFN(("linguistic",), {"linguistic": DIM}, 1),
+        mfn_core.mfn_init(prng.key(0), ("linguistic",), {"linguistic": DIM},
+                          1))
     rs = np.random.RandomState(5)
     inputs = {"linguistic": rs.randn(2, 5, DIM).astype(np.float32)}
     seeds = np.zeros((5, 2), dtype=np.int64)

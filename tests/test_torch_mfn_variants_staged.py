@@ -31,6 +31,7 @@ from multimodal_transformer_tpu.ops.pallas import mfn_kernel as pk
 from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import mfn as mfn_k
 from multimodal_transformer_tpu_torch.ops.cuda import mfn_variants as mv
+from multimodal_transformer_tpu_torch.utils import prng
 from multimodal_transformer_tpu_torch.utils.params import load_jax_params
 from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
@@ -59,7 +60,8 @@ def _case(mods, B=2, T=3, seed=7):
     """Numpy inputs and a seeded MFN of the port (the port against itself:
     no JAX parameters needed)."""
     dims = {m: DIM for m in mods}
-    mfn = mfn_core.MFN(mods, dims, 1, gen=torch.Generator().manual_seed(seed))
+    mfn = load_jax_params(mfn_core.MFN(mods, dims, 1),
+                          mfn_core.mfn_init(prng.key(seed), mods, dims, 1))
     return _inputs(mods, B, T, seed, dims), mfn.eval()
 
 

@@ -89,6 +89,7 @@ def test_other_families_raise_not_implemented():
 
     from multimodal_transformer_tpu.models.families import FAMILY_FNS
     from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+    from multimodal_transformer_tpu_torch.utils import prng
 
     for family, mods, variant in (
             ("SFT", ("image", "linguistic"), "default"),
@@ -104,8 +105,7 @@ def test_other_families_raise_not_implemented():
         cfg = default_config(family, mods, variant=variant)
         module = build_model(cfg)
         inputs = {m: torch.randn(1, 3, 4, cfg.mod_dimension[m]) for m in mods}
-        seeds = DropoutSeeds.draw(module.dropout_sites(), 3,
-                                  torch.Generator().manual_seed(0))
+        seeds = DropoutSeeds.from_key(module.dropout_sites(), prng.key(0), 3)
         pred = module(inputs, torch.ones(1, 3, 1), seeds=seeds)
         assert pred.shape == (1, 3, 1) and bool(torch.isfinite(pred).all())
     bad = dataclasses.replace(default_config("SFT", ("linguistic",)),
@@ -152,7 +152,7 @@ def test_library_name_follows_the_sources():
     assert {s.name for s in _build.sources()} == {
         "encoder.cu", "mfn.cu", "encoder_train.cu", "encoder_bwd.cu",
         "mfn_train.cu", "window_embed.cu", "flash_attention.cu",
-        "mfn_variants.cu"}
+        "mfn_variants.cu", "threefry.cu"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

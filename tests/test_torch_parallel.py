@@ -9,9 +9,10 @@ CPU, ranks on gloo over a FileStore:
   * 2 ranks (one spawn, `tests/torch_parallel_ranks.py`) against the JAX
     `Engine(mesh=make_mesh(2))` from the same weights and dropout seeds, as
     tests/test_parallel.py holds that Engine to one device: a B2-Trans A+L
-    `train_epoch` with dropout (parameters rtol 1e-3, atol 5e-5; the epoch
-    loss rel 1e-3), then `evaluate_per_video` and `evaluate_batched` (CCCs
-    rtol 1e-3, atol 1e-4); an MFT A+L epoch of batches of 5 videos, so each
+    `train_epoch` with dropout (parameters rtol 1e-3, atol 5e-5, but for
+    the few elements Adam's eps leaves to float32 noise, see NOISE_ULPS;
+    the epoch loss rel 1e-3), then `evaluate_per_video` and
+    `evaluate_batched` (CCCs rtol 1e-3, atol 1e-4); an MFT A+L epoch of batches of 5 videos, so each
     batch has a pad row and the MFN head's time-major `out` site indexes a
     global batch of 6 rows; a `train_epoch_resident` of a B2-Trans A split
     of 5 videos; every rank ends with the same parameters; the negative
@@ -45,6 +46,8 @@ import torch_parallel_ranks as ranks
 from multimodal_transformer_tpu.data.batching import \
     make_batches as jmake_batches
 from multimodal_transformer_tpu.engine import train_engine as jtrain_engine
+from multimodal_transformer_tpu.engine.optim import \
+    select_adam as jselect_adam
 from multimodal_transformer_tpu.models import build_model as jbuild_model
 from multimodal_transformer_tpu.models import default_config as jdefault_config
 from multimodal_transformer_tpu.ops import basic as jbasic
@@ -58,6 +61,7 @@ from multimodal_transformer_tpu_torch import build_model
 from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.basic import hash_keep_mask
 from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+from multimodal_transformer_tpu_torch.utils import prng
 from multimodal_transformer_tpu_torch.parallel import (make_mesh,
                                                        pad_batch_rows, spawn)
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
@@ -66,7 +70,25 @@ from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 AL = ("acoustic", "linguistic")
 RANKS = 2
+LR = 1e-3
 PARAM_RTOL, PARAM_ATOL = 1e-3, 5e-5
+# Adam's update is lr * m_hat / (sqrt(v_hat) + eps), eps = 1e-8.  Where an
+# element's sqrt(v_hat) (over g + wd * w) is near eps, a gradient error d
+# moves the update by lr * eps * d / (sqrt(v_hat) + eps)**2, up to 1e5 * d:
+# float32 rounding then decides the element.  At seed 3, B2-Trans A+L's
+# layers.2 linears.3 has an element with g + wd * w = -1.5e-9 (JAX) and
+# -0.4e-9 (port) at the first step, and the two weights end 9.5e-5 apart
+# after the epoch, in one process as over 2 ranks.  The rule, on the JAX
+# reference's gradients: at some step, that move exceeds PARAM_ATOL for
+# d = NOISE_ULPS float32 eps of the tensor's largest gradient (the two
+# packages' first-step gradients differ by at most 26 such eps on any
+# B2-Trans A+L tensor with gradients above 1e-6, seeds 3 and 5).  Those
+# elements are held to NOISE_STEP_BOUND * lr a step instead: Adam moves
+# an element by about lr a step at most.
+F32_EPS = float(np.finfo(np.float32).eps)
+NOISE_ULPS = 32
+NOISE_STEP_BOUND = 2.1
+NOISE_MAX_SHARE = 1e-3
 CCC_RTOL, CCC_ATOL = 1e-3, 1e-4
 TP_RTOL, TP_ATOL = 1e-4, 1e-5
 
@@ -88,13 +110,12 @@ def _site_table():
     """site -> (seed, per-row elements) at T = SITE_T, from the sites of an
     MFT A+L (front ends, encoders, gamma hiddens), an SFT A+L (embed) and
     a B1-LSTM A+L (decoder)."""
-    g = torch.Generator().manual_seed(0)
     out = {}
-    for family in ("MFT", "SFT", "B1-LSTM"):
+    for i, family in enumerate(("MFT", "SFT", "B1-LSTM")):
         cfg = ranks.config({"family": family, "mods": AL,
                             "mask_mode": "key_query", "dims": SMALL_DIMS})
         sites = build_model(cfg).dropout_sites()
-        seeds = DropoutSeeds.draw(sites, SITE_T, g)
+        seeds = DropoutSeeds.from_key(sites, prng.key(i), SITE_T)
         out[family] = (sites, seeds)
     return out
 
@@ -146,8 +167,7 @@ def test_for_rows_gives_the_global_mask_at_the_rank_rows(family, site):
 def test_mfn_head_out_site_indexes_the_global_batch():
     cfg = ranks.config({"family": "MFT", "mods": AL, "mask_mode": "key_query",
                         "dims": SMALL_DIMS})
-    mfn = build_model(cfg, generator=torch.Generator().manual_seed(1)
-                      ).Transformer.mfn
+    mfn = build_model(cfg, seed=1).Transformer.mfn
     rows, local, T = 6, 3, 4
     rs = np.random.RandomState(0)
     total_h = mfn.out_fc1.in_features - mfn_core.MEM_DIM
@@ -215,19 +235,59 @@ def _jax_cfg(case):
     return jcfg
 
 
+def _noise_decided(steps: list, weight_decay: float) -> dict:
+    """{parameter: the elements whose Adam update float32 noise in the
+    gradient moves past PARAM_ATOL at some step}, from each step's
+    (parameters, gradients) as flat trees."""
+    b2, eps = 0.999, 1e-8  # engine/optim.py adam_update
+    out = {}
+    for k in steps[0][0]:
+        v = np.zeros(steps[0][0][k].shape)
+        hit = np.zeros(v.shape, bool)
+        for t, (params, grads) in enumerate(steps, 1):
+            g = grads[k].astype(np.float64) + weight_decay * params[k]
+            v = b2 * v + (1 - b2) * g * g
+            # a gradient of exactly 0 (a unit no input reached) is exact
+            d = (NOISE_ULPS * F32_EPS * np.abs(grads[k]).max(initial=0)
+                 * (grads[k] != 0))
+            hit |= (LR * eps * d / (np.sqrt(v / (1 - b2 ** t)) + eps) ** 2
+                    > PARAM_ATOL)
+        out[k] = hit
+    return out
+
+
+def _recording_adam(steps: dict):
+    """engine/optim.py select_adam whose update also hands each step's
+    parameters and gradients to the host, into steps[step] (from 0)."""
+    init, update, reconcile = jselect_adam()
+
+    def record(step, params, grads):
+        steps[int(step)] = tuple({k: np.array(v) for k, v in
+                                  flatten_tree(t).items()}
+                                 for t in (params, grads))
+
+    def update_and_record(params, grads, state, lr, **kw):
+        jax.debug.callback(record, state["step"], params, grads)
+        return update(params, grads, state, lr, **kw)
+    return lambda: (init, update_and_record, reconcile)
+
+
 def _jax_mesh_engine(name: str, tree) -> dict:
     """The JAX Engine(mesh=make_mesh(2)) of DP_CASES[name], from the port's
-    initial weights: its epoch loss, parameters and evaluations.  Runs in a
-    process of its own (the module-scoped pool) or in the test's."""
+    initial weights: its epoch loss, parameters, noise-decided elements
+    and evaluations.  Runs in a process of its own (the module-scoped
+    pool) or in the test's."""
     jax.config.update("jax_platforms", "cpu")
     jbasic.set_dropout_impl("hash")
     case = DP_CASES[name]
     key = jax.random.PRNGKey(case["key"])
     _, apply = jbuild_model(_jax_cfg(case))
+    steps = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtrain_engine, "build_model", lambda c: (
             lambda key: jax.tree_util.tree_map(jnp.asarray, tree), apply))
-        eng = jtrain_engine.Engine(_jax_cfg(case), lr=1e-3, seed=0,
+        mp.setattr(jtrain_engine, "select_adam", _recording_adam(steps))
+        eng = jtrain_engine.Engine(_jax_cfg(case), lr=LR, seed=0,
                                    mesh=jmake_mesh(RANKS), nan_guard=False)
     out = {}
     if case["kind"] == "resident":
@@ -243,6 +303,9 @@ def _jax_mesh_engine(name: str, tree) -> dict:
             jax_rng=key, pad_time_to=case["pad_time_to"])
     out["params"] = {k: np.asarray(v)
                      for k, v in flatten_tree(eng.params).items()}
+    assert sorted(steps) == list(range(len(_steps_T(case))))
+    out["noise"] = _noise_decided([steps[t] for t in sorted(steps)],
+                                  eng._wd)
     if case["evaluate"]:
         cccs, _, _, loss, _, _ = eng.evaluate_per_video(case["x"], case["y"],
                                                         case["lens"])
@@ -278,20 +341,38 @@ def _run_ranks_in_thread(fn, nprocs, *args):
 
 
 def _params_close(got: dict, want: dict) -> bool:
-    return all(np.allclose(got[k].numpy(), w, rtol=PARAM_RTOL,
-                           atol=PARAM_ATOL) for k, w in want.items())
+    """Every element but the noise-decided ones within the limit."""
+    return all(np.allclose(got[k].numpy()[~want["noise"][k]],
+                           w[~want["noise"][k]], rtol=PARAM_RTOL,
+                           atol=PARAM_ATOL)
+               for k, w in want["params"].items())
 
 
 @pytest.mark.parametrize("name", list(DP_CASES))
 def test_dp_epoch_matches_jax_mesh_engine(dp_runs, name):
     want, got = dp_runs
+    bound = NOISE_STEP_BOUND * LR * len(_steps_T(DP_CASES[name]))
     for rank in range(RANKS):
         res = got[rank][name]
         assert res["loss"] == pytest.approx(want[name]["loss"], rel=1e-3)
         for k, w in want[name]["params"].items():
-            np.testing.assert_allclose(res["params"][k].numpy(), w,
+            noise, p = want[name]["noise"][k], res["params"][k].numpy()
+            np.testing.assert_allclose(p[~noise], w[~noise],
                                        rtol=PARAM_RTOL, atol=PARAM_ATOL,
                                        err_msg=f"{name} rank {rank} {k}")
+            assert np.abs(p[noise] - w[noise]).max(initial=0) <= bound, \
+                f"{name} rank {rank} {k}"
+
+
+@pytest.mark.parametrize("name", list(DP_CASES))
+def test_dp_noise_decided_elements_are_few(dp_runs, name):
+    """The rule leaves out no more than NOISE_MAX_SHARE of the elements
+    (352, 796 and 266 of 2.5 M, 4.7 M and 2.2 M at seed 3)."""
+    want, _ = dp_runs
+    noise = want[name]["noise"]
+    n = sum(int(m.sum()) for m in noise.values())
+    total = sum(m.size for m in noise.values())
+    assert n <= NOISE_MAX_SHARE * total, (name, n, total)
 
 
 @pytest.mark.parametrize("name", list(DP_CASES) + list(CONTROLS))
@@ -307,8 +388,8 @@ def test_dp_ranks_end_equal(dp_runs, name):
 def test_dp_negative_controls_disagree_with_jax(dp_runs, name):
     want, got = dp_runs
     base = CONTROLS[name][0]
-    assert _params_close(got[0][base]["params"], want[base]["params"])
-    assert not _params_close(got[0][name]["params"], want[base]["params"])
+    assert _params_close(got[0][base]["params"], want[base])
+    assert not _params_close(got[0][name]["params"], want[base])
 
 
 @pytest.mark.parametrize("evaluation", ["per_video", "batched"])
@@ -360,8 +441,7 @@ def _jax_tp() -> dict:
     pos = {d: i for i, d in enumerate(mesh.devices.ravel())}
     for name, case in _tp_cases().items():
         cfg = ranks.config(case)
-        tree = export_params(build_model(
-            cfg, generator=torch.Generator().manual_seed(case["seed"])))
+        tree = export_params(build_model(cfg, seed=case["seed"]))
         _, apply = jbuild_model(_jax_cfg(case))
         params = jax.tree_util.tree_map(jnp.asarray, tree)
         out = np.asarray(jax.jit(lambda p, d, m: apply(p, d, m, rng=None))(
@@ -392,10 +472,9 @@ def runs():
     try:
         tp_join = _run_ranks_in_thread(ranks.tp_cases, TP_DATA * TP_MODEL,
                                        _tp_cases(), TP_DATA, TP_MODEL)
-        trees = {name: export_params(build_model(
-            ranks.config(case),
-            generator=torch.Generator().manual_seed(case["seed"])))
-            for name, case in DP_CASES.items()}
+        trees = {name: export_params(build_model(ranks.config(case),
+                                                 seed=case["seed"]))
+                 for name, case in DP_CASES.items()}
         first, *rest = DP_CASES
         with ProcessPoolExecutor(
                 len(rest), mp_context=multiprocessing.get_context("spawn")

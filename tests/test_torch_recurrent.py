@@ -10,7 +10,6 @@ import torch
 
 from multimodal_transformer_tpu.ops import recurrent as jrec
 from multimodal_transformer_tpu_torch.ops import recurrent
-from multimodal_transformer_tpu_torch.utils.init import make_lstm
 
 ATOL = 1e-5
 
@@ -20,7 +19,7 @@ def _cell(rs, D, H):
     p = {"weight_ih": rs.randn(4 * H, D), "weight_hh": rs.randn(4 * H, H),
          "bias_ih": rs.randn(4 * H), "bias_hh": rs.randn(4 * H)}
     p = {k: (0.3 * v).astype(np.float32) for k, v in p.items()}
-    cell = make_lstm(D, H)
+    cell = torch.nn.LSTMCell(D, H)
     with torch.no_grad():
         for k, v in p.items():
             getattr(cell, k).copy_(torch.from_numpy(v))

@@ -32,12 +32,10 @@ from multimodal_transformer_tpu.engine import train_engine as jtrain_engine
 from multimodal_transformer_tpu.models import build_model as jbuild_model
 from multimodal_transformer_tpu.models import default_config as jdefault_config
 from multimodal_transformer_tpu.ops import basic as jbasic
-from multimodal_transformer_tpu.ops.pallas.encoder import dropout_seed_table
 from multimodal_transformer_tpu_torch import build_model, default_config
 from multimodal_transformer_tpu_torch.data import make_batches
 from multimodal_transformer_tpu_torch.engine import (Engine, ReduceLROnPlateau,
                                                      make_adam)
-from multimodal_transformer_tpu_torch.models.families import ENCODER_LAYERS
 from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            flatten_tree)
@@ -57,55 +55,14 @@ def _hash_dropout_no_tf32():
     jbasic.set_dropout_impl(None)
 
 
-def _u32(a) -> int:
-    return int(np.asarray(a).astype(np.uint32))
-
-
-def _table(key) -> torch.Tensor:
-    """An encoder's [N, 4] seed table from its key, as uint32 in int64."""
-    return torch.from_numpy(np.asarray(dropout_seed_table(
-        key, ENCODER_LAYERS)).view(np.uint32).astype(np.int64))
-
-
-def _mfn_seeds(key, T: int):
-    """The MFN's [T, 2] gamma seeds and its head's out seed from its key."""
-    steps = jax.random.split(key, T)
-    sub = jax.vmap(lambda k: jax.random.split(k, 2))(steps)
-    mfn = jax.vmap(lambda ks: jnp.stack([jbasic.hash_seed(ks[0]),
-                                         jbasic.hash_seed(ks[1])]))(sub)
-    out = _u32(jbasic.hash_seed(jax.random.fold_in(key, 7)))
-    return torch.from_numpy(np.asarray(mfn).astype(np.int64)), out
-
-
 def jax_family_seeds(key, cfg, T: int) -> DropoutSeeds:
-    """The per-site seeds that the family's JAX apply draws from `key`
-    (`_split_rng` trees of families.py; frontend.py, heads.py,
-    attention.py, mfn_core.py), as the port's DropoutSeeds."""
-    mods, family = cfg.modalities, cfg.family
-    multi = len(mods) > 1
-    r_front, r_head = jax.random.split(key)
-    front = {m: _u32(jbasic.hash_seed(k))
-             for m, k in zip(mods, jax.random.split(r_front, len(mods)))}
-    if family == "MFT" and multi:
-        rngs = jax.random.split(r_head, len(mods) + 1)
-        encoder = {f"transformer_{m}": _table(rngs[i])
-                   for i, m in enumerate(mods)}
-        return DropoutSeeds(front, encoder, *_mfn_seeds(rngs[-1], T))
-    if family == "B3-MFN" and multi:  # its MFN takes r_head itself
-        return DropoutSeeds(front, {}, *_mfn_seeds(r_head, T))
-    if family == "B1-LSTM":
-        embed, decoder = jax.random.split(r_head, 2)
-        return DropoutSeeds(front, embed=_u32(jbasic.hash_seed(embed)),
-                            decoder=_u32(jbasic.hash_seed(decoder)))
-    if family == "B2-Trans":
-        return DropoutSeeds(front, {"encoder": _table(
-            jax.random.split(r_head, 1)[0])})
-    # the UniTransformer: SFT (with the MLP embed when multi-modality), and
-    # MFT and B3-MFN with one modality; split 3 ways, the encoder takes [1]
-    rngs = jax.random.split(r_head, 3)
-    embed = (_u32(jbasic.hash_seed(rngs[0])) if family == "SFT" and multi
-             else None)
-    return DropoutSeeds(front, {"encoder": _table(rngs[1])}, embed=embed)
+    """The per-site seeds that the family's JAX apply draws from the JAX key
+    `key`, as the port's DropoutSeeds: `DropoutSeeds.from_key` over the
+    configuration's sites (held to the JAX key tree by
+    tests/test_torch_prng.py)."""
+    sites = build_model(cfg, device="meta").dropout_sites()
+    return DropoutSeeds.from_key(sites, np.asarray(jax.random.key_data(key)),
+                                 T)
 
 
 def _grad_errors(got: dict, want: dict):
@@ -120,9 +77,10 @@ def _grad_errors(got: dict, want: dict):
 
 
 def _port_and_tree(cfg, seed: int):
-    """A port module with random weights, and the same weights as the JAX
-    package's parameter tree (cheaper than the JAX package's eager init)."""
-    module = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+    """A port module with the JAX init's weights for seed, and the same
+    weights as the JAX package's parameter tree (cheaper than the JAX
+    package's eager init)."""
+    module = build_model(cfg, seed=seed)
     return module, export_params(module)
 
 

@@ -105,7 +105,7 @@ def test_family_train_loss_and_grads_match_jax(name, mask_mode):
     family, mods, variant = CONFIGS[name]
     jcfg, cfg = _configs(family, mods, variant, mask_mode)
     _, apply = jbuild_model(jcfg)
-    module = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    module = build_model(cfg, seed=3)
     params = export_params(module)
     data, target, mask = _case(mods)
     T = mask.shape[1]

@@ -35,6 +35,7 @@ from multimodal_transformer_tpu_torch.ops import attention, basic
 from multimodal_transformer_tpu_torch.ops import mfn_core
 from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as enct
 from multimodal_transformer_tpu_torch.ops.cuda import mfn_train as mfnt
+from multimodal_transformer_tpu_torch.utils import prng
 from multimodal_transformer_tpu_torch.utils.params import (export_params,
                                                            load_jax_params)
 from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
@@ -324,7 +325,8 @@ def test_plain_encoder_training_matches_jnp(enc_case, _hash_dropout):
 @pytest.fixture(scope="module")
 def mfn_case():
     dims = {m: 12 for m in MODS}
-    mfn = mfn_core.MFN(MODS, dims, 1, gen=torch.Generator().manual_seed(6))
+    mfn = load_jax_params(mfn_core.MFN(MODS, dims, 1),
+                          mfn_core.mfn_init(prng.key(6), MODS, dims, 1))
     params = export_params(mfn)
     rs = np.random.RandomState(7)
     inputs = {m: rs.randn(MFN_B, MFN_T, 12).astype(np.float32) for m in MODS}

@@ -1,8 +1,9 @@
 """`python -m multimodal_transformer_tpu_torch.walkthrough --device cpu
 --epochs 1` (the counterpart of examples/walkthrough.py) on the CPU: its
 five steps run and leave a `.pth` checkpoint, PerfSave with one row per
-Test video, a PredSave trace, and a served trace per Test video; without
-a card and without --device cpu it refuses to run."""
+Test video, a PredSave trace, the fit plot (PredSave/fits.png, as the JAX
+walkthrough names it), and a served trace per Test video; without a card
+and without --device cpu it refuses to run."""
 
 import csv
 
@@ -13,6 +14,7 @@ import torch
 from multimodal_transformer_tpu_torch import walkthrough
 from multimodal_transformer_tpu_torch.data import load_send
 from multimodal_transformer_tpu_torch.engine import seq_id_strings
+from test_torch_plots import decode_png
 from torch_threads import one_torch_thread as _one_torch_thread  # noqa: F401
 
 
@@ -43,6 +45,8 @@ def test_walkthrough_on_the_cpu(tmp_path, capsys):
     pred = _rows(tmp_path / "PredSave" / f"B3-MFN{ids[0]}.csv")
     assert pred[0] == ["time", "pred", "actual"] and len(pred) > 2
     assert [int(r[0]) for r in pred[1:]] == list(range(len(pred) - 1))
+    fits = decode_png(tmp_path / "PredSave" / "fits.png")
+    assert fits.shape == (1000, 800, 3) and (fits != 255).any()
 
     traces = out["traces"]
     assert sorted(traces) == sorted(ids)

@@ -102,8 +102,7 @@ def tp_cases(rank: int, cases: dict, n_data: int, n_model: int) -> dict:
     out = {}
     for name, case in cases.items():
         cfg = config(case)
-        module = build_model(cfg, generator=torch.Generator().manual_seed(
-            case["seed"]))
+        module = build_model(cfg, seed=case["seed"])
         module.eval()
         tp_module, layout = shard_params_tp(module, mesh)
         x, mask = case["x"], case["mask"]
