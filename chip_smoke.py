@@ -145,7 +145,12 @@ any failure exits nonzero:
    times the train limits at step 0 and 100 times at the later steps,
    beside the control of the one-process bf16 step against the fp32
    step); exact
-   launches of kernels 3, 4, 6, 7 and 10 on every rank;
+   launches of kernels 3, 4, 6, 7 and 10 on every rank; the same fp32
+   epoch on the "threefry" dropout, each rank's masks drawn by kernel T at
+   its rows of the global batch (losses within 1e-4; each step's summed
+   gradients within the train limits of one process's at the parameters
+   the ranks held before the step; ranks equal; kernel T's launches per
+   rank per step and kernel 10's counted);
    Engine.evaluate_per_video and evaluate_batched over 8 videos of
    20-400 windows and one of 600, CCCs within 1e-4 and exact launches of
    A, B and 10 per rank, and of 11 for the video past 512 windows; the
@@ -175,7 +180,12 @@ any failure exits nonzero:
    threefry bits and bernoulli masks) bit for bit against its plain
    version at [32, 8, 160, 160], at an odd shape and on the MFN's gamma
    keys in one call (320 keys, one launch; 1,088 keys at T = 544, three
-   launches counted), timed beside its bound; MFT A+V+L weights drawn
+   launches counted), timed beside its bound (the integer instructions
+   an element in the SASS of its keep-mask kernel, at the busier of the
+   two integer pipes); rank 1's counters of 2 at the [32, 8, 160, 160]
+   site and at the [160, 32, 64] time-major site, bit for bit against the
+   plain version and the global draw's slice, timed beside the bound;
+   MFT A+V+L weights drawn
    on the card equal to those drawn on the CPU; an fp32 MFT A+V+L train
    step on the "threefry" dropout (B=32, T=160) on the card within 1e-4 of
    the same step on the CPU, kernel T launched 77 times and kernel 10
@@ -538,6 +548,46 @@ def sass_check(lib_path, symbol: str, wanted=("HGMMA", "UTMALDG")) -> str:
             found.append(name + ": " + ", ".join(
                 f"{w} {'yes' if w in fn else 'NO'}" for w in wanted))
     return "; ".join(found) if found else f"no function matching {symbol}"
+
+
+# Hopper's integer instructions by the pipes that run them (64 lanes an SM
+# each, NVIDIA's CUDA C++ Programming Guide, arithmetic throughput of
+# compute capability 9.0): logic, shifts, compares and selects only on the
+# ALU pipe; multiplies only on the FMA-heavy pipe; adds and moves on
+# either (the compiler writes an add as IADD3 or as IMAD.IADD)
+SASS_ALU_ONLY = {"LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "SEL", "LEA",
+                 "PRMT", "IABS", "IMNMX", "VIMNMX", "FLO", "POPC", "BMSK",
+                 "SGXT", "BREV"}
+SASS_FMA_ONLY = {"IMAD", "IMUL", "IDP"}
+SASS_EITHER = {"IADD3", "IADD", "VIADD", "MOV", "IMAD.IADD", "IMAD.MOV",
+               "IMAD.SHL"}
+
+
+def sass_int_ops(lib_path, symbol: str) -> dict:
+    """The integer instructions a thread runs in the one kernel whose
+    symbol contains `symbol`, by the pipes that can run them: {"alu",
+    "fma", "either"}.  Instructions of the uniform datapath (U*, once a
+    warp) are left out; every instruction of the function is counted once,
+    so a kernel without loops or branches gives those of one thread."""
+    import re
+    sass, why_not = _sass(lib_path)
+    if sass is None:
+        raise SmokeFailure(f"SASS of {symbol}: {why_not}")
+    fns = [fn for fn in sass.split("Function : ")[1:]
+           if symbol in fn.split(None, 1)[0]]
+    if len(fns) != 1:
+        raise SmokeFailure(f"{len(fns)} functions in the SASS match {symbol}")
+    counts = {"alu": 0, "fma": 0, "either": 0}
+    for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?\w+\s+)?([A-Z][\w.]*)",
+                         fns[0]):
+        parts = op.split(".")
+        if parts[0] in SASS_EITHER or ".".join(parts[:2]) in SASS_EITHER:
+            counts["either"] += 1
+        elif parts[0] in SASS_ALU_ONLY:
+            counts["alu"] += 1
+        elif parts[0] in SASS_FMA_ONLY:
+            counts["fma"] += 1
+    return counts
 
 
 def n_batches(lens, batch_size: int, time_multiple: int) -> int:
@@ -1376,6 +1426,8 @@ PAR_BF16_GRAD_SCALE = (16.0, 100.0)
 PAR_EVAL_VIDEOS = 8
 PAR_LONG_VIDEO = 600
 PAR_TIMED_STEPS = 9
+# the fp32 threefry step (~1 s: plain encoders and MFN) is timed over fewer
+PAR_TF_TIMED_STEPS = 3
 PAR_TP = (("B2-Trans A+V+L", "B2-Trans",
            {"flash_attention_masked": 6, "window_embed_highway": 3}),
           ("MFT A+V+L", "MFT", {"flash_attention_masked": 18,
@@ -1402,16 +1454,20 @@ def _par_eval_set(np, cfg):
     return data, target.astype(np.float32), [int(v) for v in lens]
 
 
-def _par_epoch(torch, engine, batches) -> tuple:
+def _par_epoch(torch, engine, batches, params=None) -> tuple:
     """(each step's loss, {kernel: launches}, each step's gradients as the
     optimizer takes them, summed over the ranks, on the CPU) of train_step
-    over batches."""
+    over batches; params, where given, receives each step's parameters
+    before its update, on the CPU."""
     grads = []
     step = engine.optimizer.step
 
     def recorded(*args, **kwargs):
         grads.append([p.grad.detach().cpu() for p in
                       engine.module.parameters()])
+        if params is not None:
+            params.append([p.detach().to("cpu", copy=True)
+                           for p in engine.module.parameters()])
         return step(*args, **kwargs)
 
     engine.optimizer.step = recorded
@@ -1424,33 +1480,36 @@ def _par_epoch(torch, engine, batches) -> tuple:
     return losses, {k: v for k, v in read_counters().items() if v}, grads
 
 
-def _par_ms(torch, fn, barrier) -> float:
-    """Host ms per call of fn over PAR_TIMED_STEPS calls after 2 warm-up
-    calls (all ranks start together when barrier is given)."""
-    for _ in range(2):
+def _par_ms(torch, fn, barrier, steps: int = PAR_TIMED_STEPS,
+            warmup: int = 2) -> float:
+    """Host ms per call of fn over `steps` calls after `warmup` calls (all
+    ranks start together when barrier is given)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     if barrier:
         barrier()
     t0 = time.perf_counter()
-    for _ in range(PAR_TIMED_STEPS):
+    for _ in range(steps):
         fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+    return (time.perf_counter() - t0) * 1e3 / steps
 
 
 def _parallel_rank(rank: int, device_type: str) -> dict:
-    """One rank of the parallel phase: DP training (fp32 and bf16 mixed,
-    the summed gradients recorded) and evaluation on a 1-D mesh over both
-    ranks, ms per DP step and per gradient all_reduce (with the copies into
-    and out of the flat buffer, and the collective alone), then the TP
-    forwards on a 1 x 2 mesh.  Returns what the parent compares."""
+    """One rank of the parallel phase: DP training (fp32 and bf16 mixed on
+    the hash stream, fp32 on the threefry stream, the summed gradients
+    recorded) and evaluation on a 1-D mesh over both ranks, ms per DP step
+    and per gradient all_reduce (with the copies into and out of the flat
+    buffer, and the collective alone), then the TP forwards on a 1 x 2
+    mesh.  Returns what the parent compares."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from multimodal_transformer_tpu_torch import build_model, default_config
     from multimodal_transformer_tpu_torch.data import Batch
     from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry as tf_k
     from multimodal_transformer_tpu_torch.parallel import (make_mesh,
                                                            make_mesh_2d,
                                                            shard_params_tp)
@@ -1473,9 +1532,21 @@ def _parallel_rank(rank: int, device_type: str) -> dict:
                    mesh=mesh)
     out["bf16_losses"], out["bf16_launches"], bf16_grads = _par_epoch(
         torch, mixed, batches)
+    # the threefry stream: kernel T draws every mask at the rank's counters
+    threefry = Engine(cfg, seed=1, device=device, mesh=mesh,
+                      dropout_impl="threefry")
+    tf_k.reset_launches()
+    tf_before = []
+    out["tf_losses"], out["tf_launches"], tf_grads = _par_epoch(
+        torch, threefry, batches, tf_before)
+    out["tf_kernel_t"] = tf_k.launches
+    # a copy on any device: the timed steps below go on training it
+    out["tf_params"] = [p.detach().to("cpu", copy=True) for p in
+                        threefry.module.parameters()]
     if rank == 0:
         out["grads"], out["bf16_grads"] = grads, bf16_grads
-    del grads, bf16_grads
+        out["tf_grads"], out["tf_before"] = tf_grads, tf_before
+    del grads, bf16_grads, tf_grads, tf_before
 
     data, target, lens = _par_eval_set(np, cfg)
     reset_counters()
@@ -1492,6 +1563,9 @@ def _parallel_rank(rank: int, device_type: str) -> dict:
     barrier = lambda: dp.barrier(mesh)
     out["dp_step_ms"] = _par_ms(torch, lambda: mixed.train_step(batches[0]),
                                 barrier)
+    out["tf_step_ms"] = _par_ms(
+        torch, lambda: threefry.train_step(batches[0]), barrier,
+        PAR_TF_TIMED_STEPS, 1)
     flat = [torch.zeros_like(p) for p in mixed.module.parameters()]
     buffer = dp.FlatBuffer()
     out["all_reduce_ms"] = _par_ms(
@@ -1499,7 +1573,7 @@ def _parallel_rank(rank: int, device_type: str) -> dict:
     out["collective_ms"] = _par_ms(torch, lambda: dist.all_reduce(
         buffer.flat, group=mesh.get_group()), barrier)
     out["all_reduce_mb"] = buffer.flat.numel() * 4 / 1e6
-    del f32, mixed
+    del f32, mixed, threefry
 
     mesh2 = make_mesh_2d(1, PAR_RANKS, device_type)
     out["tp"] = {}
@@ -1553,6 +1627,10 @@ def run_parallel(torch, np, device) -> None:
     params = [p.detach().cpu() for p in f32.module.parameters()]
     mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device)
     bf16_losses, _, bf16_grads = _par_epoch(torch, mixed, batches)
+    threefry = Engine(cfg, seed=1, device=device, dropout_impl="threefry")
+    tf_losses, _, tf_grads = _par_epoch(torch, threefry, batches)
+    tf_params = [p.detach().to("cpu", copy=True)
+                 for p in threefry.module.parameters()]
     steps = len(batches)
     control_rel = max(abs(a - b) / abs(b) for a, b in zip(bf16_losses, losses))
     want_train = {"encoder_stack_train_fwd": 3 * steps,
@@ -1591,6 +1669,34 @@ def run_parallel(torch, np, device) -> None:
                for a, b in zip(r["params"], ranks[0]["params"])):
             raise SmokeFailure(f"parallel rank {rank}: parameters differ "
                                "from rank 0's")
+        # the threefry stream: kernel T's masks at the rank's counters
+        tf_rel = max(abs(a - b) / abs(b)
+                     for a, b in zip(r["tf_losses"], tf_losses))
+        tp_text, tp_worst = _worst_grad(names, r["tf_params"], tf_params,
+                                        _grad_norm(torch, tf_params))
+        want_tf = {"window_embed_highway": 3 * steps}
+        print(f"parallel rank {rank}: fp32 threefry DP losses "
+              f"{r['tf_losses']} vs one process {tf_losses} (max rel "
+              f"{tf_rel:.2e}, tol {LOSS_RTOL:.0e}); parameters after "
+              f"{steps} steps: {tp_text.replace('gradient', 'parameter')}; "
+              f"kernel T {r['tf_kernel_t'] / steps:g} launches per rank per "
+              f"step (want {THREEFRY_STEP_LAUNCHES}), others "
+              f"{r['tf_launches']}", flush=True)
+        if tf_rel > LOSS_RTOL or tp_worst > 1.0 or not all(
+                math.isfinite(v) for v in r["tf_losses"]):
+            raise SmokeFailure(f"parallel rank {rank}: the fp32 threefry DP "
+                               "epoch disagrees with one process")
+        if (r["tf_kernel_t"] != THREEFRY_STEP_LAUNCHES * steps
+                or r["tf_launches"] != want_tf):
+            raise SmokeFailure(f"parallel rank {rank}: the threefry DP "
+                               f"epoch launched kernel T "
+                               f"{r['tf_kernel_t']} times (want "
+                               f"{THREEFRY_STEP_LAUNCHES * steps}) and "
+                               f"{r['tf_launches']} (want {want_tf})")
+        if any(not torch.equal(a, b)
+               for a, b in zip(r["tf_params"], ranks[0]["tf_params"])):
+            raise SmokeFailure(f"parallel rank {rank}: threefry parameters "
+                               "differ from rank 0's")
     # each step's summed gradients against one process's, read at the fp32
     # limits; bf16 held to PAR_BF16_GRAD_SCALE of them, beside the control:
     # the one-process bf16 step against the one-process fp32 step
@@ -1613,6 +1719,37 @@ def run_parallel(torch, np, device) -> None:
             if worst > scale:
                 raise SmokeFailure(f"parallel step {i}: the {what} summed "
                                    "gradients disagree with one process")
+    # the threefry epoch's gradients are held at the parameters the ranks
+    # had before each step: one process takes the step's gradients of the
+    # same padded batch at rank 0's parameters, with the step's seeds.
+    # Along the trajectories above, Adam's first steps move an element by
+    # about lr whatever the size of its gradient, so float32 noise in a
+    # gradient near 0 moves the parameters apart from step 1 on.
+    probe = Engine(cfg, seed=1, device=device, dropout_impl="threefry")
+    tf_total = _grad_norm(torch, tf_grads[0])
+    for i, (before, got) in enumerate(zip(ranks[0]["tf_before"],
+                                          ranks[0]["tf_grads"])):
+        with torch.no_grad():
+            for p, v in zip(probe.module.parameters(), before):
+                p.copy_(v)
+        probe._batch = i
+        batch = batches[i]
+        loss, want = _grads(torch, probe, batch, probe.step_seeds(
+            batch.mask.shape[1]), plain=False)
+        text, worst = _worst_grad(names, got, [g.cpu() for g in want],
+                                  tf_total)
+        loss_rel = abs(ranks[0]["tf_losses"][i] - loss) / abs(loss)
+        along = _worst_grad(names, got, tf_grads[i], tf_total)[0]
+        print(f"parallel step {i} fp32 threefry at rank 0's parameters: "
+              f"all_reduced gradients vs one process at the fp32 limits: "
+              f"{text}; loss rel {loss_rel:.2e}; held to 1 of the limits "
+              f"(along the two trajectories, not held: {along})",
+              flush=True)
+        if worst > 1.0 or loss_rel > LOSS_RTOL:
+            raise SmokeFailure(f"parallel step {i}: the fp32 threefry "
+                               "summed gradients disagree with one process "
+                               "at the same parameters")
+    del probe
 
     data, target, lens = _par_eval_set(np, cfg)
     per = f32.evaluate_per_video(data, target, lens)
@@ -1672,6 +1809,8 @@ def run_parallel(torch, np, device) -> None:
                                    f"launched {got}, expected {want}")
 
     one_ms = _par_ms(torch, lambda: mixed.train_step(batches[0]), None)
+    tf_one_ms = _par_ms(torch, lambda: threefry.train_step(batches[0]), None,
+                        PAR_TF_TIMED_STEPS, 1)
     mb = ranks[0]["all_reduce_mb"]
     flat_ms = max(r["all_reduce_ms"] for r in ranks)
     alone_ms = max(r["collective_ms"] for r in ranks)
@@ -1682,7 +1821,10 @@ def run_parallel(torch, np, device) -> None:
           f"process; gradient all_reduce of {mb:.1f} MB ({backend}): "
           f"{flat_ms:.3f} ms with the copies into and out of the flat "
           f"buffer, {alone_ms:.3f} ms for the collective alone on the "
-          f"buffer ({mb / alone_ms:.2f} GB/s of buffer); "
+          f"buffer ({mb / alone_ms:.2f} GB/s of buffer); fp32 threefry "
+          f"train_step of the same batch, {PAR_TF_TIMED_STEPS} steps: "
+          f"{max(r['tf_step_ms'] for r in ranks):.3f} ms/step at "
+          f"{PAR_RANKS} ranks, {tf_one_ms:.3f} ms/step in one process; "
           + ("ranks that share one card give no scaling figure"
              if torch.cuda.device_count() < PAR_RANKS else
              "one card per rank"), flush=True)
@@ -2566,9 +2708,15 @@ def run_evaluation(torch, np, device):
 # keep rate of the encoders' p = 0.1.
 THREEFRY_SHAPES = ((BENCH_B, 8, BENCH_T, BENCH_T), (3, 7, 1001))
 THREEFRY_KEEP = 0.9
-# the H100 SXM's 32-bit integer pipes: 64 lanes an SM (NVIDIA's Hopper
-# architecture white paper) x 132 SMs x its 1,980 MHz boost clock
+# one of the H100 SXM's two 32-bit integer pipes (ALU, FMA-heavy): 64
+# lanes an SM (NVIDIA's Hopper architecture white paper) x 132 SMs x its
+# 1,980 MHz boost clock
 INT_OPS_PER_S = 64 * 132 * 1.98e9
+# kernel T's keep-mask kernel on one segment of counters
+# (csrc/threefry.cu threefry_kernel<kKeep, false>), whose integer
+# instructions bound every draw of a mask: the segmented instance runs
+# these and a division
+THREEFRY_KEEP_SASS = "threefry_kernelILi1ELb0E"
 # the threefry train step, card against CPU: float32 sums in another order
 THREEFRY_STEP_TOL = 1e-4
 # kernel T's launches in an MFT A+V+L threefry step: a front end each, an
@@ -2576,6 +2724,91 @@ THREEFRY_STEP_TOL = 1e-4
 # its head's `out` site
 THREEFRY_STEP_LAUNCHES = 3 + 3 * 6 * 4 + 1 + 1
 RNG_SEED_REPS = 30
+# a data-parallel rank's counters of kernel T: rank 1 of PAR_RANKS at the
+# [B, h, T, T] site of THREEFRY_SHAPES[0] (one range from its first row)
+# and at the MFN head's time-major [T, B_pad, 64] site (T segments)
+THREEFRY_RANK = 1
+THREEFRY_OUT_W = 64
+
+
+def threefry_bound_ms(n: int, ops: float) -> tuple:
+    """(kernel T's bound for a keep mask of n elements, and what bounds
+    it): `ops` integer instructions an element at INT_OPS_PER_S, against
+    the n bytes written at the card's memory rate."""
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import (
+        HBM_BYTES_PER_S)
+    ops_ms = 1e3 * n * ops / INT_OPS_PER_S
+    bytes_ms = 1e3 * n / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def _threefry_rank_ranges(torch, device, key, card, ops: float) -> None:
+    """Kernel T at rank THREEFRY_RANK's counters of the global draws, bit
+    for bit against its plain version at those counters and against the
+    global draw's slice, through the wrapper and through `prng.RowKeys`;
+    its ms (CUDA events over bursts of 5, and the kernel's device ms a
+    launch from torch.profiler) beside its bound at `ops` integer
+    instructions an element (`threefry_bound_ms`)."""
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry as tf_k
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import (
+        kernel_device_ms, time_ms)
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    B, h, T = THREEFRY_SHAPES[0][:3]
+    local = B // PAR_RANKS
+    r0 = THREEFRY_RANK * local
+    W = THREEFRY_OUT_W
+    sites = {
+        # name: (global shape, the rank's shape, its counters, its slice)
+        f"[{B}, {h}, {T}, {T}] rows {r0}..{r0 + local - 1}": (
+            (B, h, T, T), (local, h, T, T),
+            dict(start=r0 * h * T * T), lambda g: g[r0:r0 + local]),
+        f"[{T}, {B}, {W}] time-major rows {r0}..{r0 + local - 1}": (
+            (T, B, W), (T, local, W),
+            dict(start=r0 * W, seg_len=local * W, seg_stride=B * W),
+            lambda g: g[:, r0:r0 + local]),
+    }
+    for name, (shape, mine, layout, part) in sites.items():
+        n = math.prod(mine)
+        glob = tf_k.threefry_keep_mask(key[None], math.prod(shape),
+                                       THREEFRY_KEEP, device).view(shape)
+        tf_k.reset_launches()
+        mask = tf_k.threefry_keep_mask(key[None], n, THREEFRY_KEEP, device,
+                                       **layout)
+        bits = tf_k.threefry_bits(key[None], n, device, **layout)
+        launches = tf_k.launches
+        plain = prng.keep_mask_plain(key[None], n, THREEFRY_KEEP, device,
+                                     **layout)
+        plain_bits = prng.random_bits_plain(key[None], n, device, **layout)
+        same = (torch.equal(mask, plain)
+                and torch.equal(bits.long() & prng.M32, plain_bits)
+                and torch.equal(mask.view(mine), part(glob)))
+        if len(layout) == 1:  # the batch-major site, as a dropout draws it
+            rows = prng.bernoulli(prng.RowKeys(key, r0, B), THREEFRY_KEEP,
+                                  mine, device)
+            same = same and torch.equal(rows, part(glob))
+        from_zero = tf_k.threefry_keep_mask(key[None], n, THREEFRY_KEEP,
+                                            device)
+        ms = time_ms(lambda: tf_k.threefry_keep_mask(
+            key[None], n, THREEFRY_KEEP, device, **layout), burst=5)
+        dev = kernel_device_ms(lambda: tf_k.threefry_keep_mask(
+            key[None], n, THREEFRY_KEEP, device, **layout), 5,
+            lambda e: "threefry" if "threefry_kernel" in e else None,
+            per_launch=True).get("threefry", math.nan)
+        plain_ms = time_ms(lambda: prng.keep_mask_plain(
+            key[None], n, THREEFRY_KEEP, device, **layout), reps=3)
+        bound, _ = threefry_bound_ms(n, ops)
+        print(f"threefry rank {THREEFRY_RANK} of {PAR_RANKS}, {name} "
+              f"({n} counters {layout}): keep mask and bits equal to the "
+              f"plain version and to the global draw's slice {same}; "
+              f"counters from 0 equal {torch.equal(from_zero, mask)}; "
+              f"{launches} launches for the two draws; kernel {ms:.4f} ms "
+              f"(events), {dev:.4f} ms device a launch (profiler), plain "
+              f"{plain_ms:.3f} ms; bound {bound:.4f} ms ({card})",
+              flush=True)
+        if not same or torch.equal(from_zero, mask) or launches != 2:
+            raise SmokeFailure(f"kernel T at the rank's counters of {name}")
 
 
 def run_random_streams(torch, np, device) -> dict:
@@ -2596,8 +2829,8 @@ def run_random_streams(torch, np, device) -> dict:
     from multimodal_transformer_tpu_torch.engine import Engine
     from multimodal_transformer_tpu_torch.engine.plots import read_png
     from multimodal_transformer_tpu_torch.ops.cuda import threefry as tf_k
-    from multimodal_transformer_tpu_torch.ops.cuda.verify import (
-        HBM_BYTES_PER_S, time_ms)
+    from multimodal_transformer_tpu_torch.ops.cuda import _build
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
     from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
     from multimodal_transformer_tpu_torch.utils import prng
 
@@ -2637,13 +2870,17 @@ def run_random_streams(torch, np, device) -> dict:
                       burst=5)
     plain_ms = time_ms(lambda: prng.keep_mask_plain(
         key[None], n, THREEFRY_KEEP, device), reps=3)
-    ops_ms = 1e3 * n * tf_k.OPS_KEEP / INT_OPS_PER_S
-    bytes_ms = 1e3 * n / HBM_BYTES_PER_S
+    # the busier integer pipe's share of the instructions, at best: the
+    # ALU-only ones, the FMA-only ones, or half of all
+    sass = sass_int_ops(_build.build(), THREEFRY_KEEP_SASS)
+    ops = max(sass["alu"], sass["fma"], sum(sass.values()) / 2)
+    bound, bound_by = threefry_bound_ms(n, ops)
     print(f"threefry keep mask {cases[0][0]}: kernel {mask_ms:.4f} ms, "
           f"bits {bits_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
-          f"{max(ops_ms, bytes_ms):.4f} ms ({tf_k.OPS_KEEP} integer "
-          f"operations an element at {INT_OPS_PER_S / 1e12:.2f} T/s; "
-          f"{bytes_ms:.4f} ms for its bytes); {card}", flush=True)
+          f"{bound:.4f} ms by {bound_by} (SASS of {THREEFRY_KEEP_SASS}: "
+          f"integer instructions a thread {sass}, {ops:g} on the busier "
+          f"pipe at {INT_OPS_PER_S / 1e12:.2f} T/s); {card}", flush=True)
+    _threefry_rank_ranges(torch, device, key, card, ops)
 
     cfg = default_config("MFT", AVL, mask_mode="key_query")
     t0 = time.perf_counter()
@@ -2749,8 +2986,7 @@ def run_random_streams(torch, np, device) -> dict:
             "replaces": ("multimodal_transformer_tpu/ops/basic.py:191 "
                          "(jax.random.bernoulli in XLA; no TPU kernel)"),
             "launches": step_launches, "max_abs_err": 0.0, "ms": mask_ms,
-            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None}
 
 

@@ -52,8 +52,9 @@ Data parallelism (`mesh=`, a 1-D "data" mesh of parallel/mesh.py; one
 process per rank, the JAX package's `Engine(mesh=...)`): every rank builds
 the same global batches from the same host RNG and keeps its own rows
 (`shard_batch`, before the prefetcher stages them), with its dropout seeds
-shifted to those rows (`DropoutSeeds.for_rows`), so its masks are the padded
-global batch's, as GSPMD computes them in the JAX package.  A rank's loss is
+shifted to those rows (`DropoutSeeds.for_rows`: hash seeds shifted,
+threefry keys drawing the rows' range of counters), so its masks are the
+padded global batch's, as GSPMD computes them in the JAX package.  A rank's loss is
 its rows' squared error over the global batch's sum of lengths; after the
 backward one all_reduce of a flat buffer sums the gradients and the losses,
 then each rank runs Adam, so the parameters stay equal (they start equal:
@@ -109,17 +110,12 @@ class Engine:
         losses and parameters for NaN and infinity (NanGuard); mesh: a 1-D
         "data" DeviceMesh (parallel.make_mesh) for data parallelism, this
         process being one of its ranks, device its device; dropout_impl:
-        "hash" or "threefry" (one device only)."""
+        "hash" or "threefry"."""
         self.cfg = cfg
         self.encoder_backward = check_encoder_backward(encoder_backward)
         if dropout_impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, "
                              f"got {dropout_impl!r}")
-        if dropout_impl == "threefry" and mesh is not None:
-            raise NotImplementedError(
-                "the threefry dropout runs on one device: a rank's rows of a "
-                "threefry mask are not a shifted seed (use dropout_impl="
-                "'hash' with a mesh)")
         self.dropout_impl = dropout_impl
         self.device = torch.device(device)
         self.logger = logger

@@ -5,9 +5,11 @@ mode takes the stack's [N, 4] dropout seed table (one seed per layer for
 each of the four sites: attention probabilities, attention output, FFN
 hidden, FFN output) and applies the dropout of ops/basic.py; without seeds
 the stack runs in eval mode.  A table of threefry keys ([N, 4, 2], the
-"threefry" dropout) takes the plain path on any device, with each site's
-mask drawn by kernel T on the card, as the JAX package keeps that stream on
-its jnp encoder (no kernel regenerates its bits).  `encoder_init` draws the
+"threefry" dropout; on a data-parallel rank `prng.RowKeys`, whose draws
+are the global batch's at the rank's rows) takes the plain path on any
+device, with each site's mask drawn by kernel T on the card, as the JAX
+package keeps that stream on its jnp encoder (no kernel regenerates its
+bits).  `encoder_init` draws the
 weights along the JAX key tree (one layer drawn, copied N times, as the
 reference's `clones()`).  Two mask modes, as in the JAX package:
 

@@ -65,8 +65,10 @@ def dropout_with_idx(x: torch.Tensor, seed: int, p: float,
 def dropout(x: torch.Tensor, seed, p: float) -> torch.Tensor:
     """Inverted dropout, where(keep, x / (1 - p), 0).  seed: a uint32 hash
     seed (the keep bits of x's flat positions), a threefry key
-    (`jax.random.bernoulli(key, 1 - p, x.shape)`), or None (eval); p == 0
-    is the identity."""
+    (`jax.random.bernoulli(key, 1 - p, x.shape)`), a data-parallel rank's
+    `prng.RowKeys` (that draw over the global (rows, *x.shape[1:]) at the
+    rank's rows, one range of counters), or None (eval); p == 0 is the
+    identity."""
     if seed is None or p == 0.0:
         return x
     if prng.is_keys(seed):

@@ -64,7 +64,8 @@ _SIGNATURES = {
     "mmtx_window_embed_tiled_plan": [_I, _I, _I, _I, _P],
     "mmtx_flash_attention": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P],
-    "mmtx_threefry": [_P, _I, ctypes.c_longlong, _I, _F, _P, _P],
+    "mmtx_threefry": [_P, _I, ctypes.c_longlong, _I, _F, _P, _P,
+                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong],
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,10 @@ key tree (utils/prng.py).
 `threefry_bits(keys, n, device)` gives, for each key of keys [K, 2] (numpy
 uint32), the bits of the n flat positions 0..n-1 as int32 [K, n];
 `threefry_keep_mask(keys, n, p, device)` gives uniform < p as bool [K, n].
+Both take a counter layout (`start`, `seg_len`, `seg_stride`; utils/prng.py
+`counters`): element j draws counter start + (j // seg_len) * seg_stride +
+j % seg_len, so that a data-parallel rank draws its rows of a global draw
+(the defaults give 0..n-1).  The kernel computes the counters itself.
 On a CUDA device each launches the kernel once for each block of up to 480
 keys (the keys travel in its parameters); on the CPU each runs its plain version,
 `utils/prng.py random_bits_plain` / `keep_mask_plain`.  Nothing falls back:
@@ -29,11 +33,6 @@ from . import _build
 
 MODE_BITS, MODE_KEEP = 0, 1
 MAX_KEYS = 480  # keys a launch (csrc/threefry.cu kMaxKeys)
-# integer operations an element (csrc/threefry.cu): 20 rounds of add,
-# rotate, xor; 17 key-schedule adds; the output xor; for the mask, the
-# threshold's shift, or, subtract and compare
-OPS_BITS = 20 * 3 + 17 + 1
-OPS_KEEP = OPS_BITS + 4
 
 # Launches since the last reset: one for each block of MAX_KEYS keys.
 launches = 0
@@ -45,7 +44,7 @@ def reset_launches() -> None:
 
 
 def _launch(keys: np.ndarray, n: int, mode: int, p: float,
-            out: torch.Tensor) -> None:
+            out: torch.Tensor, layout: tuple) -> None:
     global launches
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     lib = _build.load()
@@ -53,9 +52,9 @@ def _launch(keys: np.ndarray, n: int, mode: int, p: float,
         stream = torch.cuda.current_stream().cuda_stream
         for k0 in range(0, keys.shape[0], MAX_KEYS):
             block = keys[k0:k0 + MAX_KEYS]
-            rc = lib.mmtx_threefry(block.ctypes.data_as(ctypes.c_void_p),
-                                   block.shape[0], n, mode, p,
-                                   out[k0:k0 + MAX_KEYS].data_ptr(), stream)
+            rc = lib.mmtx_threefry(
+                block.ctypes.data_as(ctypes.c_void_p), block.shape[0], n,
+                mode, p, out[k0:k0 + MAX_KEYS].data_ptr(), stream, *layout)
             _build.check(rc, "threefry")
             launches += 1
 
@@ -70,22 +69,30 @@ def _check(keys: np.ndarray, n: int) -> np.ndarray:
     return keys
 
 
-def threefry_bits(keys, n: int, device="cuda") -> torch.Tensor:
-    """The bits of positions 0..n-1 under each key, int32 [K, n]."""
+def threefry_bits(keys, n: int, device="cuda", *, start: int = 0,
+                  seg_len: int | None = None,
+                  seg_stride: int | None = None) -> torch.Tensor:
+    """The bits of n counters (0..n-1 by default) under each key, int32
+    [K, n]."""
     keys = _check(keys, n)
+    layout = prng.counters(n, start, seg_len, seg_stride)
     out = torch.empty(keys.shape[0], n, dtype=torch.int32, device=device)
     if not use_kernel(out):
-        bits = prng.random_bits_plain(keys, n, out.device)
+        bits = prng.random_bits_plain(keys, n, out.device, *layout)
         return (((bits + 2 ** 31) & prng.M32) - 2 ** 31).to(torch.int32)
-    _launch(keys, n, MODE_BITS, 0.0, out)
+    _launch(keys, n, MODE_BITS, 0.0, out, layout)
     return out
 
 
-def threefry_keep_mask(keys, n: int, p: float, device="cuda") -> torch.Tensor:
-    """jax.random.bernoulli(key, p, (n,)) of each key, bool [K, n]."""
+def threefry_keep_mask(keys, n: int, p: float, device="cuda", *,
+                       start: int = 0, seg_len: int | None = None,
+                       seg_stride: int | None = None) -> torch.Tensor:
+    """jax.random.bernoulli(key, p, (n,)) of each key at n counters (0..n-1
+    by default), bool [K, n]."""
     keys = _check(keys, n)
+    layout = prng.counters(n, start, seg_len, seg_stride)
     out = torch.empty(keys.shape[0], n, dtype=torch.bool, device=device)
     if not use_kernel(out):
-        return prng.keep_mask_plain(keys, n, p, out.device)
-    _launch(keys, n, MODE_KEEP, p, out)
+        return prng.keep_mask_plain(keys, n, p, out.device, *layout)
+    _launch(keys, n, MODE_KEEP, p, out, layout)
     return out

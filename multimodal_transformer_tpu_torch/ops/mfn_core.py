@@ -15,12 +15,17 @@ keys: every step's two [B, 64] keep masks are drawn at once (kernel T on
 the card) and fed to the plain recurrence with autograd on any device, as
 the JAX package runs that stream through its `lax.scan` and not its
 kernels; the head's `out` key draws `bernoulli(key, 0.5, [T, B, 64])`.
+On a data-parallel rank the gamma keys are `prng.RowKeys`, each step's
+[B, 64] mask the global batch's at the rank's rows (one range of
+counters from r0 * 64), and the head draws its rows of the time-major
+site as T ranges of counters (`mfn_head`).
 `mfn_init` draws the weights along the JAX key tree.
 
 The head's dropout indexes the TIME-major [T, B, 64] hidden, as the JAX
 package's head does (it runs time-major): element [b, t, c] of the port's
-batch-major hidden takes the keep bit of position (t * B + b) * 64 + c
-(with B the global batch's rows on a data-parallel rank, `mfn_head`).
+batch-major hidden takes the keep bit (hash) or the threefry counter of
+position (t * B + b) * 64 + c (with B the global batch's rows and b the
+global row on a data-parallel rank, `mfn_head`).
 
 Gate algebra (reference MFT/multiTransformer.py:200-224):
     c*       = [c_{t-1}; c_t]
@@ -140,7 +145,8 @@ def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
 def gamma_masks(mfn: MFN, keys, like: torch.Tensor) -> torch.Tensor:
     """The threefry stream's gamma keep masks, [T, 2, B, 64] bool on like's
     device: `bernoulli(keys[t, k], 1 - p_k, [B, 64])` for every step t and
-    gamma k, drawn in one call (both rates are 0.2)."""
+    gamma k, drawn in one call (both rates are 0.2); keys may be a rank's
+    `prng.RowKeys`, whose masks are the global batch's at its rows."""
     B, T = like.shape[:2]
     p = DROPOUTS["gamma1"]
     assert DROPOUTS["gamma2"] == p and keys.shape == (T, 2, 2)
@@ -154,17 +160,19 @@ def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
     batch of `rows` rows (a data-parallel rank): row b then takes the keep
     bits of the global hidden's row r0 + b, position
     (t * rows + r0 + b) * 64 + c.  out_seed may be a threefry key, whose
-    mask is drawn over the time-major [T, B, 64] hidden and transposed."""
+    mask is drawn over the time-major [T, B, 64] hidden and transposed: on
+    a rank, T segments of B * 64 counters at stride rows * 64 from
+    r0 * 64."""
     feats = torch.cat([hs, mems], dim=-1)
     h = torch.relu(mfn.out_fc1(feats))
+    B, T, W = h.shape
+    r0, rows = out_rows or (0, B)
     if prng.is_keys(out_seed):
-        B, T, W = h.shape
         keep = prng.bernoulli(out_seed, 1.0 - DROPOUTS["out"], (T, B, W),
-                              h.device)
+                              h.device, start=r0 * W, seg_len=B * W,
+                              seg_stride=rows * W)
         h = apply_keep(h, keep.transpose(0, 1), DROPOUTS["out"])
     elif out_seed is not None:
-        B, T, W = h.shape
-        r0, rows = out_rows or (0, B)
         ar = lambda n: torch.arange(n, dtype=torch.int64, device=h.device)
         idx = ((ar(T)[None, :, None] * rows + r0 + ar(B)[:, None, None]) * W
                + ar(W))

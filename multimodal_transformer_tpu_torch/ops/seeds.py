@@ -25,9 +25,14 @@ that the global batch drops at those rows.  The hash injects the seed after
 one multiply, h = idx * 0x9E3779B1 + seed, so a position offset is a seed
 offset: hash(idx + d, s) = hash(idx, s + d * 0x9E3779B1) mod 2**32.
 `DropoutSeeds.for_rows` shifts every batch-major site's seed by the rank's
-first row times the site's elements per row; the MFN head's `out` site
-indexes a time-major hidden, which no shift can express, so it carries the
-rows (first row, global rows) to `ops/mfn_core.mfn_head` instead.
+first row times the site's elements per row.  A threefry mask's bits at a
+flat position depend only on the key and the position, so a rank's rows
+of a batch-major site are one range of counters from the same product:
+`for_rows` wraps each such site's keys as `prng.RowKeys` (key, first row,
+global rows), and kernel T draws that range.  The MFN head's `out` site
+indexes a time-major hidden, which neither a shift nor one range can
+express, so on both streams it carries the rows (first row, global rows)
+to `ops/mfn_core.mfn_head` instead.
 
 `DropoutSeeds.from_key(sites, key, T)` derives every site's seed from a
 step's key without JAX: the module that listed the sites splits the key
@@ -98,7 +103,8 @@ class DropoutSites:
 @dataclasses.dataclass(frozen=True)
 class DropoutSeeds:
     # hash seeds (ints, int64 tables) or, on the threefry stream, keys
-    # (numpy uint32 [2], tables [N, 4, 2] and [T, 2, 2])
+    # (numpy uint32 [2], tables [N, 4, 2] and [T, 2, 2]; prng.RowKeys of
+    # them on a data-parallel rank, `for_rows`)
     front: Dict[str, int]             # modality -> seed of the [B, W, E] site
     encoder: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     mfn: Optional[torch.Tensor] = None  # [T, 2] int64 (gamma1, gamma2)
@@ -120,6 +126,12 @@ class DropoutSeeds:
         keys = sites.split_keys(np.asarray(key, dtype=np.uint32), T)
         return keys if impl == "threefry" else keys.hashed()
 
+    def threefry(self) -> bool:
+        """Whether the sites hold threefry keys (the "threefry" stream)."""
+        return any(prng.is_keys(v) for v in (
+            *self.front.values(), *self.encoder.values(), self.mfn,
+            self.out, self.embed, self.decoder))
+
     def hashed(self) -> "DropoutSeeds":
         """These keys' hash seeds: ints, int64 tables."""
         def val(k):
@@ -137,11 +149,20 @@ class DropoutSeeds:
     def for_rows(self, sites: DropoutSites, r0: int, rows: int,
                  T: int) -> "DropoutSeeds":
         """The seeds of a rank that runs rows [r0, r0 + local) of a padded
-        global batch of `rows` rows and T steps: each batch-major site's
-        seed shifted by r0 times the site's elements per row, so that the
-        rank's masks are the global batch's masks at its rows.  Hash seeds
-        only (a threefry mask has no such shift; the Engine refuses the
-        threefry stream with a mesh)."""
+        global batch of `rows` rows and T steps, so that the rank's masks
+        are the global batch's masks at its rows: each batch-major site's
+        hash seed shifted by r0 times the site's elements per row, or its
+        threefry keys wrapped as `prng.RowKeys`, whose draw starts at that
+        product's counter.  Both keep (r0, rows) for the `out` site."""
+        if self.threefry():
+            def rows_of(keys):
+                return None if keys is None else prng.RowKeys(keys, r0, rows)
+            return DropoutSeeds(
+                {m: rows_of(k) for m, k in self.front.items()},
+                {name: rows_of(k) for name, k in self.encoder.items()},
+                rows_of(self.mfn), self.out, rows_of(self.embed),
+                rows_of(self.decoder), (r0, rows))
+
         def shift(seed, per_row):
             if seed is None:
                 return None

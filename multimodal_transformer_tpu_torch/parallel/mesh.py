@@ -6,7 +6,9 @@ mesh named "data"; GSPMD partitions one global program, so its dropout
 masks are those of the global (padded) batch.  Here every rank builds the
 same global batch from the same host RNG and keeps its own contiguous rows
 (`shard_batch`); its dropout seeds are shifted to those rows
-(`DropoutSeeds.for_rows`, ops/seeds.py), the gradients are summed with one
+(`DropoutSeeds.for_rows`, ops/seeds.py: a hash seed shifted, threefry keys
+drawing the rows' range of counters, from the `Shard`'s r0 and rows on
+either stream), the gradients are summed with one
 `all_reduce` of a flat buffer kept from step to step (`all_reduce_flat`,
 `FlatBuffer`), and the parameters start
 equal from the same seed and a broadcast from the mesh's first rank

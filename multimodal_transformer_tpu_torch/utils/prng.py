@@ -13,6 +13,10 @@ elements as the JAX package for the same seed:
     split's key i and fold_in(key, i) are both threefry2x32(key, (0, i));
   * `random_bits(key, shape)`: 32-bit bits on that path, bits1 ^ bits2 of
     threefry2x32(key, (hi, lo)) over the flat index's two 32-bit halves;
+    the bits at a flat index depend only on the key and the index, so a
+    part of a draw is a draw of its counters (`counters`: a start and
+    segments), and `RowKeys` draws a data-parallel rank's rows of a
+    global draw;
   * `uniform(key, shape, minval, maxval)`: `jax.random.uniform` in float32,
     ((bits >> 9) | 0x3F800000) viewed as a float, minus 1, then
     f * (maxval - minval) + minval rounded once (XLA contracts it into a
@@ -36,6 +40,7 @@ version here.  The bits are the same either way.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -87,10 +92,37 @@ def _keys(y0, y1) -> np.ndarray:
     return np.stack([y0, y1], axis=-1).astype(np.uint32)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowKeys:
+    """Threefry keys [..., 2] of a data-parallel rank that runs rows
+    [r0, r0 + local) of a padded global batch of `rows` rows.  A draw of
+    `shape` under them (`random_bits`, `uniform`, `bernoulli`) is the draw
+    of the global (rows, *shape[1:]) at the rank's rows: one segment of
+    counters from r0 * prod(shape[1:]), as `jax.random.bernoulli` over a
+    batch-major site sharded on its rows gives each shard.  Indexing and
+    iteration give a table's keys with the same rows."""
+    keys: np.ndarray
+    r0: int
+    rows: int
+
+    def __getitem__(self, i) -> "RowKeys":
+        return RowKeys(self.keys[i], self.r0, self.rows)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self.keys)))
+
+    @property
+    def shape(self) -> tuple:
+        return self.keys.shape
+
+
 def is_keys(value) -> bool:
     """Whether value is a threefry key or a stack of them ([..., 2] numpy
-    uint32), as a dropout site or a table of sites holds them under the
-    "threefry" dropout (a hash seed is an int or an int64 tensor)."""
+    uint32, or RowKeys of them), as a dropout site or a table of sites
+    holds them under the "threefry" dropout (a hash seed is an int or an
+    int64 tensor)."""
+    if isinstance(value, RowKeys):
+        value = value.keys
     return (isinstance(value, np.ndarray) and value.dtype == np.uint32
             and value.ndim >= 1 and value.shape[-1] == 2)
 
@@ -134,19 +166,44 @@ def hash_seed(keys) -> np.ndarray:
 
 # ----------------------------------------------------------- the draws
 
-def random_bits_plain(keys, n: int, device="cpu") -> torch.Tensor:
+def counters(n: int, start: int = 0, seg_len=None, seg_stride=None) -> tuple:
+    """The counter layout (start, seg_len, seg_stride) of a draw of n
+    elements: element j draws the bits of counter start + (j // seg_len) *
+    seg_stride + j % seg_len.  The defaults, one segment from 0, give the
+    flat positions 0..n-1 of a shape.  A rank's rows [r0, r0 + local) of
+    a batch-major [rows, ...] site are one segment from r0 * (elements per
+    row); its part of a time-major [T, rows, W] site is T segments of
+    local * W at stride rows * W from r0 * W.  Contiguous counters (a
+    segment of n or more, or a stride equal to the segment) come back as
+    one segment of n."""
+    seg_len = n if seg_len is None else int(seg_len)
+    seg_stride = seg_len if seg_stride is None else int(seg_stride)
+    start = int(start)
+    if start < 0 or seg_len < 1 or seg_stride < 0:
+        raise ValueError(f"threefry counters: start {start}, seg_len "
+                         f"{seg_len}, seg_stride {seg_stride}")
+    if seg_len >= n or seg_stride == seg_len:
+        return start, n, n
+    return start, seg_len, seg_stride
+
+
+def random_bits_plain(keys, n: int, device="cpu", start: int = 0,
+                      seg_len=None, seg_stride=None) -> torch.Tensor:
     """Kernel T's bits in plain PyTorch: for each of the K keys of
-    keys [K, 2], the 32-bit bits of n flat positions; int64 [K, n] holding
-    uint32 values."""
+    keys [K, 2], the 32-bit bits of n counters (`counters`; by default the
+    flat positions 0..n-1); int64 [K, n] holding uint32 values."""
+    start, seg_len, seg_stride = counters(n, start, seg_len, seg_stride)
     k0, k1 = (torch.from_numpy(w).to(device)[:, None] for w in _words(keys))
     out = torch.empty(k0.shape[0], n, dtype=torch.int64, device=device)
     chunk = (_CHUNK * torch.get_num_threads() if out.device.type == "cpu"
              else n)
     for lo in range(0, n, chunk):
-        idx = torch.arange(lo, min(lo + chunk, n), dtype=torch.int64,
-                           device=device)
+        j = torch.arange(lo, min(lo + chunk, n), dtype=torch.int64,
+                         device=device)
+        idx = (start + j if seg_len >= n else
+               start + j // seg_len * seg_stride + j % seg_len)
         y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & M32)
-        out[:, lo:lo + idx.numel()] = y0 ^ y1
+        out[:, lo:lo + j.numel()] = y0 ^ y1
     return out
 
 
@@ -158,25 +215,46 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
-def keep_mask_plain(keys, n: int, p: float, device="cpu") -> torch.Tensor:
+def keep_mask_plain(keys, n: int, p: float, device="cpu", start: int = 0,
+                    seg_len=None, seg_stride=None) -> torch.Tensor:
     """Kernel T's keep mask in plain PyTorch: uniform < p (p rounded to
-    float32 first, as `jax.random.bernoulli` does), bool [K, n]."""
+    float32 first, as `jax.random.bernoulli` does) at n counters
+    (`counters`), bool [K, n]."""
     p32 = torch.tensor(p, dtype=torch.float32, device=device)
-    return bits_to_unit(random_bits_plain(keys, n, device)) < p32
+    return bits_to_unit(random_bits_plain(keys, n, device, start, seg_len,
+                                          seg_stride)) < p32
 
 
-def _stack(keys) -> tuple:
+def _stack(keys, shape, layout: dict) -> tuple:
+    """(flat keys [K, 2], their leading shape, the counter layout) of a
+    draw of `shape`: RowKeys give their rows' segment (and take no other
+    layout)."""
+    if isinstance(keys, RowKeys):
+        if any(v is not None for v in layout.values()):
+            raise ValueError("RowKeys draw their rows' counters; give "
+                             "plain keys with a counter layout")
+        if not (0 <= keys.r0 and keys.r0 + shape[0] <= keys.rows):
+            raise ValueError(f"rows [{keys.r0}, {keys.r0 + shape[0]}) of "
+                             f"a batch of {keys.rows}")
+        layout = {"start": keys.r0 * math.prod(shape[1:])}
+        keys = keys.keys
     k = np.asarray(keys, dtype=np.uint32)
-    return k.reshape(-1, 2), k.shape[:-1]
+    given = {name: v for name, v in layout.items() if v is not None}
+    return k.reshape(-1, 2), k.shape[:-1], given
 
 
-def random_bits(keys, shape, device="cuda") -> torch.Tensor:
+def random_bits(keys, shape, device="cuda", *, start=None, seg_len=None,
+                seg_stride=None) -> torch.Tensor:
     """32-bit bits of each key of keys [..., 2] over `shape`: a [..., *shape]
-    int32 tensor holding the bits (on the card from kernel T)."""
+    int32 tensor holding the bits (on the card from kernel T) at the flat
+    positions of shape, or at the counters start, seg_len, seg_stride
+    (`counters`); RowKeys draw their rows of the global batch."""
     from ..ops.cuda import threefry
-    flat, lead = _stack(keys)
+    flat, lead, layout = _stack(keys, shape, dict(
+        start=start, seg_len=seg_len, seg_stride=seg_stride))
     n = math.prod(shape)
-    return threefry.threefry_bits(flat, n, device).view(*lead, *shape)
+    return threefry.threefry_bits(flat, n, device, **layout).view(*lead,
+                                                                  *shape)
 
 
 def uniform(keys, shape, minval: float, maxval: float,
@@ -194,10 +272,15 @@ def uniform(keys, shape, minval: float, maxval: float,
     return torch.maximum(lo, fused.float())
 
 
-def bernoulli(keys, p: float, shape, device="cuda") -> torch.Tensor:
+def bernoulli(keys, p: float, shape, device="cuda", *, start=None,
+              seg_len=None, seg_stride=None) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` of each key of keys [..., 2]:
-    [..., *shape] bool (on the card from kernel T)."""
+    [..., *shape] bool (on the card from kernel T); at the counters start,
+    seg_len, seg_stride where given (`counters`), and at the rank's rows
+    of the global batch for RowKeys."""
     from ..ops.cuda import threefry
-    flat, lead = _stack(keys)
+    flat, lead, layout = _stack(keys, shape, dict(
+        start=start, seg_len=seg_len, seg_stride=seg_stride))
     n = math.prod(shape)
-    return threefry.threefry_keep_mask(flat, n, p, device).view(*lead, *shape)
+    return threefry.threefry_keep_mask(flat, n, p, device,
+                                       **layout).view(*lead, *shape)

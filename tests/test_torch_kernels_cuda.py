@@ -39,7 +39,9 @@ kernels 3/4 and 6/7 at p = 0 for gradients without seeds.  Kernel 6
 T=1,120, B=1, T=37 and B = T = 1, both rates, bit-identical when called
 again, and at p = 0 bit-identical to kernel B on hs and mems.  Kernel T
 (jax.random's threefry bits and keep masks) bit for bit against its plain
-version, and weights drawn with it equal to the CPU's.
+version, and weights drawn with it equal to the CPU's; at a data-parallel
+rank's counters (one range, and a time-major site's segments) against the
+plain version at the same counters and the global draw's slice.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  On the card, where JAX
 (which tests/conftest.py sets up) is not installed:
@@ -800,3 +802,43 @@ def test_threefry_kernel_equals_its_plain_version(device, shape):
     card = build_model(cfg, seed=2, device=device).state_dict()
     for k, v in build_model(cfg, seed=2).state_dict().items():
         assert torch.equal(v, card[k].cpu()), k
+
+
+@pytest.mark.parametrize("layout", ["batch_major", "time_major"])
+def test_threefry_kernel_at_a_rank_counters(device, layout):
+    """Kernel T at rank 1's counters of 2 ranks: rows 16..31 of a
+    [32, 8, 160, 160] draw (one range, also through prng.RowKeys) and the
+    [160, 16, 64] part of a time-major [160, 32, 64] draw (160 segments),
+    bit for bit against the plain version at the same counters and the
+    global draw's slice; counters from 0 differ."""
+    import math
+
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.key(3), 2)
+    if layout == "batch_major":
+        shape, mine = (32, 8, 160, 160), (16, 8, 160, 160)
+        kw = dict(start=16 * 8 * 160 * 160)
+        part = lambda g: g[16:]
+    else:
+        shape, mine = (160, 32, 64), (160, 16, 64)
+        kw = dict(start=16 * 64, seg_len=16 * 64, seg_stride=32 * 64)
+        part = lambda g: g[:, 16:]
+    n = math.prod(mine)
+    glob = threefry.threefry_keep_mask(key[None], math.prod(shape), 0.9,
+                                       device).view(shape)
+    threefry.reset_launches()
+    mask = threefry.threefry_keep_mask(key[None], n, 0.9, device, **kw)
+    bits = threefry.threefry_bits(key[None], n, device, **kw)
+    assert threefry.launches == 2
+    assert torch.equal(mask, prng.keep_mask_plain(key[None], n, 0.9, device,
+                                                  **kw))
+    assert torch.equal(bits.long() & prng.M32,
+                       prng.random_bits_plain(key[None], n, device, **kw))
+    assert torch.equal(mask.view(mine), part(glob))
+    assert not torch.equal(mask, threefry.threefry_keep_mask(
+        key[None], n, 0.9, device))
+    if layout == "batch_major":
+        rows = prng.bernoulli(prng.RowKeys(key, 16, 32), 0.9, mine, device)
+        assert torch.equal(rows, part(glob))

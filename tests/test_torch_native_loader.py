@@ -12,13 +12,24 @@ on it (skipped where no C++ compiler builds the library):
   * the library is built in the port's `_build/` under its hashed name,
     the port never loads native/'s library, and nothing under native/
     changes; the reader logs which parser read a split, and keeps its
-    Python path where the library is missing.
+    Python path where the library is missing;
+  * the module fixture loads both libraries with retries
+    (`load_with_retries`): the JAX package's `make -C native` writes
+    native/libfastload.so in place, so a test worker can open another
+    worker's half-written library and keep the failure for the life of
+    the process; the retry is shown on a truncated library that a whole
+    one replaces.
 """
 
 import contextlib
 import hashlib
+import importlib.util
 import logging
+import os
 import shutil
+import subprocess
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -38,12 +49,44 @@ MODS = ("linguistic", "emotient", "image", "acoustic")
 NATIVE = Path(jnative._NATIVE_DIR)
 
 
+# the library loader's retries: at most RETRIES tries, sleeping 1, 2, 4,
+# ... seconds between them, within RETRY_SECONDS in all
+RETRIES, RETRY_SECONDS = 5, 60.0
+
+
+def load_with_retries(module, tries: int = RETRIES,
+                      seconds: float = RETRY_SECONDS,
+                      first_wait: float = 1.0) -> bool:
+    """Whether `module` (a native_loader of either package) loads its
+    library, trying again after clearing its cached failure (`_lib`,
+    `_tried`): a build by another process may still have been writing the
+    file that this one opened."""
+    deadline = time.monotonic() + seconds
+    wait = first_wait
+    for i in range(tries):
+        if module.available():
+            return True
+        left = deadline - time.monotonic()
+        if i + 1 == tries or left <= 0:
+            return False
+        time.sleep(min(wait, left))
+        wait *= 2
+        module._lib, module._tried = None, False
+    return False
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _toolchain():
-    """Decided here, not at import: both packages' libraries built."""
-    if (shutil.which("g++") is None or not native_loader.available()
-            or not jnative.available()):
-        pytest.skip("no C++ toolchain for native/")
+    """Decided here, not at import: skipped only without a C++ compiler;
+    with one, both packages' libraries must load."""
+    if shutil.which(os.environ.get("CXX", "g++")) is None:
+        pytest.skip("no C++ compiler (g++ or $CXX) on PATH")
+    for name, module in (("the port's", native_loader),
+                         ("the JAX package's native/", jnative)):
+        if not load_with_retries(module):
+            pytest.fail(f"{name} libfastload.so did not load after "
+                        f"{RETRIES} tries; the port's build_error: "
+                        f"{native_loader.build_error!r}")
 
 
 @contextlib.contextmanager
@@ -211,3 +254,67 @@ def test_reader_keeps_the_python_path_without_the_library(data_dir,
     for m in want.modalities:
         for g, w in zip(got.timers[m], want.timers[m], strict=True):
             assert g.tobytes() == w.tobytes()
+
+
+def _fresh_jax_loader(native_dir: Path):
+    """A second instance of the JAX package's native_loader module, its
+    library path pointed at native_dir."""
+    spec = importlib.util.spec_from_file_location("_jnative_race",
+                                                  jnative.__file__)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module._NATIVE_DIR = str(native_dir)
+    module._LIB_PATH = str(native_dir / "libfastload.so")
+    return module
+
+
+def test_retry_loads_a_library_another_build_was_still_writing(tmp_path):
+    """The race of the fixture: a libfastload.so that a linker has only
+    begun to write (its first 40 bytes: dlopen says "file too short")
+    fails the first load and the failure is cached; once a whole library
+    replaces it, the retry loads it.  (A file cut after its program
+    headers is mapped past its end, and touching that page is a SIGBUS:
+    not something to try in the test's process.)"""
+    whole_dir, race_dir = tmp_path / "whole", tmp_path / "race"
+    for d in (whole_dir, race_dir):
+        d.mkdir()
+        for f in ("fastload.cpp", "Makefile"):
+            shutil.copy(NATIVE / f, d / f)
+    subprocess.run(["make", "-C", str(whole_dir)], check=True,
+                   capture_output=True, timeout=120)
+    whole = (whole_dir / "libfastload.so").read_bytes()
+    lib = race_dir / "libfastload.so"
+    lib.write_bytes(whole[:40])
+    module = _fresh_jax_loader(race_dir)
+    assert not module.available() and module._tried  # the cached failure
+    assert not module.available()
+
+    def finish_the_build():
+        time.sleep(0.5)
+        tmp = race_dir / "whole.tmp"
+        tmp.write_bytes(whole)
+        os.replace(tmp, lib)
+
+    th = threading.Thread(target=finish_the_build)
+    th.start()
+    try:
+        assert load_with_retries(module, tries=5, seconds=20.0,
+                                 first_wait=0.2)
+    finally:
+        th.join()
+    assert module._lib._name == str(lib)
+    t = np.cumsum(np.random.RandomState(1).rand(50))
+    for g, w in zip(module.window_assign(t, 2.0),
+                    jnative.window_assign(t, 2.0), strict=True):
+        assert np.array_equal(g, w)
+
+
+def test_retry_gives_up_on_a_library_that_stays_truncated(tmp_path):
+    for f in ("fastload.cpp", "Makefile"):
+        shutil.copy(NATIVE / f, tmp_path / f)
+    (tmp_path / "libfastload.so").write_bytes(b"\x7fELF" + bytes(64))
+    module = _fresh_jax_loader(tmp_path)
+    start = time.monotonic()
+    assert not load_with_retries(module, tries=3, seconds=5.0,
+                                 first_wait=0.1)
+    assert time.monotonic() - start < 5.0

@@ -5,7 +5,10 @@ CPU, ranks on gloo over a FileStore:
   * `DropoutSeeds.for_rows`: for every dropout site, a rank's mask at its
     rows of a batch of 5 rows over 2 ranks is the global (padded) batch's
     mask at those rows; unshifted seeds give another mask (the negative
-    control);
+    control); the same on the threefry stream, where the rank's keys
+    (`prng.RowKeys`) draw its rows' counters and the keys drawn from
+    counter 0 give another mask, and for the MFN head's time-major `out`
+    site;
   * 2 ranks (one spawn, `tests/torch_parallel_ranks.py`) against the JAX
     `Engine(mesh=make_mesh(2))` from the same weights and dropout seeds, as
     tests/test_parallel.py holds that Engine to one device: a B2-Trans A+L
@@ -15,9 +18,13 @@ CPU, ranks on gloo over a FileStore:
     `evaluate_batched` (CCCs rtol 1e-3, atol 1e-4); an MFT A+L epoch of batches of 5 videos, so each
     batch has a pad row and the MFN head's time-major `out` site indexes a
     global batch of 6 rows; a `train_epoch_resident` of a B2-Trans A split
-    of 5 videos; every rank ends with the same parameters; the negative
-    controls (seeds not shifted to the rank's rows, or the `out` site
-    indexed by the rank's own rows) fail the same comparison;
+    of 5 videos; each of the three again on the threefry stream
+    (`Engine(..., dropout_impl="threefry")` against the JAX mesh Engine
+    under `set_dropout_impl("threefry")`; the B2-Trans epoch over 8
+    videos, two full batches); every rank ends with the same
+    parameters; the negative controls (seeds not shifted to the rank's
+    rows, or the `out` site indexed by the rank's own rows), on both
+    streams, fail the same comparison;
   * tensor parallelism on a 2 x 2 ("data", "model") mesh (one spawn of 4
     ranks): each rank's parameter shards equal the JAX `shard_params_tp`
     shards on the same mesh position, and the eval forward of B2-Trans A+L
@@ -40,7 +47,6 @@ import numpy as np
 import pytest
 import torch
 from make_goldens import SMALL_DIMS
-from test_torch_train import jax_family_seeds
 
 import torch_parallel_ranks as ranks
 from multimodal_transformer_tpu.data.batching import \
@@ -59,7 +65,7 @@ from multimodal_transformer_tpu.parallel.tp import \
     shard_params_tp as jshard_params_tp
 from multimodal_transformer_tpu_torch import build_model
 from multimodal_transformer_tpu_torch.ops import mfn_core
-from multimodal_transformer_tpu_torch.ops.basic import hash_keep_mask
+from multimodal_transformer_tpu_torch.ops.basic import dropout, hash_keep_mask
 from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
 from multimodal_transformer_tpu_torch.utils import prng
 from multimodal_transformer_tpu_torch.parallel import (make_mesh,
@@ -90,6 +96,7 @@ NOISE_ULPS = 32
 NOISE_STEP_BOUND = 2.1
 NOISE_MAX_SHARE = 1e-3
 CCC_RTOL, CCC_ATOL = 1e-3, 1e-4
+POOL = 3  # processes running the JAX side beside this one
 TP_RTOL, TP_ATOL = 1e-4, 1e-5
 
 
@@ -106,22 +113,23 @@ def test_pad_batch_rows_matches_jax(rows, multiple):
 SITE_B, SITE_T = 5, 3
 
 
-def _site_table():
+def _site_table(impl: str = "hash"):
     """site -> (seed, per-row elements) at T = SITE_T, from the sites of an
     MFT A+L (front ends, encoders, gamma hiddens), an SFT A+L (embed) and
-    a B1-LSTM A+L (decoder)."""
+    a B1-LSTM A+L (decoder); impl "threefry" keeps the keys."""
     out = {}
     for i, family in enumerate(("MFT", "SFT", "B1-LSTM")):
         cfg = ranks.config({"family": family, "mods": AL,
                             "mask_mode": "key_query", "dims": SMALL_DIMS})
         sites = build_model(cfg).dropout_sites()
-        seeds = DropoutSeeds.from_key(sites, prng.key(i), SITE_T)
+        seeds = DropoutSeeds.from_key(sites, prng.key(i), SITE_T, impl)
         out[family] = (sites, seeds)
     return out
 
 
-def _per_row(site: str, sites, T: int):
-    """(getter of the site's seed from DropoutSeeds, elements per row)."""
+def _per_row(site: str, sites, T: int, value=int):
+    """(getter of the site's seed from DropoutSeeds, elements per row);
+    value: applied to a table's entry (int for a hash seed)."""
     if site.startswith("front_"):
         i = int(site[-1])
         m = sites.front[i]
@@ -130,11 +138,11 @@ def _per_row(site: str, sites, T: int):
         col = int(site[-1])
         d, f, h = sites.encoder_dims[0]
         name = sites.encoders[0]
-        return ((lambda s: int(s.encoder[name][2, col])),
+        return ((lambda s: value(s.encoder[name][2][col])),
                 (h * T * T, T * d, T * f, T * d)[col])
     if site.startswith("gamma_"):
         col = int(site[-1])
-        return (lambda s: int(s.mfn[1, col])), sites.gamma_widths[col]
+        return (lambda s: value(s.mfn[1][col])), sites.gamma_widths[col]
     return (lambda s: getattr(s, site)), T * getattr(sites, f"{site}_width")
 
 
@@ -164,16 +172,62 @@ def test_for_rows_gives_the_global_mask_at_the_rank_rows(family, site):
                                    glob[r * local:(r + 1) * local])
 
 
-def test_mfn_head_out_site_indexes_the_global_batch():
+@pytest.mark.parametrize("family,site", SITES)
+def test_for_rows_gives_the_global_threefry_mask_at_the_rank_rows(family,
+                                                                  site):
+    """The rank's keys draw its rows of the global (padded) batch's
+    `bernoulli` through `dropout`, as one range of counters."""
+    sites, seeds = _site_table("threefry")[family]
+    get, per_row = _per_row(site, sites, SITE_T, value=lambda k: k)
+    rows = SITE_B + SITE_B % RANKS
+    local = rows // RANKS
+    glob = prng.bernoulli(get(seeds), 0.5, (rows, per_row), "cpu")
+    ones = torch.ones(local, per_row)
+    for r in range(RANKS):
+        shifted = seeds.for_rows(sites, r * local, rows, SITE_T)
+        assert shifted.rows == (r * local, rows)
+        key = get(shifted)
+        assert isinstance(key, prng.RowKeys) and key.r0 == r * local
+        mine = dropout(ones, key, 0.5) != 0
+        assert torch.equal(mine, glob[r * local:(r + 1) * local])
+        if r > 0:  # the negative control: counters from 0 give another mask
+            assert not torch.equal(dropout(ones, get(seeds), 0.5) != 0,
+                                   glob[r * local:(r + 1) * local])
+
+
+def test_threefry_gamma_masks_of_a_rank_are_the_global_masks():
+    """mfn_core.gamma_masks with a rank's [T, 2] RowKeys table: each step's
+    two [local, 64] masks are the global batch's at the rank's rows."""
+    sites, seeds = _site_table("threefry")["MFT"]
+    cfg = ranks.config({"family": "MFT", "mods": AL, "mask_mode": "key_query",
+                        "dims": SMALL_DIMS})
+    mfn = build_model(cfg, device="meta").Transformer.mfn
+    rows, local = 6, 3
+    glob = mfn_core.gamma_masks(mfn, seeds.mfn, torch.empty(rows, SITE_T))
+    for r0 in (0, local):
+        mine = mfn_core.gamma_masks(
+            mfn, seeds.for_rows(sites, r0, rows, SITE_T).mfn,
+            torch.empty(local, SITE_T))
+        assert torch.equal(mine, glob[:, :, r0:r0 + local])
+    assert not torch.equal(mfn_core.gamma_masks(mfn, seeds.mfn, torch.empty(
+        local, SITE_T)), glob[:, :, local:])
+
+
+def _head_inputs(rows: int, T: int):
     cfg = ranks.config({"family": "MFT", "mods": AL, "mask_mode": "key_query",
                         "dims": SMALL_DIMS})
     mfn = build_model(cfg, seed=1).Transformer.mfn
-    rows, local, T = 6, 3, 4
     rs = np.random.RandomState(0)
     total_h = mfn.out_fc1.in_features - mfn_core.MEM_DIM
     hs = torch.from_numpy(rs.randn(rows, T, total_h).astype(np.float32))
     mems = torch.from_numpy(rs.randn(rows, T, mfn_core.MEM_DIM).astype(
         np.float32))
+    return mfn, hs, mems
+
+
+def test_mfn_head_out_site_indexes_the_global_batch():
+    rows, local, T = 6, 3, 4
+    mfn, hs, mems = _head_inputs(rows, T)
     with torch.no_grad():
         want = mfn_core.mfn_head(mfn, hs, mems, out_seed=123)
         for r0 in (0, local):
@@ -183,6 +237,25 @@ def test_mfn_head_out_site_indexes_the_global_batch():
                                        atol=0)
         own = mfn_core.mfn_head(mfn, hs[local:], mems[local:], 123)
     assert not torch.equal(own, want[local:])
+
+
+def test_mfn_head_threefry_out_site_draws_the_rank_segments():
+    """The threefry `out` key over a rank's rows draws T segments of the
+    global time-major [T, rows, 64] draw; drawn over the rank's own rows
+    (counters from 0, one segment) it gives another mask, on either
+    rank."""
+    rows, local, T = 6, 3, 4
+    mfn, hs, mems = _head_inputs(rows, T)
+    key = prng.fold_in(prng.key(123), 7)
+    with torch.no_grad():
+        want = mfn_core.mfn_head(mfn, hs, mems, out_seed=key)
+        for r0 in (0, local):
+            part = slice(r0, r0 + local)
+            got = mfn_core.mfn_head(mfn, hs[part], mems[part], key,
+                                    (r0, rows))
+            torch.testing.assert_close(got, want[part], rtol=0, atol=0)
+            own = mfn_core.mfn_head(mfn, hs[part], mems[part], key)
+            assert not torch.equal(own, want[part])
 
 
 # ----------------------------------------------------------- data parallel
@@ -195,27 +268,44 @@ def _data(mods, V, T, lens, seed):
 
 
 def _case(family, mods, *, V, T, lens, batch_size, kind="epoch", seed=3,
-          evaluate=False, pad_time_to=None):
+          evaluate=False, pad_time_to=None, impl="hash"):
     x, y = _data(mods, V, T, lens, seed)
     return dict(family=family, mods=mods, mask_mode="key_query",
                 dims=SMALL_DIMS, seed=seed, x=x, y=y, lens=lens,
                 batch_size=batch_size, shuffle_seed=9, kind=kind,
-                evaluate=evaluate, pad_time_to=pad_time_to, key=seed + 2)
+                evaluate=evaluate, pad_time_to=pad_time_to, key=seed + 2,
+                impl=impl)
 
 
-DP_CASES = {
-    # tests/test_parallel.py:110, over 2 ranks, every batch at T = 8
-    "b2": _case("B2-Trans", AL, V=6, T=8, lens=[8, 8, 7, 6, 8, 5],
-                batch_size=4, evaluate=True, pad_time_to=8),
-    # batches of 5: a pad row each, the `out` site at B_pad = 6
-    "mft": _case("MFT", AL, V=10, T=6, lens=[6, 5, 6, 4, 6, 6, 3, 6, 2, 5],
-                 batch_size=5, pad_time_to=6),
-    # tests/test_parallel.py:179, V = 5 over 2 ranks
-    "resident": _case("B2-Trans", ("acoustic",), V=5, T=5,
-                      lens=[5, 5, 4, 3, 2], batch_size=4, kind="resident"),
-}
+def _cases(impl: str, suffix: str = "") -> dict:
+    hash_ = impl == "hash"
+    return {
+        # tests/test_parallel.py:110, over 2 ranks, every batch at T = 8;
+        # the evaluations on the hash case; on the threefry stream two full
+        # batches (one JAX compile of the step, not two)
+        "b2" + suffix: _case("B2-Trans", AL, V=6 if hash_ else 8, T=8,
+                             lens=[8, 8, 7, 6, 8, 5] + ([] if hash_
+                                                        else [7, 8]),
+                             batch_size=4, evaluate=hash_, pad_time_to=8,
+                             impl=impl),
+        # batches of 5: a pad row each, the `out` site at B_pad = 6
+        "mft" + suffix: _case("MFT", AL, V=10, T=6,
+                              lens=[6, 5, 6, 4, 6, 6, 3, 6, 2, 5],
+                              batch_size=5, pad_time_to=6, impl=impl),
+        # tests/test_parallel.py:179, V = 5 over 2 ranks
+        "resident" + suffix: _case("B2-Trans", ("acoustic",), V=5, T=5,
+                                   lens=[5, 5, 4, 3, 2], batch_size=4,
+                                   kind="resident", impl=impl),
+    }
+
+
+# the hash stream's cases, then the threefry stream's (kernel T's masks on
+# the card; its plain version here)
+DP_CASES = {**_cases("hash"), **_cases("threefry", "_threefry")}
 CONTROLS = {"b2_unshifted": ("b2", "unshifted"),
-            "mft_local_out": ("mft", "local_out")}
+            "mft_local_out": ("mft", "local_out"),
+            "b2_threefry_unshifted": ("b2_threefry", "unshifted"),
+            "mft_threefry_local_out": ("mft_threefry", "local_out")}
 
 
 def _steps_T(case):
@@ -278,7 +368,6 @@ def _jax_mesh_engine(name: str, tree) -> dict:
     and evaluations.  Runs in a process of its own (the module-scoped
     pool) or in the test's."""
     jax.config.update("jax_platforms", "cpu")
-    jbasic.set_dropout_impl("hash")
     case = DP_CASES[name]
     key = jax.random.PRNGKey(case["key"])
     _, apply = jbuild_model(_jax_cfg(case))
@@ -290,17 +379,21 @@ def _jax_mesh_engine(name: str, tree) -> dict:
         eng = jtrain_engine.Engine(_jax_cfg(case), lr=LR, seed=0,
                                    mesh=jmake_mesh(RANKS), nan_guard=False)
     out = {}
-    if case["kind"] == "resident":
-        st = eng.upload_dataset(case["x"], case["y"], case["lens"])
-        out["loss"] = eng.train_epoch_resident(
-            st, batch_size=case["batch_size"], rng=ranks.NoShuffle(),
-            jax_rng=key)
-    else:
-        out["loss"] = eng.train_epoch(
-            case["x"], case["y"], case["lens"],
-            batch_size=case["batch_size"],
-            rng=np.random.RandomState(case["shuffle_seed"]),
-            jax_rng=key, pad_time_to=case["pad_time_to"])
+    jbasic.set_dropout_impl(case["impl"])
+    try:
+        if case["kind"] == "resident":
+            st = eng.upload_dataset(case["x"], case["y"], case["lens"])
+            out["loss"] = eng.train_epoch_resident(
+                st, batch_size=case["batch_size"], rng=ranks.NoShuffle(),
+                jax_rng=key)
+        else:
+            out["loss"] = eng.train_epoch(
+                case["x"], case["y"], case["lens"],
+                batch_size=case["batch_size"],
+                rng=np.random.RandomState(case["shuffle_seed"]),
+                jax_rng=key, pad_time_to=case["pad_time_to"])
+    finally:
+        jbasic.set_dropout_impl(None)
     out["params"] = {k: np.asarray(v)
                      for k, v in flatten_tree(eng.params).items()}
     assert sorted(steps) == list(range(len(_steps_T(case))))
@@ -476,8 +569,12 @@ def runs():
                                                  seed=case["seed"]))
                  for name, case in DP_CASES.items()}
         first, *rest = DP_CASES
+        # the longest JAX compiles first (the MFT steps, the threefry
+        # steps), over POOL processes
+        rest.sort(key=lambda n: (not n.startswith("mft"),
+                                 DP_CASES[n]["impl"] == "hash"))
         with ProcessPoolExecutor(
-                len(rest), mp_context=multiprocessing.get_context("spawn")
+                POOL, mp_context=multiprocessing.get_context("spawn")
                 ) as pool:
             futures = {name: pool.submit(_jax_mesh_engine, name, trees[name])
                        for name in rest}
@@ -485,8 +582,11 @@ def runs():
             rank_cases = {}
             for name, case in DP_CASES.items():
                 cfg, key = ranks.config(case), jax.random.PRNGKey(case["key"])
+                sites = build_model(cfg, device="meta").dropout_sites()
                 rank_cases[name] = dict(case, seeds=[
-                    jax_family_seeds(jax.random.fold_in(key, i), cfg, T)
+                    DropoutSeeds.from_key(sites, np.asarray(
+                        jax.random.key_data(jax.random.fold_in(key, i))), T,
+                        case["impl"])
                     for i, T in enumerate(_steps_T(case))])
             for name, (base, control) in CONTROLS.items():
                 rank_cases[name] = dict(rank_cases[base], evaluate=False,

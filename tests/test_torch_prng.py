@@ -5,6 +5,12 @@ on the CPU:
     `random_bits`, `uniform` and `bernoulli` bit for bit at odd shapes and
     past 2**16 elements (kernel T's plain version); `hash_seed` against
     the JAX package's;
+  * the counters of a data-parallel rank: a `jax.random.bernoulli` under
+    `jit`, sharded over the 8 host devices' "data" axis, equals the
+    unsharded draw, and each shard equals kernel T's plain version at the
+    shard's counters (a batch-major site as `prng.RowKeys`, a time-major
+    [T, B, 64] site as T segments), which counters from 0 do not; the
+    wrapper hands the layout to the C entry that takes it;
   * `Engine(cfg, seed=s)`'s initial parameters equal the JAX
     `Engine(cfg, seed=s)`'s, drawn on each side, bit for bit, for the five
     families at reduced modality widths and for the legacy ED/AR heads
@@ -22,6 +28,8 @@ on the CPU:
     learnability test's synthetic SENDv1 tree, no parameter carried
     across: every epoch loss and the Valid CCC within 1e-4 relative.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -157,9 +165,11 @@ def test_kernel_t_launches_once_for_each_block_of_keys(monkeypatch, mode):
 
     class Lib:
         @staticmethod
-        def mmtx_threefry(keys, K, n, mode, p, out, stream):
+        def mmtx_threefry(keys, K, n, mode, p, out, stream, start, seg_len,
+                          seg_stride):
             first = ctypes.cast(keys, ctypes.POINTER(ctypes.c_uint32))
-            calls.append((K, out, (first[0], first[1])))
+            calls.append((K, out, (first[0], first[1]),
+                          (start, seg_len, seg_stride)))
             return 0
 
     monkeypatch.setattr(threefry, "use_kernel", lambda t: True)
@@ -179,6 +189,115 @@ def test_kernel_t_launches_once_for_each_block_of_keys(monkeypatch, mode):
     assert [c[1] - out.data_ptr() for c in calls] == [0, 480 * n * size,
                                                        960 * n * size]
     assert [c[2] for c in calls] == [tuple(keys[k]) for k in (0, 480, 960)]
+    assert [c[3] for c in calls] == [(0, n, n)] * 3
+
+
+@pytest.mark.parametrize("layout,want", [
+    (None, (0, 192, 192)),
+    ((4096, 64, 256), (4096, 64, 256)),
+    ((4096, 64, 64), (4096, 192, 192)),    # contiguous: one segment
+    ((4096, 500, 7), (4096, 192, 192)),    # a segment longer than n
+])
+def test_kernel_t_counters_reach_the_c_entry(monkeypatch, layout, want):
+    """`mmtx_threefry` takes (start, seg_len, seg_stride), a layout whose
+    counters are contiguous as one segment of n, one launch a block of
+    MAX_KEYS keys (stand-in library)."""
+    import contextlib
+    import types
+
+    from multimodal_transformer_tpu_torch.ops.cuda import _build
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry
+
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def mmtx_threefry(keys, K, n, mode, p, out, stream, start, seg_len,
+                          seg_stride):
+            calls.append((K, n, mode, start, seg_len, seg_stride))
+            return 0
+
+    monkeypatch.setattr(threefry, "use_kernel", lambda t: True)
+    monkeypatch.setattr(_build, "load", lambda *a, **k: Lib)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    keys = prng.split(prng.key(4), 500)
+    n = 192
+    kw = {} if layout is None else dict(zip(("start", "seg_len",
+                                             "seg_stride"), layout))
+    threefry.reset_launches()
+    threefry.threefry_keep_mask(keys, n, 0.9, "cpu", **kw)
+    threefry.threefry_bits(keys, n, "cpu", **kw)
+    assert threefry.launches == 4
+    assert [c[:3] for c in calls] == [(480, n, 1), (20, n, 1), (480, n, 0),
+                                      (20, n, 0)]
+    assert all(c[3:] == want for c in calls)
+
+
+def test_counters_and_row_keys_refuse_what_they_cannot_draw():
+    pk = prng.key(3)
+    with pytest.raises(ValueError, match="counters"):
+        prng.bernoulli(pk, 0.5, (4,), "cpu", seg_len=0)
+    with pytest.raises(ValueError, match="counters"):
+        prng.random_bits(pk, (4,), "cpu", start=-1)
+    rk = prng.RowKeys(pk, 2, 4)
+    assert prng.is_keys(rk) and prng.is_keys(prng.RowKeys(
+        prng.split(pk, 3), 0, 2)[1])
+    with pytest.raises(ValueError, match="RowKeys"):
+        prng.bernoulli(rk, 0.5, (2, 3), "cpu", start=6)
+    with pytest.raises(ValueError, match="rows"):
+        prng.bernoulli(rk, 0.5, (3, 3), "cpu")  # rows [2, 5) of 4
+
+
+# ------------------------------------------- a rank's counters of a draw
+
+SHARDED = {  # (global shape, sharded axis): the two layouts of dropout sites
+    "batch_major": ((16, 2, 5, 5), 0),   # [B, h, T, T]
+    "time_major": ((3, 16, 64), 1),      # the MFN head's [T, B, 64]
+}
+
+
+@pytest.mark.parametrize("site", list(SHARDED))
+def test_sharded_bernoulli_is_the_global_draw_at_the_rank_counters(site):
+    """What the JAX mesh Engine's dropout does: `jax.random.bernoulli`
+    partitioned over "data" draws the global mask bit for bit; kernel T's
+    plain version at each shard's counters gives that shard."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+
+    shape, axis = SHARDED[site]
+    devices = jax.devices()
+    assert len(devices) == 8
+    mesh = Mesh(np.array(devices), ("data",))
+    spec = PartitionSpec(*([None] * axis + ["data"]))
+    jk, pk = _chain_key(12)
+    keep = 0.8
+    want = np.asarray(jax.random.bernoulli(jk, keep, shape))
+    sharded = jax.jit(lambda k: jax.random.bernoulli(k, keep, shape),
+                      out_shardings=NamedSharding(mesh, spec))(jk)
+    assert len(sharded.addressable_shards) == 8
+    assert (np.asarray(sharded) == want).all()
+    rows = shape[axis]
+    local = rows // 8
+    per = math.prod(shape[axis + 1:])  # elements of a row at the axis
+    n = math.prod(shape) // 8
+    for shard in sharded.addressable_shards:
+        r0 = shard.index[axis].start
+        mine = np.asarray(shard.data)
+        if site == "batch_major":
+            got = prng.keep_mask_plain(pk[None], n, keep, "cpu",
+                                       start=r0 * per)
+            via_rows = prng.bernoulli(prng.RowKeys(pk, r0, rows), keep,
+                                      mine.shape, "cpu")
+            assert (via_rows.numpy() == mine).all()
+        else:
+            got = prng.keep_mask_plain(pk[None], n, keep, "cpu",
+                                       start=r0 * per, seg_len=local * per,
+                                       seg_stride=rows * per)
+        assert (got.view(mine.shape).numpy() == mine).all(), r0
+        from_zero = prng.keep_mask_plain(pk[None], n, keep, "cpu")
+        if r0 > 0:  # the negative control: counters from 0 differ
+            assert not (from_zero.view(mine.shape).numpy() == mine).all()
 
 
 def test_hash_seed_equals_jax():

@@ -38,8 +38,9 @@ _FOR_ROWS = DropoutSeeds.for_rows
 
 
 def _unshifted(self, sites, r0, rows, T):
-    """for_rows without the shift: every rank draws the masks of the
-    global batch's first rows."""
+    """for_rows without the shift (hash seeds) or without the rows' counters
+    (threefry keys): every rank draws the masks of the global batch's first
+    rows."""
     return dataclasses.replace(self, rows=(r0, rows))
 
 
@@ -56,7 +57,7 @@ def _run_case(mesh, case: dict) -> dict:
     cfg = config(case)
     seeds = case["seeds"]
     eng = Engine(cfg, lr=1e-3, seed=case["seed"], device="cpu",
-                 nan_guard=False, mesh=mesh,
+                 nan_guard=False, mesh=mesh, dropout_impl=case["impl"],
                  seed_fn=lambda step, T: seeds[step])
     out = {}
     DropoutSeeds.for_rows = CONTROLS[case.get("control")]
