@@ -103,9 +103,14 @@ any failure exits nonzero:
    recurrence) bit-identical when called again at every case, also at
    T=400 with p = 0 and at small shapes with L alone and
    emotient+acoustic, both rates, and kernel 6 at B=1, T=37 and B=2,
-   T=1,120; then kernels 6 and 7's device ms per stage and kernel 3's and
-   kernel 4's device ms per launch name at B=32, T=160 (torch.profiler),
-   bf16 and fp32;
+   T=1,120; then kernels 3, 4 and 5 on the "hash4" dropout stream
+   (hash4=True with the seed table: multi-bit keep bits), fp32 (FMA
+   route) and bf16 (wgmma route), at B=32, T=160 (6 layers, timed beside
+   the hash stream's checks) and at T=137 (T % 4 != 0: the attention
+   site's per-element fallback; stacks of 2), each bit-identical when
+   called again; then kernels 6 and 7's device ms per stage and kernel
+   3's and kernel 4's device ms per launch name at B=32, T=160
+   (torch.profiler), bf16 and fp32, on the hash and the hash4 streams;
 11. train: Engine.train_epoch at full MFT A+V+L widths, bf16 mixed with fp32
    masters, dropout on, over 100 synthetic videos of 20-400 windows at
    batch size 25 (launch counters exact, every loss finite), then the same
@@ -116,7 +121,10 @@ any failure exits nonzero:
    relative L2), read again with the plain front end in place of kernel 10
    and with kernel 10's autograd Function on the plain forward; the same
    step twice gives bit-identical gradients; B=32, T=160 mixed steps are
-   timed on both paths and profiled;
+   timed on both paths and profiled; then the same fp32 step on
+   the "hash4" stream (kernel path against plain path, same limits,
+   launches counted) and a bf16 mixed `Engine(dropout_impl="hash4")`
+   step (launches counted, finite, ms/step beside the hash Engine's);
 12. dropout-free training: fp32 steps without seeds for MFT A+V+L and
    B3-MFN A+V+L at B=32, T=160: the training kernels at p = 0 and never
    kernel A or B, exact launches, every parameter with a gradient that is
@@ -192,15 +200,27 @@ any failure exits nonzero:
    three times, no encoder or MFN kernel; the host's ms to derive one hash
    step's seeds; `python -m multimodal_transformer_tpu_torch.train
    --family B3-MFN --comb AL --epochs 1 --dropout_impl threefry
-   --visualize --synthetic_data` as a subprocess, then `--test
+   --fast_rng --visualize --synthetic_data` as a subprocess, then `--test
    --visualize` on its checkpoint in process (the JAX CLI plots when it
    evaluates), whose B3-MFN_Test_eval.png and _fits.png must decode;
+   then kernel P (csrc/philox.cu, XLA's Philox bits of rbg keys,
+   the JAX CLI's --fast_rng) bit for bit against its plain version at
+   [32, 8, 160, 160], an odd shape and the gamma keys, at rank 1's half of
+   the [32, 8, 160, 160] site and its part of the [160, 32, 64]
+   time-major site, timed beside its bound (from the SASS of its
+   keep-mask kernel, as kernel T's); MFT A+V+L weights under rbg keys
+   drawn on the card equal to the CPU's; an fp32 MFT A+V+L step under
+   rbg keys on the "threefry" dropout on the card within 1e-4 of the
+   CPU's, every mask from kernel P (78 launches: the 320 gamma keys take
+   two of 240, kernel T none, its plain version never called on the
+   card);
 18. train A/B: the MFT A+V+L mixed step with encoder_backward "perlayer"
    and "stack", alternated, ms/step and launches (kernel 5 three times per
    step on "stack", kernel 4 never).
 
 The line before the last is a JSON object with each kernel's launches
-(the variants' from phase 5, kernel T's from phase 17's threefry step),
+(the variants' from phase 5, kernel T's and kernel P's from phase 17's
+threefry steps),
 error, times, bound (the least time an H100 SXM could take, from the
 check's shapes) and, for kernel 11, the time of PyTorch's
 scaled_dot_product_attention on the same inputs; the last line is
@@ -232,6 +252,8 @@ REQUESTS, VIDEOS, MIN_WINDOWS, MAX_WINDOWS = 3, 20, 20, 400
 BENCH_B, BENCH_T = 32, 160
 TRAIN_VIDEOS, TRAIN_BATCH = 100, 25
 TRAIN_T = (160, 400)
+# the "hash4" checks' T with T % 4 != 0: the attention site's fallback
+HASH4_ODD_T = 137
 # one fp32 step, kernel path against plain path: the masks are bit-identical,
 # so only the order of float32 sums differs.  A gradient passes when
 # |g_kernel - g_plain| <= GRAD_RTOL |g_plain| + GRAD_FLOOR |all grads|: the
@@ -419,12 +441,13 @@ ENC_WGMMA = "enc_wgmma"
 ENC_WGMMA_SASS = (("enc_wgmma12chain_kernel", ("HGMMA",)),
                   ("enc_wgmma16attention_kernel", ("HGMMA", "UTMALDG")))
 # kernel 3's bf16 wgmma path: kernel A's row chain in its training
-# instantiation (csrc/encoder.cu) and kernel 4's attention forward without
-# its row statistics (csrc/encoder_bwd.cu), by their mangled names
-ENC_TRAIN_FWD_CHAINS = tuple(f"enc_wgmma12chain_kernelILi{D}ELi128ELb1E"
-                             for D in (128, 256))
-ENC_TRAIN_FWD_ATTN = tuple(f"enc_bwd15attn_fwd_kernelILi{dk}ELb0E"
-                           for dk in (16, 32))
+# instantiations (csrc/encoder.cu) and kernel 4's attention forward without
+# its row statistics (csrc/encoder_bwd.cu), by their mangled names, on the
+# "hash" (Lb0E) and "hash4" (Lb1E) dropout streams
+ENC_TRAIN_FWD_CHAINS = tuple(f"enc_wgmma12chain_kernelILi{D}ELi128ELb1ELb{h}E"
+                             for D in (128, 256) for h in (0, 1))
+ENC_TRAIN_FWD_ATTN = tuple(f"enc_bwd15attn_fwd_kernelILi{dk}ELb0ELb{h}E"
+                           for dk in (16, 32) for h in (0, 1))
 ENC_TRAIN_FWD_SASS = tuple((k, ("HGMMA", "UTMALDG"))
                            for k in ENC_TRAIN_FWD_CHAINS + ENC_TRAIN_FWD_ATTN)
 # kernels 4 and 5's bf16 wgmma path (csrc/encoder_bwd.cu), by namespace and
@@ -961,6 +984,29 @@ def run_train_kernel_checks(torch, device):
         report(verify.check_encoder_stack_bwd(
             32, T, torch.bfloat16, device=device, p=p, reps=0, D=D,
             n_layers=2, repeat=True))
+    # kernels 3, 4 and 5 on the "hash4" stream: the fp32 (FMA) and bf16
+    # (wgmma) routes at the bench shape, timed, and at T % 4 != 0, where the
+    # attention site falls back to the per-element bits (stacks of 2)
+    enc_fns = fns[:3]
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, layers, reps in ((BENCH_T, verify.TRAIN_LAYERS, 5),
+                                (HASH4_ODD_T, 2, 0)):
+            for fn in enc_fns:
+                kw = ({} if fn is verify.check_encoder_layer_bwd
+                      else {"n_layers": layers})
+                report(fn(32, T, dtype, device=device, reps=reps,
+                          repeat=True, stream="hash4", **kw))
+    shape = f"B={BENCH_B} T={BENCH_T} D=256"
+    for name in ("encoder_stack_train_fwd", "encoder_layer_bwd",
+                 "encoder_stack_bwd"):
+        for dtype in ("float32", "bfloat16"):
+            ms = {c.shape: c.ms for c in checks
+                  if c.name == name and c.dtype == dtype}
+            print(f"{name} {shape} {dtype}: hash "
+                  f"{ms.get(shape, math.nan):.3f} ms, hash4 "
+                  f"{ms.get('hash4 ' + shape, math.nan):.3f} ms a call (CUDA "
+                  f"events, bursts of {verify.KERNEL_BURST}); {card_line()}",
+                  flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for name, stage_ms in (("mfn_train_fwd", verify.mfn_train_fwd_stage_ms),
                                ("mfn_train_bwd",
@@ -971,23 +1017,27 @@ def run_train_kernel_checks(torch, device):
                   "profiler): " + ", ".join(f"{k} {v:.4f}"
                                             for k, v in stages.items()),
                   flush=True)
+    # kernels 3 and 4's device ms per launch name on both hash streams
     for dtype in (torch.bfloat16, torch.float32):
-        ms = verify.encoder_train_fwd_kernel_ms(BENCH_B, BENCH_T, dtype,
-                                                device=device, calls=5)
-        print(f"encoder_stack_train_fwd kernels, B={BENCH_B} T={BENCH_T} "
-              f"{str(dtype).split('.')[-1]}, device ms per stack (torch."
-              f"profiler, events captured over 5 calls), "
-              f"{sum(v for v, _ in ms.values()):.4f} in all: "
-              + ", ".join(f"{k} {v:.4f} ({n})" for k, (v, n) in ms.items()),
-              flush=True)
-        ms = verify.encoder_bwd_kernel_ms(BENCH_B, BENCH_T, dtype,
-                                          device=device, calls=5)
-        print(f"encoder_layer_bwd kernels, B={BENCH_B} T={BENCH_T} "
-              f"{str(dtype).split('.')[-1]}, device ms per call (torch."
-              f"profiler, events captured over 5 calls), "
-              f"{sum(v for v, _ in ms.values()):.4f} in all: "
-              + ", ".join(f"{k} {v:.4f} ({n})" for k, (v, n) in ms.items()),
-              flush=True)
+        for hash4 in (False, True):
+            stream = "hash4" if hash4 else "hash"
+            ms = verify.encoder_train_fwd_kernel_ms(
+                BENCH_B, BENCH_T, dtype, device=device, calls=5, hash4=hash4)
+            print(f"encoder_stack_train_fwd kernels, {stream}, B={BENCH_B} "
+                  f"T={BENCH_T} {str(dtype).split('.')[-1]}, device ms per "
+                  f"stack (torch.profiler, events captured over 5 calls), "
+                  f"{sum(v for v, _ in ms.values()):.4f} in all: "
+                  + ", ".join(f"{k} {v:.4f} ({n})"
+                              for k, (v, n) in ms.items()), flush=True)
+            ms = verify.encoder_bwd_kernel_ms(BENCH_B, BENCH_T, dtype,
+                                              device=device, calls=5,
+                                              hash4=hash4)
+            print(f"encoder_layer_bwd kernels, {stream}, B={BENCH_B} "
+                  f"T={BENCH_T} {str(dtype).split('.')[-1]}, device ms per "
+                  f"call (torch.profiler, events captured over 5 calls), "
+                  f"{sum(v for v, _ in ms.values()):.4f} in all: "
+                  + ", ".join(f"{k} {v:.4f} ({n})"
+                              for k, (v, n) in ms.items()), flush=True)
     bad = [c for c in checks if not c.ok]
     if bad:
         raise SmokeFailure(f"{len(bad)} train kernel check(s) outside the "
@@ -1234,6 +1284,69 @@ def run_train(torch, np, device):
             print(f"profile: not available ({type(e).__name__}: {e})",
                   flush=True)
     return got
+
+
+def run_hash4_train(torch, np, device) -> None:
+    """The "hash4" dropout stream on the MFT A+V+L training path at B=32,
+    T=160: an fp32 step of the kernel path against the plain path (the
+    train phase's limits), launches counted; a bf16 mixed
+    `Engine(dropout_impl="hash4")` step, launches counted, finite, its
+    ms/step beside the hash Engine's."""
+    from multimodal_transformer_tpu_torch import default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import time_ms
+    from multimodal_transformer_tpu_torch.ops.seeds import DropoutSeeds
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    B, T = BENCH_B, BENCH_T
+    batch = _bench_batch(np, Batch, cfg, B, T, seed=7)
+    want = {"encoder_stack_train_fwd": 3, "encoder_layer_bwd": 3 * 6,
+            "mfn_train_fwd": 1, "mfn_train_bwd": 1,
+            "window_embed_highway": 3}
+    f32 = Engine(cfg, seed=1, device=device, dropout_impl="hash4")
+    seeds = DropoutSeeds.from_key(f32.module.dropout_sites(), prng.key(4), T,
+                                  "hash4")
+    reset_counters()
+    loss_k, g_k = _grads(torch, f32, batch, seeds, plain=False)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_counters().items() if v}
+    loss_p, g_p = _grads(torch, f32, batch, seeds, plain=True)
+    hashed = DropoutSeeds.from_key(f32.module.dropout_sites(), prng.key(4), T)
+    loss_h, _ = _grads(torch, f32, batch, hashed, plain=False)
+    names = [n for n, _ in f32.module.named_parameters()]
+    text, worst = _worst_grad(names, g_k, g_p, _grad_norm(torch, g_p))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"hash4 fp32 step B={B} T={T}: loss kernel {loss_k:.6f} plain "
+          f"{loss_p:.6f} (rel {loss_rel:.2e}, tol {LOSS_RTOL:.0e}); {text}; "
+          f"launches {got}; the hash stream's loss {loss_h:.6f}", flush=True)
+    if loss_rel > LOSS_RTOL or worst > 1.0:
+        raise SmokeFailure("the fp32 hash4 kernel-path step disagrees with "
+                           "the plain path")
+    if got != want:
+        raise SmokeFailure(f"the hash4 step launched {got}, want {want}")
+    if loss_h == loss_k:
+        raise SmokeFailure("the hash4 seeds gave the hash stream's loss")
+
+    on_card = _on_card(torch, Batch, batch, device)
+    ms = {}
+    for impl in ("hash", "hash4"):
+        mixed = Engine(cfg, seed=1, train_dtype=torch.bfloat16, device=device,
+                       dropout_impl=impl)
+        reset_counters()
+        loss = mixed.train_step(on_card)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_counters().items() if v}
+        if got != want or not math.isfinite(loss):
+            raise SmokeFailure(f"the bf16 {impl} step: loss {loss}, "
+                               f"launches {got} (want {want})")
+        ms[impl] = time_ms(lambda: mixed.train_step(on_card), reps=9)
+        print(f"{impl} bf16 mixed Engine step B={B} T={T}: loss "
+              f"{loss:.6f}, launches {got}", flush=True)
+    print(f"bf16 mixed ms/step from a batch on the card (median, CUDA "
+          f"events): hash {ms['hash']:.3f}, hash4 {ms['hash4']:.3f}; "
+          f"{card_line()}", flush=True)
 
 
 def run_dropout_free_train(torch, np, device) -> None:
@@ -2811,15 +2924,206 @@ def _threefry_rank_ranges(torch, device, key, card, ops: float) -> None:
             raise SmokeFailure(f"kernel T at the rank's counters of {name}")
 
 
-def run_random_streams(torch, np, device) -> dict:
+# kernel P (csrc/philox.cu): its keep-mask kernel on one segment, whose
+# integer instructions a thread (one counter: 4 elements) give its bound
+PHILOX_KEEP_SASS = "philox_kernelILi1ELb0E"
+PHILOX_SHAPES = THREEFRY_SHAPES
+
+
+def _philox_checks(torch, device, card) -> tuple:
+    """Kernel P bit for bit against its plain version (bits and keep
+    masks) at PHILOX_SHAPES and on the gamma keys, at rank THREEFRY_RANK's
+    half of the [B, h, T, T] site (one range) and its part of the
+    time-major [T, B, 64] site (T segments), against the plain version at
+    those elements and the global draw's slice; timed beside its bound.
+    Returns (keep-mask ms, plain ms, bound ms, bound_by) at the [B, h, T,
+    T] site."""
+    from multimodal_transformer_tpu_torch.ops.cuda import _build
+    from multimodal_transformer_tpu_torch.ops.cuda import philox as ph_k
+    from multimodal_transformer_tpu_torch.ops.cuda.verify import (
+        kernel_device_ms, time_ms)
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.split(prng.key(20, "rbg"), 3)[2], 7)
+    cases = [("[" + ", ".join(map(str, s)) + "]", key[None], math.prod(s),
+              {}) for s in PHILOX_SHAPES]
+    cases.append((f"gamma keys [{BENCH_T}, 2] x [{BENCH_B}, 64]",
+                  prng.split(prng.split(key, BENCH_T), 2).reshape(-1, 4),
+                  BENCH_B * 64, {}))
+    B, h, T = PHILOX_SHAPES[0][:3]
+    local = B // PAR_RANKS
+    r0 = THREEFRY_RANK * local
+    W = THREEFRY_OUT_W
+    # (name, global shape, the rank's shape, its elements, its slice)
+    ranks = [(f"[{B}, {h}, {T}, {T}] rows {r0}..{r0 + local - 1}",
+              (B, h, T, T), (local, h, T, T), dict(start=r0 * h * T * T),
+              lambda g: g[r0:r0 + local]),
+             (f"[{T}, {B}, {W}] time-major rows {r0}..{r0 + local - 1}",
+              (T, B, W), (T, local, W),
+              dict(start=r0 * W, seg_len=local * W, seg_stride=B * W),
+              lambda g: g[:, r0:r0 + local])]
+    for name, _, mine, layout, _ in ranks:
+        cases.append((f"rank {THREEFRY_RANK} of {PAR_RANKS} {name}",
+                      key[None], math.prod(mine), layout))
+    for name, keys, n, layout in cases:
+        ph_k.reset_launches()
+        bits = ph_k.philox_bits(keys, n, device, **layout)
+        mask = ph_k.philox_keep_mask(keys, n, THREEFRY_KEEP, device, **layout)
+        launches = ph_k.launches
+        want = 2 * -(-len(keys) // ph_k.MAX_KEYS)
+        again = ph_k.philox_keep_mask(keys, n, THREEFRY_KEEP, device,
+                                      **layout)
+        same_bits = torch.equal(bits.long() & prng.M32,
+                                prng.philox_bits_plain(keys, n, device,
+                                                       **layout))
+        same_mask = torch.equal(mask, prng.keep_mask_plain(
+            keys, n, THREEFRY_KEEP, device, **layout)) and torch.equal(
+                mask, again)
+        print(f"philox {name}: {launches} launches for the two draws; bits "
+              f"equal to the plain version {same_bits}, keep mask equal "
+              f"{same_mask} (kept {mask.float().mean().item():.5f} at keep "
+              f"{THREEFRY_KEEP})", flush=True)
+        if not (same_bits and same_mask) or launches != want:
+            raise SmokeFailure(f"kernel P differs from its plain version at "
+                               f"{name} ({launches} launches, want {want})")
+    sass = sass_int_ops(_build.build(), PHILOX_KEEP_SASS)
+    # a thread computes one counter, 4 elements
+    ops = max(sass["alu"], sass["fma"], sum(sass.values()) / 2) / 4
+    for name, shape, mine, layout, part in ranks:
+        n = math.prod(mine)
+        glob = ph_k.philox_keep_mask(key[None], math.prod(shape),
+                                     THREEFRY_KEEP, device).view(shape)
+        mask = ph_k.philox_keep_mask(key[None], n, THREEFRY_KEEP, device,
+                                     **layout)
+        same = torch.equal(mask.view(mine), part(glob))
+        if len(layout) == 1:  # the batch-major site, as a dropout draws it
+            rows = prng.bernoulli(prng.RowKeys(key, r0, B), THREEFRY_KEEP,
+                                  mine, device)
+            same = same and torch.equal(rows, part(glob))
+        from_zero = ph_k.philox_keep_mask(key[None], n, THREEFRY_KEEP, device)
+        ms = time_ms(lambda: ph_k.philox_keep_mask(
+            key[None], n, THREEFRY_KEEP, device, **layout), burst=5)
+        dev = kernel_device_ms(lambda: ph_k.philox_keep_mask(
+            key[None], n, THREEFRY_KEEP, device, **layout), 5,
+            lambda e: "philox" if "philox_kernel" in e else None,
+            per_launch=True).get("philox", math.nan)
+        bound, _ = threefry_bound_ms(n, ops)
+        print(f"philox rank {THREEFRY_RANK} of {PAR_RANKS}, {name} ({n} "
+              f"elements {layout}): equal to the global draw's slice "
+              f"{same}; elements from 0 equal {torch.equal(from_zero, mask)}"
+              f"; kernel {ms:.4f} ms (events), {dev:.4f} ms device a launch "
+              f"(profiler); bound {bound:.4f} ms ({card})", flush=True)
+        if not same or torch.equal(from_zero, mask):
+            raise SmokeFailure(f"kernel P at the rank's elements of {name}")
+    n = math.prod(PHILOX_SHAPES[0])
+    mask_ms = time_ms(lambda: ph_k.philox_keep_mask(
+        key[None], n, THREEFRY_KEEP, device), burst=5)
+    bits_ms = time_ms(lambda: ph_k.philox_bits(key[None], n, device),
+                      burst=5)
+    dev = kernel_device_ms(lambda: ph_k.philox_keep_mask(
+        key[None], n, THREEFRY_KEEP, device), 5,
+        lambda e: "philox" if "philox_kernel" in e else None,
+        per_launch=True).get("philox", math.nan)
+    plain_ms = time_ms(lambda: prng.keep_mask_plain(
+        key[None], n, THREEFRY_KEEP, device), reps=3)
+    bound, bound_by = threefry_bound_ms(n, ops)
+    print(f"philox keep mask {cases[0][0]}: kernel {mask_ms:.4f} ms "
+          f"(events), {dev:.4f} ms device a launch (profiler), bits "
+          f"{bits_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+          f"by {bound_by} (SASS of {PHILOX_KEEP_SASS}: integer instructions "
+          f"a thread of 4 elements {sass}, {ops:g} an element on the busier "
+          f"pipe at {INT_OPS_PER_S / 1e12:.2f} T/s); {card}", flush=True)
+    return mask_ms, plain_ms, bound, bound_by
+
+
+def _rbg_step(torch, np, device, card) -> int:
+    """MFT A+V+L weights under rbg keys drawn on the card equal to the
+    CPU's; an fp32 MFT A+V+L step under rbg keys on the "threefry"
+    dropout, card against CPU: every mask from kernel P (no kernel T
+    launch, no plain draw on the card).  Returns kernel P's launches in
+    the step: 78, kernel T's 77 but the gamma keys' two launches."""
+    from multimodal_transformer_tpu_torch import build_model, default_config
+    from multimodal_transformer_tpu_torch.data import Batch
+    from multimodal_transformer_tpu_torch.engine import Engine
+    from multimodal_transformer_tpu_torch.ops.cuda import philox as ph_k
+    from multimodal_transformer_tpu_torch.ops.cuda import threefry as tf_k
+    from multimodal_transformer_tpu_torch.utils import prng
+
+    cfg = default_config("MFT", AVL, mask_mode="key_query")
+    drawn = build_model(cfg, seed=5, device=device,
+                        prng_impl="rbg").state_dict()
+    want = build_model(cfg, seed=5, prng_impl="rbg").state_dict()
+    threefry = build_model(cfg, seed=5).state_dict()
+    differ = [k for k, v in want.items() if not torch.equal(v,
+                                                            drawn[k].cpu())]
+    print(f"MFT A+V+L weights under rbg keys (seed 5): {len(want)} tensors "
+          f"drawn on the card by kernel P and on the CPU, {len(differ)} "
+          f"differ; threefry's weights differ "
+          f"{not all(torch.equal(v, threefry[k]) for k, v in want.items())}",
+          flush=True)
+    if differ:
+        raise SmokeFailure(f"rbg weights drawn on the card differ from the "
+                           f"CPU's: {differ[:5]}")
+
+    plain_calls = []
+    real_plain = prng.bits_plain
+
+    def counted_plain(keys, n, dev="cpu", *a, **k):
+        if torch.device(dev).type == "cuda":
+            plain_calls.append(n)
+        return real_plain(keys, n, dev, *a, **k)
+
+    batch = _bench_batch(np, Batch, cfg, BENCH_B, BENCH_T, seed=61)
+    losses = {}
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, seed=1, device=dev, dropout_impl="threefry",
+                     prng_impl="rbg")
+        if dev.type == "cuda":
+            ph_k.reset_launches()
+            tf_k.reset_launches()
+            reset_counters()
+            prng.bits_plain = counted_plain
+        try:
+            losses[dev.type] = eng.train_step(batch)
+        finally:
+            prng.bits_plain = real_plain
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches, tf_launches = ph_k.launches, tf_k.launches
+            others = {k: v for k, v in read_counters().items() if v}
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"rbg threefry-dropout fp32 train step, MFT A+V+L B={BENCH_B} "
+          f"T={BENCH_T}: loss card {losses['cuda']:.7f}, CPU "
+          f"{losses['cpu']:.7f}, relative {rel:.3e} (limit "
+          f"{THREEFRY_STEP_TOL}); kernel P {launches} launches, kernel T "
+          f"{tf_launches}, plain draws on the card {len(plain_calls)}, "
+          f"others {others}; {card}", flush=True)
+    if not (math.isfinite(losses["cuda"]) and rel <= THREEFRY_STEP_TOL):
+        raise SmokeFailure("the rbg threefry step on the card differs from "
+                           "the CPU's")
+    # kernel T's count, but the 2T gamma keys take a launch for each
+    # block of kernel P's 240
+    want = (THREEFRY_STEP_LAUNCHES - 1
+            + -(-2 * BENCH_T // ph_k.MAX_KEYS))
+    if (launches != want or tf_launches or plain_calls
+            or others != {"window_embed_highway": 3}):
+        raise SmokeFailure(f"the rbg threefry step launched kernel P "
+                           f"{launches} times (want {want}), kernel T "
+                           f"{tf_launches}, drew {len(plain_calls)} plain "
+                           f"masks on the card, and launched {others}")
+    return launches
+
+
+def run_random_streams(torch, np, device) -> list:
     """Kernel T (csrc/threefry.cu) bit for bit against its plain version
     and timed; MFT A+V+L weights drawn on the card equal to those drawn on
     the CPU; an fp32 MFT A+V+L threefry train step (B=32, T=160) on the card
     against the same step on the CPU, with kernel T's launches counted; the
     host's seed derivation of one hash step; the training CLI with
-    `--dropout_impl threefry --visualize`, then `--test --visualize` on its
-    checkpoint, whose two PNGs must decode.  Returns kernel T's JSON
-    entry."""
+    `--dropout_impl threefry --fast_rng --visualize`, then `--test
+    --visualize` on its checkpoint, whose two PNGs must decode.  Then
+    kernel P (`_philox_checks`, `_rbg_step`).  Returns kernels T's and
+    P's JSON entries."""
     import statistics
     import tempfile
 
@@ -2954,8 +3258,10 @@ def run_random_streams(torch, np, device) -> dict:
                   "--perf_save_dir", str(tmp / "PerfSave"),
                   "--log_file", str(tmp / "train.log"),
                   "--device", str(device), "--family", "B3-MFN"]
+        # under rbg keys (kernel P's masks): the JAX CLI's --fast_rng, in
+        # the same run as the threefry dropout and the plots
         args = ["--comb", "AL", "--epochs", "1", "--dropout_impl",
-                "threefry", "--visualize", "--synthetic_data"]
+                "threefry", "--fast_rng", "--visualize", "--synthetic_data"]
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "multimodal_transformer_tpu_torch.train",
@@ -2981,13 +3287,26 @@ def run_random_streams(torch, np, device) -> dict:
                   "drawn", flush=True)
             if img.shape != shape or not (img != 255).any():
                 raise SmokeFailure(f"B3-MFN_Test_{name}.png is not the plot")
-    return {"name": "threefry", "route": "cuda",
-            "source": "multimodal_transformer_tpu_torch/csrc/threefry.cu",
-            "replaces": ("multimodal_transformer_tpu/ops/basic.py:191 "
-                         "(jax.random.bernoulli in XLA; no TPU kernel)"),
-            "launches": step_launches, "max_abs_err": 0.0, "ms": mask_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+
+        # kernel P: rbg keys, the JAX CLI's --fast_rng
+        p_ms, p_plain_ms, p_bound, p_bound_by = _philox_checks(torch, device,
+                                                               card)
+        p_launches = _rbg_step(torch, np, device, card)
+    return [{"name": "threefry", "route": "cuda",
+             "source": "multimodal_transformer_tpu_torch/csrc/threefry.cu",
+             "replaces": ("multimodal_transformer_tpu/ops/basic.py:191 "
+                          "(jax.random.bernoulli in XLA; no TPU kernel)"),
+             "launches": step_launches, "max_abs_err": 0.0, "ms": mask_ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+             "library_ms": None},
+            {"name": "philox", "route": "cuda",
+             "source": "multimodal_transformer_tpu_torch/csrc/philox.cu",
+             "replaces": ("multimodal_transformer_tpu/ops/basic.py:191 "
+                          "(jax.random.bernoulli under rbg keys: "
+                          "lax.rng_bit_generator in XLA; no TPU kernel)"),
+             "launches": p_launches, "max_abs_err": 0.0, "ms": p_ms,
+             "plain_ms": p_plain_ms, "bound_ms": p_bound,
+             "bound_by": p_bound_by, "library_ms": None}]
 
 
 def _json_entry(name, checks, launches):
@@ -3120,6 +3439,9 @@ def main() -> int:
     del train_launches["window_embed_highway"]  # counted on the serving path
     launches.update(train_launches)
 
+    phase("hash4 train")
+    run_hash4_train(torch, np, device)
+
     phase("dropout-free training")
     run_dropout_free_train(torch, np, device)
 
@@ -3139,13 +3461,13 @@ def main() -> int:
     run_cli(torch, np, device)
 
     phase("random streams and plots")
-    rng_entry = run_random_streams(torch, np, device)
+    rng_entries = run_random_streams(torch, np, device)
 
     phase("train A/B")
     run_train_ab(torch, np, device)
 
     print(json.dumps({"kernels": [_json_entry(name, checks, launches)
-                                  for name in SOURCES] + [rng_entry]}))
+                                  for name in SOURCES] + rng_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,6 +32,8 @@ of:
   137, 400} (the training batch, a ragged one, and the longest the training
   phase sends); D=256, h=8, F=128, p=0.1, kernel 4 on one layer, kernel 5
   on a stack of 6 from kernel 3's saved inputs;
+  `fwd` and `bwd` take `--stream hash4`: the same calls on the "hash4"
+  dropout stream (the checkout's wrappers must take `hash4`);
 - `mfn_fwd`: kernel 6 (`ops/cuda/mfn_train.py:mfn_train_fwd`, the MFN's
   training forward) at B=32, T in {160, 400} (A+V+L) and B=4, T=9 (L
   alone), at the model's gamma dropout; at B=32, T=160 also the host's ms
@@ -86,6 +88,7 @@ follows (the wrapper and its launches, the card idle
 before it; median of 7, perf_counter).
 
     python multimodal_transformer_tpu_torch/bench_kernels.py {a,b,variants,fwd,bwd,mfn_fwd,mfn_bwd,wembed,serve,step} [--tree DIR]
+    python multimodal_transformer_tpu_torch/bench_kernels.py {fwd,bwd} --stream hash4 [--tree DIR]
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs [--tree DIR] --save FILE
     python multimodal_transformer_tpu_torch/bench_kernels.py outputs --compare FILE FILE
 """
@@ -188,38 +191,40 @@ def bench_variants(torch, verify, dev, dtype, dname):
                 f"{k} {v:.4f}" for k, v in stages.items())
 
 
-def bench_fwd(torch, verify, dev, dtype, dname):
+def bench_fwd(torch, verify, dev, dtype, dname, hash4: bool = False):
     from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
 
+    stream = (True,) if hash4 else ()  # older checkouts take no hash4
     for B, T in BWD_SHAPES:
         _, params, x, kmask, seeds = verify._encoder_train_case(
             B, T, dtype, dev, 0, 256, 128, LAYERS)
         with torch.no_grad():
             call = functools.partial(et.encoder_stack_train_fwd, params, x,
-                                     kmask, seeds, P, H)
+                                     kmask, seeds, P, H, *stream)
             yield f"kernel 3 B={B} T={T} {dname} {timed(torch, verify, call)}"
             if (B, T) == (32, 160):
                 yield _device_ms(verify, call, dname)
 
 
-def bench_bwd(torch, verify, dev, dtype, dname):
+def bench_bwd(torch, verify, dev, dtype, dname, hash4: bool = False):
     from multimodal_transformer_tpu_torch.ops.cuda import encoder_train as et
 
+    stream = (True,) if hash4 else ()
     for B, T in BWD_SHAPES:
         gen, params, x, kmask, seeds = verify._encoder_train_case(
             B, T, dtype, dev, 0, 256, 128, LAYERS)
         with torch.no_grad():
             _, saved = et.encoder_stack_train_fwd(params, x, kmask, seeds, P,
-                                                  H)
+                                                  H, *stream)
             dy = torch.randn(B, T, 256, generator=gen).to(dev) \
                 * kmask[..., None]
             calls = {
                 "kernel 4": functools.partial(
                     et.encoder_layer_bwd, params[:16], saved[0], dy, kmask,
-                    seeds[0], P, H),
+                    seeds[0], P, H, *stream),
                 "kernel 5": functools.partial(
                     et.encoder_stack_bwd, params, saved, dy, kmask, seeds, P,
-                    H)}
+                    H, *stream)}
             for what, call in calls.items():
                 yield (f"{what} B={B} T={T} {dname} "
                        f"{timed(torch, verify, call)}")
@@ -464,9 +469,13 @@ def main() -> int:
     ap.add_argument("--save", help="outputs: the file to save them to")
     ap.add_argument("--compare", nargs=2, metavar="FILE",
                     help="outputs: compare two saved files")
+    ap.add_argument("--stream", choices=("hash", "hash4"), default="hash",
+                    help="fwd, bwd: the dropout stream")
     args = ap.parse_args()
     if (args.kernel == "outputs") != bool(args.save or args.compare):
         ap.error("outputs takes --save or --compare, and only it does")
+    if args.stream == "hash4" and args.kernel not in ("fwd", "bwd"):
+        ap.error("--stream hash4 is for fwd and bwd")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -491,9 +500,14 @@ def main() -> int:
         torch.save(outputs(torch, verify, dev), args.save)
         print(f"[{name}] outputs saved to {args.save}", flush=True)
         return 0
+    bench = BENCHES[args.kernel]
+    if args.stream == "hash4":
+        bench = functools.partial(bench, hash4=True)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for line in BENCHES[args.kernel](torch, verify, dev, dtype, dname):
+        if args.stream == "hash4":
+            dname += " hash4"
+        for line in bench(torch, verify, dev, dtype, dname):
             print(f"[{name}] {line}", flush=True)
     return 0
 

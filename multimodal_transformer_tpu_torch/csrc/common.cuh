@@ -52,17 +52,66 @@ __device__ __forceinline__ uint32_t fmix_hash(uint32_t idx, uint32_t seed) {
   return h;
 }
 
-// Dropout of one value on the wgmma paths: keep (the fmix32 bit at its
-// position) ? v scale : 0, with scale = 1 / keep_p in fp32 (a multiply, not
-// a division per value).
-struct Drop {
+// The "hash4" stream's keep bit of (row, col) at a site of last axis
+// 4 * w4 (the JAX package's ops/basic.py hash4_keep_rows): column c of
+// block k = c / w4 takes byte k of fmix32(row * w4 + c % w4), kept when it
+// is at least the 8-bit threshold t8.  The block comes from three compares,
+// not a division.  Columns past the site (padded keys) alias other
+// counters; the kernels never keep their values.
+__device__ __forceinline__ bool hash4_keep(uint32_t seed, uint32_t w4, uint32_t t8,
+                                           uint32_t row, uint32_t col) {
+  const uint32_t k = (uint32_t)(col >= w4) + (uint32_t)(col >= 2 * w4) +
+                     (uint32_t)(col >= 3 * w4);
+  const uint32_t h = fmix_hash(row * w4 + (col - k * w4), seed);
+  return ((h >> (8 * k)) & 0xFFu) >= t8;
+}
+
+// A site's hash4 quarter width: width / 4 on the "hash4" stream (t8 >= 0)
+// where width % 4 == 0, else 0, the per-element fmix32 bits of the "hash"
+// stream (which a hash4 site of another width falls back to).
+__host__ __device__ __forceinline__ uint32_t hash4_w4(int t8, int width) {
+  return t8 >= 0 && width % 4 == 0 ? (uint32_t)(width / 4) : 0u;
+}
+
+// A dropout site's keep bits: the fmix32 bit at a position (the "hash"
+// stream), or on the "hash4" stream (w4 > 0) hash4_keep's at (row, col).
+// The stream is a template argument of keep_at where a kernel is built for
+// one (the wgmma paths), so the other stream's bits cost it nothing.
+struct DropBits {
   uint32_t seed, threshold;
-  float scale;
+  uint32_t w4 = 0, t8 = 0;  // hash4 (hash4_w4); w4 = 0: per-element bits
+  // the site of last axis `width` on the stream t8 (hash4_w4)
+  static __host__ __device__ DropBits of(uint32_t seed, uint32_t thr, int t8, int width) {
+    return DropBits{seed, thr, hash4_w4(t8, width), t8 < 0 ? 0u : (uint32_t)t8};
+  }
   __device__ __forceinline__ bool keep(uint32_t idx) const {
     return fmix_hash(idx, seed) >= threshold;
   }
-  __device__ __forceinline__ float apply(float v, uint32_t idx) const {
-    return keep(idx) ? v * scale : 0.f;
+  // the keep bit of (row, col) at a site of last axis `width`: H4 the
+  // hash4 bits (w4 > 0), else the per-element bit at row * width + col
+  template <bool H4>
+  __device__ __forceinline__ bool keep_at(uint32_t row, uint32_t col, uint32_t width) const {
+    if constexpr (H4) return hash4_keep(seed, w4, t8, row, col);
+    else return keep(row * width + col);
+  }
+  // the same with the stream chosen at run time by w4
+  __device__ __forceinline__ bool keep_at(uint32_t row, uint32_t col, uint32_t width) const {
+    return w4 ? keep_at<true>(row, col, width) : keep_at<false>(row, col, width);
+  }
+};
+
+// Dropout of one value on the wgmma paths: keep ? v * scale : 0, with
+// scale = 1 / keep_p in fp32 (a multiply, not a division per value).
+struct Drop : DropBits {
+  float scale;
+  static __host__ __device__ Drop of(uint32_t seed, uint32_t thr, float scale, int t8,
+                                     int width) {
+    return Drop{DropBits::of(seed, thr, t8, width), scale};
+  }
+  template <bool H4>
+  __device__ __forceinline__ float apply_at(float v, uint32_t row, uint32_t col,
+                                            uint32_t width) const {
+    return keep_at<H4>(row, col, width) ? v * scale : 0.f;
   }
 };
 

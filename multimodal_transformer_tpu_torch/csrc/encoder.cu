@@ -419,22 +419,24 @@ __device__ __forceinline__ void add_residual(const float (&acc)[64], const float
 }
 
 // The residual rows (res at the pass's first column col0) += dropout(acc +
-// bias), the keep bit at the flat position of the [M, width] site.
+// bias), the keep bit at (row, column) of the [M, width] site on the stream
+// kH4 (common.cuh DropBits::keep_at).
+template <bool kH4>
 __device__ __forceinline__ void add_residual_drop(const float (&acc)[64], const float2 (&bv)[16],
                                                   float* res, int RS, const Rows& rw,
                                                   const Drop& s, int m0, int width, int col0) {
   float* x0 = res + rw.r0 * RS + 2 * rw.t;
   float* x1 = x0 + 8 * RS;
-  const uint32_t i0 = flat(m0 + rw.r0, width, col0 + 2 * rw.t), i1 = i0 + 8 * width;
+  const uint32_t r0 = m0 + rw.r0, r1 = r0 + 8, c0 = col0 + 2 * rw.t, w = width;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     float2* p0 = reinterpret_cast<float2*>(x0 + 8 * j);
     float2* p1 = reinterpret_cast<float2*>(x1 + 8 * j);
     const float2 o0 = *p0, o1 = *p1;
-    *p0 = make_float2(o0.x + s.apply(acc[4 * j] + bv[j].x, i0 + 8 * j),
-                      o0.y + s.apply(acc[4 * j + 1] + bv[j].y, i0 + 8 * j + 1));
-    *p1 = make_float2(o1.x + s.apply(acc[4 * j + 2] + bv[j].x, i1 + 8 * j),
-                      o1.y + s.apply(acc[4 * j + 3] + bv[j].y, i1 + 8 * j + 1));
+    *p0 = make_float2(o0.x + s.apply_at<kH4>(acc[4 * j] + bv[j].x, r0, c0 + 8 * j, w),
+                      o0.y + s.apply_at<kH4>(acc[4 * j + 1] + bv[j].y, r0, c0 + 8 * j + 1, w));
+    *p1 = make_float2(o1.x + s.apply_at<kH4>(acc[4 * j + 2] + bv[j].x, r1, c0 + 8 * j, w),
+                      o1.y + s.apply_at<kH4>(acc[4 * j + 3] + bv[j].y, r1, c0 + 8 * j + 1, w));
   }
 }
 
@@ -536,8 +538,10 @@ __device__ __forceinline__ const Weight& chain_piece(const ChainArgs& c, int i, 
 // FFN2), the residual rows read from the layer's saved input (xres) and
 // stored to xout (the next layer's saved input), and on the last layer no
 // final norm: the residual rows in fp32 are the output.  Layer 0's chain
-// writes x to xres as in eval: there xres is saved[0].
-template <int D, int F, bool kTrain>
+// writes x to xres as in eval: there xres is saved[0].  kH4: the sites
+// draw the "hash4" stream's bits (D and F are multiples of 4, so each
+// site is multi-bit), else the per-element "hash" bits.
+template <int D, int F, bool kTrain, bool kH4>
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const __grid_constant__ ChainArgs c) {
   constexpr int NP = D / 128, RS = D + 4;
@@ -627,7 +631,7 @@ chain_kernel(const __grid_constant__ ChainArgs c) {
       mma_piece_ss<D / 16>(acc, base + kTileOff, ready());
       release();
       if constexpr (kTrain)
-        add_residual_drop(acc, bv, res + 128 * p, RS, rw, c.s1, m0, D, 128 * p);
+        add_residual_drop<kH4>(acc, bv, res + 128 * p, RS, rw, c.s1, m0, D, 128 * p);
       else
         add_residual(acc, bv, res + 128 * p, RS, rw);
     }
@@ -635,12 +639,12 @@ chain_kernel(const __grid_constant__ ChainArgs c) {
     layer_norm(v, c.ln2a, c.ln2b, rw.t);
     to_frags(v, a);
     uint32_t h[F / 16][4];  // FFN1's ReLU output (dropped): FFN2's A fragments
-    // relu(v), in training dropped at the flat position of (row rr, column
-    // 128 q + 8 j + 2 t + e) of the [M, F] site
+    // relu(v), in training dropped at (row rr, column 128 q + 8 j + 2 t +
+    // e) of the [M, F] site
     auto hidden = [&](float y, int q, int j, int rr, int e) {
       y = fmaxf(y, 0.f);
       if constexpr (kTrain)
-        y = c.s2.apply(y, flat(m0 + rw.r0 + 8 * rr, F, 128 * q + 8 * j + 2 * rw.t + e));
+        y = c.s2.apply_at<kH4>(y, m0 + rw.r0 + 8 * rr, 128 * q + 8 * j + 2 * rw.t + e, F);
       return y;
     };
 #pragma unroll
@@ -662,7 +666,7 @@ chain_kernel(const __grid_constant__ ChainArgs c) {
       mma_piece(acc, h, ready());
       release();
       if constexpr (kTrain)
-        add_residual_drop(acc, bv, res + 128 * p, RS, rw, c.s3, m0, D, 128 * p);
+        add_residual_drop<kH4>(acc, bv, res + 128 * p, RS, rw, c.s3, m0, D, 128 * p);
       else
         add_residual(acc, bv, res + 128 * p, RS, rw);
     }
@@ -923,9 +927,9 @@ int allow_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, int F, bool kTrain>
+template <int D, int F, bool kTrain, bool kH4>
 int launch_chain(const ChainArgs& c, cudaStream_t st) {
-  const auto kernel = chain_kernel<D, F, kTrain>;
+  const auto kernel = chain_kernel<D, F, kTrain, kH4>;
   static int setup = -1;  // cudaError_t of the one-time set-up
   if (setup < 0) setup = allow_smem(kernel, chain_smem(D));
   if (setup != 0) return setup;
@@ -933,9 +937,10 @@ int launch_chain(const ChainArgs& c, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool kTrain>
+template <bool kTrain, bool kH4 = false>
 int chain(int D, const ChainArgs& c, cudaStream_t st) {
-  return D == 128 ? launch_chain<128, 128, kTrain>(c, st) : launch_chain<256, 128, kTrain>(c, st);
+  return D == 128 ? launch_chain<128, 128, kTrain, kH4>(c, st)
+                  : launch_chain<256, 128, kTrain, kH4>(c, st);
 }
 
 template <int DK, int NT>
@@ -1045,13 +1050,14 @@ long long train_workspace_bytes(int B, int T, int D) {
 }
 
 // Kernel 3, one stack in 2 N + 1 launches as run_stack's: the training
-// chain (chain_kernel<D, F, true>) and kernel 4's attention forward with
-// the site-0 dropout, which streams K and V and so takes any T.  Layer l's
-// input goes to saved[l] (layer 0's chain writes x there), the last
-// layer's residual rows to out, with no final norm; seeds: 4 a layer.
+// chain (chain_kernel<D, F, true, kH4>, kH4 on the "hash4" stream t8 >= 0)
+// and kernel 4's attention forward with the site-0 dropout, which streams
+// K and V and so takes any T.  Layer l's input goes to saved[l] (layer 0's
+// chain writes x there), the last layer's residual rows to out, with no
+// final norm; seeds: 4 a layer.
 int train_fwd(const bf16* x, const float* kmask, float* out, float* saved,
               const void* const* lp, int n_layers, const uint32_t* seeds, uint32_t thr,
-              float kp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st) {
+              float kp, int t8, void* ws, int B, int T, int D, int H, int F, cudaStream_t st) {
   // layer 0's chain reads x by 16-byte cp.async, the attention qkv by TMA
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (!takes(D, H, F) || n_layers < 1 || misaligned(x) || misaligned(ws))
@@ -1061,7 +1067,13 @@ int train_fwd(const bf16* x, const float* kmask, float* out, float* saved,
   bf16* attn = reinterpret_cast<bf16*>(static_cast<char*>(ws) + train_attn_offset(B, T, D));
   CUtensorMap tm;
   if (!heads_map(&tm, qkv, B, T, 3 * D, D / H)) return (int)cudaErrorInvalidValue;
-  const auto drop = [&](int i) { return Drop{seeds[i], thr, 1.f / kp}; };
+  // site i % 4 of layer i / 4, of last axis `width`
+  const auto drop = [&](int i, int width) {
+    return Drop::of(seeds[i], thr, 1.f / kp, t8, width);
+  };
+  const auto train_chain = [&](const ChainArgs& a) {
+    return t8 >= 0 ? chain<true, true>(D, a, st) : chain<true, false>(D, a, st);
+  };
   ChainArgs c{};
   c.xres = saved;
   c.q_scale = 1.0f / sqrtf((float)(D / H));
@@ -1069,20 +1081,20 @@ int train_fwd(const bf16* x, const float* kmask, float* out, float* saved,
   c.M = (int)M;
   c.mode = kFirst;
   c.in = x;
-  int rc = next_layer(c, lp, 0, D) ? chain<true>(D, c, st) : (int)cudaErrorInvalidValue;
+  int rc = next_layer(c, lp, 0, D) ? train_chain(c) : (int)cudaErrorInvalidValue;
   for (int l = 0; l < n_layers && rc == 0; ++l) {
-    rc = enc_bwd::train_attention(tm, qkv, kmask, attn, B, T, D, H, drop(4 * l), st);
+    rc = enc_bwd::train_attention(tm, qkv, kmask, attn, B, T, D, H, drop(4 * l, T), st);
     if (rc != 0) break;
     c.mode = l + 1 == n_layers ? kLast : kMiddle;
     c.in = attn;
     c.xres = saved + l * M * D;
     c.xout = c.mode == kLast ? out : saved + (l + 1) * M * D;
-    c.s1 = drop(4 * l + 1);
-    c.s2 = drop(4 * l + 2);
-    c.s3 = drop(4 * l + 3);
+    c.s1 = drop(4 * l + 1, D);
+    c.s2 = drop(4 * l + 2, F);
+    c.s3 = drop(4 * l + 3, D);
     bool ok = layer_body(c, lp, l, D, F);
     if (c.mode != kLast) ok = next_layer(c, lp, l + 1, D) && ok;
-    rc = ok ? chain<true>(D, c, st) : (int)cudaErrorInvalidValue;
+    rc = ok ? train_chain(c) : (int)cudaErrorInvalidValue;
   }
   return rc;
 }

@@ -16,7 +16,8 @@
 // bias gradients sum the fp32 values), do is stored in bf16, dv takes the
 // rounded dropped probabilities, dq takes ds / sqrt(d_k) rounded and dk ds
 // rounded, and dq, dk, dv are stored in bf16 (their bias gradients sum
-// those).  Dropout bits are the fmix32 keep bits at the JAX positions.
+// those).  Dropout bits are the fmix32 keep bits at the JAX positions, or
+// on the "hash4" stream common.cuh hash4_keep's at the (row, column).
 //
 // Eight launches a layer, in order:
 //   1. front: LN1 of 64 rows rounded into wgmma A fragments, then q | k | v
@@ -520,7 +521,10 @@ __device__ __forceinline__ bool word_bit(const uint32_t (&w)[2], int j, int t, i
 
 // 2. The attention forward with dropout: o and, with kStats, each row's
 // max and sum (kernel 4 rebuilds P from them; kernel 3 needs o alone).
-template <int DK, bool kStats>
+// kH4: the site draws the "hash4" stream's multi-bit keep bits (T % 4 ==
+// 0), else the per-element bits (common.cuh DropBits::keep_at); likewise
+// in 4. and 5.
+template <int DK, bool kStats, bool kH4>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const __grid_constant__ AttnArgs c) {
   using A = AttnTile<DK>;
   const A at;
@@ -586,7 +590,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const __grid_constan
         p[i] = ex2(fmaf(s[4 * j + i], kLog2e, (i & 2) ? -ml1 : -ml0));
         if (i & 2) sum1 += p[i]; else sum0 += p[i];
         const int q = (i & 2) ? r1 : r0, key = k0 + 8 * j + 2 * at.t + (i & 1);
-        p[i] = c.site.apply(p[i], (pbase + (uint32_t)q) * (uint32_t)T + (uint32_t)key);
+        p[i] = c.site.apply_at<kH4>(p[i], pbase + (uint32_t)q, (uint32_t)key,
+                                    (uint32_t)T);
       }
       pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
       pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
@@ -622,7 +627,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const __grid_constan
 }
 
 // 4. dq and D_i of one (64 queries, head, video).
-template <int DK>
+template <int DK, bool kH4>
 __global__ void __launch_bounds__(kThreads) attn_dq_kernel(const __grid_constant__ AttnArgs c) {
   using A = AttnTile<DK>;
   const A at;
@@ -672,7 +677,8 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(const __grid_constant
           const float sv = word_bit(kw, j, at.t, e) ? s[4 * j + i2] : kMaskedScore;
           P = ex2(fmaf(sv, kLog2e, rr ? -st1.x : -st0.x)) * (rr ? st1.y : st0.y);
           const int q = rr ? r1 : r0;
-          d = c.site.apply(dp[4 * j + i2], (pbase + (uint32_t)q) * (uint32_t)T + (uint32_t)key);
+          d = c.site.apply_at<kH4>(dp[4 * j + i2], pbase + (uint32_t)q, (uint32_t)key,
+                                   (uint32_t)T);
         }
         if (sweep == 0) {
           if (rr) { di1 += P * d; ps1 += P; } else { di0 += P * d; ps0 += P; }
@@ -711,7 +717,7 @@ __global__ void __launch_bounds__(kThreads) attn_dq_kernel(const __grid_constant
 }
 
 // 5. dk and dv of one (64 keys, head, video) over the query tiles.
-template <int DK>
+template <int DK, bool kH4>
 __global__ void __launch_bounds__(kThreads) attn_dkv_kernel(const __grid_constant__ AttnArgs c) {
   using A = AttnTile<DK>;
   const A at;
@@ -767,7 +773,8 @@ __global__ void __launch_bounds__(kThreads) attn_dkv_kernel(const __grid_constan
         if (q < T) {
           const float sv = (rr ? masked1 : masked0) ? kMaskedScore : s[4 * j + i2];
           const float P = ex2(fmaf(sv, kLog2e, -st[2 * j + e].x)) * st[2 * j + e].y;
-          const bool kept = c.site.keep((pbase + (uint32_t)q) * (uint32_t)T + (uint32_t)key);
+          const bool kept =
+              c.site.keep_at<kH4>(pbase + (uint32_t)q, (uint32_t)key, (uint32_t)T);
           pd[i2] = kept ? P * sc : 0.f;
           // a masked key's score is the constant -1e9: no gradient
           if (!(rr ? masked1 : masked0)) ds[i2] = P * ((kept ? dp[4 * j + i2] * sc : 0.f) - di[2 * j + e]);
@@ -833,7 +840,7 @@ struct MidSmem {
 };
 static_assert(MidSmem<256, 128>::bytes <= kMaxSmem, "the middle chain's shared memory");
 
-template <int D, int F>
+template <int D, int F, bool kH4>
 __global__ void __launch_bounds__(kThreads) mid_kernel(const __grid_constant__ MidArgs c) {
   using S = MidSmem<D, F>;
   constexpr int NP = D / 128, NQ = D / 64, FQ = F / 64, RS = D + 4, KD = D / 16, KF = F / 16;
@@ -892,7 +899,7 @@ __global__ void __launch_bounds__(kThreads) mid_kernel(const __grid_constant__ M
         const int rr = i >> 1, col = 64 * q + 8 * j + 2 * rw.t + (i & 1);
         const float bias = (i & 1) ? bv[j].y : bv[j].x;
         res[(rw.r0 + 8 * rr) * RS + col] +=
-            c.s1.apply(acc[4 * j + i] + bias, flat(ra + 8 * rr, D, col));
+            c.s1.apply_at<kH4>(acc[4 * j + i] + bias, ra + 8 * rr, col, D);
       }
   }
   // LN2: xn2, stored and into the tile
@@ -924,7 +931,7 @@ __global__ void __launch_bounds__(kThreads) mid_kernel(const __grid_constant__ M
         const int col = 64 * q + 8 * j + 2 * rw.t + (i & 1);
         const float v = acc[4 * j + i] + ((i & 1) ? bv[j].y : bv[j].x);
         if (v > 0.f) bits |= 1u << (4 * j + i);
-        acc[4 * j + i] = c.s2.apply(fmaxf(v, 0.f), flat(ra + 8 * (i >> 1), F, col));
+        acc[4 * j + i] = c.s2.apply_at<kH4>(fmaxf(v, 0.f), ra + 8 * (i >> 1), col, F);
       }
     relu |= (uint64_t)bits << (32 * q);
     store_bf16<8>(acc, c.mid + 64 * q, F, m0, M, rw);
@@ -936,8 +943,8 @@ __global__ void __launch_bounds__(kThreads) mid_kernel(const __grid_constant__ M
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        acc[4 * j + i] = c.s3.apply(
-            acc[4 * j + i], flat(ra + 8 * (i >> 1), D, 64 * q + 8 * j + 2 * rw.t + (i & 1)));
+        acc[4 * j + i] = c.s3.apply_at<kH4>(acc[4 * j + i], ra + 8 * (i >> 1),
+                                       64 * q + 8 * j + 2 * rw.t + (i & 1), D);
     colsum64(acc, red + 64 * q, CR, rw);
     store_bf16<8>(acc, c.dff + 64 * q, D, m0, M, rw);
     tile_put<8>(tile, acc, 64 * q, rw);
@@ -955,7 +962,8 @@ __global__ void __launch_bounds__(kThreads) mid_kernel(const __grid_constant__ M
       for (int i = 0; i < 4; ++i) {
         const int col = 64 * q + 8 * j + 2 * rw.t + (i & 1);
         acc[4 * j + i] = (relu >> (32 * q + 4 * j + i)) & 1u
-                             ? c.s2.apply(acc[4 * j + i], flat(ra + 8 * (i >> 1), F, col))
+                             ? c.s2.apply_at<kH4>(acc[4 * j + i], ra + 8 * (i >> 1), col,
+                                                  F)
                              : 0.f;
       }
     colsum64(acc, red + D + 64 * q, CR, rw);
@@ -1017,8 +1025,8 @@ __global__ void __launch_bounds__(kThreads) mid_kernel(const __grid_constant__ M
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        y[4 * j + i] = c.s1.apply(
-            y[4 * j + i], flat(ra + 8 * (i >> 1), D, 64 * q + 8 * j + 2 * rw.t + (i & 1)));
+        y[4 * j + i] = c.s1.apply_at<kH4>(y[4 * j + i], ra + 8 * (i >> 1),
+                                     64 * q + 8 * j + 2 * rw.t + (i & 1), D);
     colsum64(y, red + 3 * D + F + 64 * q, CR, rw);
     store_bf16<8>(y, c.dattn + 64 * q, D, m0, M, rw);
     tile_put<8>(tile, y, 64 * q, rw);
@@ -1313,14 +1321,16 @@ int launch(dim3 grid, int smem, const Args& args, cudaStream_t st) {
 
 template <int D, int DK>
 int run_layer(const float* x, const float* dy, const float* kmask, const bf16* const* p,
-              float* const* g, const uint32_t* seeds, uint32_t thr, float kp, float* dx,
-              const Work& w, int B, int T, int H, cudaStream_t st) {
+              float* const* g, const uint32_t* seeds, uint32_t thr, float kp, int t8,
+              float* dx, const Work& w, int B, int T, int H, cudaStream_t st) {
   constexpr int F = kF;
   const int M = B * T;
   const int blocks = (M + BM - 1) / BM, CW = all_cols(D, F);
   const float scale = 1.f / kp;
-  const Drop s0{seeds[0], thr, scale}, s1{seeds[1], thr, scale}, s2{seeds[2], thr, scale},
-      s3{seeds[3], thr, scale};
+  const Drop s0 = Drop::of(seeds[0], thr, scale, t8, T),
+             s1 = Drop::of(seeds[1], thr, scale, t8, D),
+             s2 = Drop::of(seeds[2], thr, scale, t8, F),
+             s3 = Drop::of(seeds[3], thr, scale, t8, D);
   bool ok = true;
   // 1. LN1 + q | k | v
   FrontArgs fa{};
@@ -1430,11 +1440,24 @@ int run_layer(const float* x, const float* dy, const float* kmask, const bf16* c
 
   const int qt = (T + 63) / 64;
   const dim3 heads(qt, H, B);
+  // the stream is each kernel's template argument: the attention site's is
+  // hash4 where its width T takes it (s0.w4 > 0), the row sites' wherever
+  // the stream is hash4 (D and F are multiples of 4)
+  const bool a4 = s0.w4 != 0, r4 = t8 >= 0;
+  const int as = attn_smem(DK);
   int rc = launch<front_kernel<D>>(dim3(blocks), front_smem<D>(), fa, st);
-  if (rc == 0) rc = launch<attn_fwd_kernel<DK, true>>(heads, attn_smem(DK), aa, st);
-  if (rc == 0) rc = launch<mid_kernel<D, F>>(dim3(blocks), MidSmem<D, F>::bytes, ma, st);
-  if (rc == 0) rc = launch<attn_dq_kernel<DK>>(heads, attn_smem(DK), aa, st);
-  if (rc == 0) rc = launch<attn_dkv_kernel<DK>>(heads, attn_smem(DK), aa, st);
+  if (rc == 0)
+    rc = a4 ? launch<attn_fwd_kernel<DK, true, true>>(heads, as, aa, st)
+            : launch<attn_fwd_kernel<DK, true, false>>(heads, as, aa, st);
+  if (rc == 0)
+    rc = r4 ? launch<mid_kernel<D, F, true>>(dim3(blocks), MidSmem<D, F>::bytes, ma, st)
+            : launch<mid_kernel<D, F, false>>(dim3(blocks), MidSmem<D, F>::bytes, ma, st);
+  if (rc == 0)
+    rc = a4 ? launch<attn_dq_kernel<DK, true>>(heads, as, aa, st)
+            : launch<attn_dq_kernel<DK, false>>(heads, as, aa, st);
+  if (rc == 0)
+    rc = a4 ? launch<attn_dkv_kernel<DK, true>>(heads, as, aa, st)
+            : launch<attn_dkv_kernel<DK, false>>(heads, as, aa, st);
   if (rc == 0) rc = launch<back_kernel<D>>(dim3(blocks), BackSmem<D>::bytes, ba, st);
   if (rc == 0) rc = launch<wgrad_kernel>(dim3(tiles, chunks), grad_smem(), ga, st);
   if (rc == 0) {
@@ -1445,14 +1468,16 @@ int run_layer(const float* x, const float* dy, const float* kmask, const bf16* c
 }
 
 int layer(const float* x, const float* dy, const float* kmask, const bf16* const* p,
-          float* const* g, const uint32_t* seeds, uint32_t thr, float kp, float* dx,
+          float* const* g, const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
           const Work& w, int B, int T, int D, int H, cudaStream_t st) {
   const int dk = D / H;
   if (D == 256)
-    return dk == 32 ? run_layer<256, 32>(x, dy, kmask, p, g, seeds, thr, kp, dx, w, B, T, H, st)
-                    : run_layer<256, 16>(x, dy, kmask, p, g, seeds, thr, kp, dx, w, B, T, H, st);
-  return dk == 32 ? run_layer<128, 32>(x, dy, kmask, p, g, seeds, thr, kp, dx, w, B, T, H, st)
-                  : run_layer<128, 16>(x, dy, kmask, p, g, seeds, thr, kp, dx, w, B, T, H, st);
+    return dk == 32
+               ? run_layer<256, 32>(x, dy, kmask, p, g, seeds, thr, kp, t8, dx, w, B, T, H, st)
+               : run_layer<256, 16>(x, dy, kmask, p, g, seeds, thr, kp, t8, dx, w, B, T, H, st);
+  return dk == 32
+             ? run_layer<128, 32>(x, dy, kmask, p, g, seeds, thr, kp, t8, dx, w, B, T, H, st)
+             : run_layer<128, 16>(x, dy, kmask, p, g, seeds, thr, kp, t8, dx, w, B, T, H, st);
 }
 
 bool takes(int dtype, int D, int H, int F) {
@@ -1470,8 +1495,8 @@ long long workspace_bytes(int B, int T, int D, int H, int F, bool stack) {
 }
 
 int layer_bwd(const float* x, const float* dy, const float* kmask, const void* const* lp,
-              const uint32_t* seeds, uint32_t thr, float kp, float* dx, void* const* gp,
-              void* ws, int B, int T, int D, int H, int F, cudaStream_t st) {
+              const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
+              void* const* gp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st) {
   Carver c{static_cast<char*>(ws)};
   const Work w = Work::carve(c, B, T, D, H, F);
   const bf16* p[16];
@@ -1480,11 +1505,11 @@ int layer_bwd(const float* x, const float* dy, const float* kmask, const void* c
     p[i] = static_cast<const bf16*>(lp[i]);
     g[i] = static_cast<float*>(gp[i]);
   }
-  return layer(x, dy, kmask, p, g, seeds, thr, kp, dx, w, B, T, D, H, st);
+  return layer(x, dy, kmask, p, g, seeds, thr, kp, t8, dx, w, B, T, D, H, st);
 }
 
 int stack_bwd(const float* saved, const float* dy, const float* kmask, const void* const* lp,
-              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, float* dx,
+              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
               void* const* gp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st) {
   const size_t MD = (size_t)B * T * D;
   Carver c{static_cast<char*>(ws)};
@@ -1503,7 +1528,7 @@ int stack_bwd(const float* saved, const float* dy, const float* kmask, const voi
       g[i] = static_cast<float*>(gp[i]) + (size_t)l * n[i];
     }
     float* d_in = l == 0 ? dx : carry[l & 1];
-    const int rc = layer(saved + (size_t)l * MD, g_out, kmask, p, g, seeds + 4 * l, thr, kp,
+    const int rc = layer(saved + (size_t)l * MD, g_out, kmask, p, g, seeds + 4 * l, thr, kp, t8,
                          d_in, w, B, T, D, H, st);
     if (rc != 0) return rc;
     g_out = d_in;
@@ -1525,8 +1550,11 @@ int train_attention(const CUtensorMap& tm, const bf16* qkv, const float* kmask, 
   aa.D = D;
   aa.H = H;
   const dim3 heads((T + 63) / 64, H, B);
-  return D / H == 32 ? launch<attn_fwd_kernel<32, false>>(heads, attn_smem(32), aa, st)
-                     : launch<attn_fwd_kernel<16, false>>(heads, attn_smem(16), aa, st);
+  if (site.w4 != 0)  // the "hash4" stream at a width T % 4 == 0
+    return D / H == 32 ? launch<attn_fwd_kernel<32, false, true>>(heads, attn_smem(32), aa, st)
+                       : launch<attn_fwd_kernel<16, false, true>>(heads, attn_smem(16), aa, st);
+  return D / H == 32 ? launch<attn_fwd_kernel<32, false, false>>(heads, attn_smem(32), aa, st)
+                     : launch<attn_fwd_kernel<16, false, false>>(heads, attn_smem(16), aa, st);
 }
 
 }  // namespace enc_bwd

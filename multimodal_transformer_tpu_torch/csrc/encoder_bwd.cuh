@@ -19,10 +19,10 @@ long long workspace_bytes(int B, int T, int D, int H, int F, bool stack);
 // Kernel 4 (one layer) and kernel 5 (every layer, last first), with the
 // arguments of the C entries mmtx_encoder_layer_bwd / mmtx_encoder_stack_bwd.
 int layer_bwd(const float* x, const float* dy, const float* kmask, const void* const* lp,
-              const uint32_t* seeds, uint32_t thr, float kp, float* dx, void* const* gp,
-              void* ws, int B, int T, int D, int H, int F, cudaStream_t st);
+              const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
+              void* const* gp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st);
 int stack_bwd(const float* saved, const float* dy, const float* kmask, const void* const* lp,
-              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, float* dx,
+              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
               void* const* gp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st);
 
 }  // namespace enc_bwd

@@ -30,7 +30,12 @@
 // Dropout: every site draws the JAX package's fmix32 keep bit of the
 // position in the unpadded JAX tensor, ((b*h + head)*T + tq)*T + tk for the
 // probabilities and (b*T + t)*width + c for the three row sites, so the masks
-// equal the JAX package's bit for bit.
+// equal the JAX package's bit for bit.  On the "hash4" stream (t8 >= 0) a
+// site whose last axis is a multiple of 4 draws common.cuh hash4_keep at its
+// (row, column) instead: row (b*h + head)*T + tq, column tk, for the
+// probabilities (multi-bit only when T % 4 == 0), row b*T + t for the
+// others, as the JAX package's kernels (ops/pallas/encoder.py _row_keep,
+// _attn_keep) do.
 //
 // Backward (one layer, kernel 4; the whole stack, kernel 5): recomputes the
 // layer from its saved input (the probabilities are rebuilt tile by tile,
@@ -115,7 +120,7 @@ void ln_rows(const Tin* x, const Tw* a, const Tw* b, Tout* y, float* x32, int ro
 // column sums are the gradient of a.
 //
 // With `drop` set (kernel 5's layer boundary) it also writes drop[i] =
-// dropout'(dx[i]) at flat position i with `site`: the dropout-masked
+// dropout'(dx[i]) at (row, column) with `site`: the dropout-masked
 // FFN-output gradient of the layer below, from the value just computed.
 template <typename Tw>
 __global__ void __launch_bounds__(kLnThreads)
@@ -155,33 +160,40 @@ ln_bwd_kernel(const float* __restrict__ x, const Tw* __restrict__ a,
     const float dxv = base[o + i] + dd - mdd;
     dx[o + i] = dxv;
     gdn[o + i] = g[o + i] * (d / denom);
-    if (drop != nullptr) drop[o + i] = site.apply(dxv, (uint32_t)(o + i));
+    if (drop != nullptr) drop[o + i] = site.apply_at(dxv, (uint32_t)row, (uint32_t)i, (uint32_t)D);
   }
 }
 
 template <typename Tw>
 void ln_bwd(const float* x, const Tw* a, const float* g, const float* base, float* dx,
             float* gdn, int rows, int D, cudaStream_t st, float* drop = nullptr,
-            DropSite site = DropSite{0u, 0u, 1.f}) {
+            DropSite site = DropSite{{0u, 0u}, 1.f}) {
   const int per_block = kLnThreads / 32;
   ln_bwd_kernel<Tw><<<(rows + per_block - 1) / per_block, kLnThreads, 0, st>>>(
       x, a, g, base, dx, gdn, rows, D, drop, site);
 }
 
-// out[i] = dropout'(g[i]) at flat position i: the backward of a row site.
-__global__ void drop_grad_kernel(const float* __restrict__ g, DropSite s, long long n,
-                                 float* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) out[i] = s.apply(g[i], (uint32_t)i);
+// The element-wise row kernels: one block a row of a [rows, width] site,
+// its threads along the columns, so each value's (row, column) is known.
+constexpr int kRowThreads = 128;
+
+// out = dropout'(g) at each (row, column): the backward of a row site.
+__global__ void __launch_bounds__(kRowThreads)
+drop_grad_kernel(const float* __restrict__ g, DropSite s, int width, float* __restrict__ out) {
+  const size_t o = (size_t)blockIdx.x * width;
+  for (int c = threadIdx.x; c < width; c += kRowThreads)
+    out[o + c] = s.apply_at(g[o + c], blockIdx.x, (uint32_t)c, (uint32_t)width);
 }
 
-// out[i] = dropout(relu(pre[i])) in the storage dtype: the FFN hidden as
-// the forward fed it to the second product.
+// out = dropout(relu(pre)) in the storage dtype: the FFN hidden as the
+// forward fed it to the second product.
 template <typename T>
-__global__ void relu_drop_kernel(const float* __restrict__ pre, DropSite s, long long n,
-                                 T* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) out[i] = from_f<T>(s.apply(fmaxf(pre[i], 0.f), (uint32_t)i));
+__global__ void __launch_bounds__(kRowThreads)
+relu_drop_kernel(const float* __restrict__ pre, DropSite s, int width, T* __restrict__ out) {
+  const size_t o = (size_t)blockIdx.x * width;
+  for (int c = threadIdx.x; c < width; c += kRowThreads)
+    out[o + c] = from_f<T>(s.apply_at(fmaxf(pre[o + c], 0.f), blockIdx.x, (uint32_t)c,
+                                      (uint32_t)width));
 }
 
 inline unsigned blocks_for(long long n) { return (unsigned)((n + 255) / 256); }
@@ -205,7 +217,7 @@ template <typename T> struct EpiResidualDrop {  // res += dropout(acc + b)
   const T* bias; float* res; int ld; DropSite s;
   __device__ void operator()(int m, int n, int, float acc) const {
     const size_t i = (size_t)m * ld + n;
-    res[i] += s.apply(acc + to_f(bias[n]), (uint32_t)i);
+    res[i] += s.apply_at(acc + to_f(bias[n]), (uint32_t)m, (uint32_t)n, (uint32_t)ld);
   }
 };
 
@@ -213,7 +225,8 @@ template <typename T> struct EpiReluDropStore {  // out = T(dropout(relu(acc + b
   const T* bias; T* out; int ld; DropSite s;
   __device__ void operator()(int m, int n, int, float acc) const {
     const size_t i = (size_t)m * ld + n;
-    out[i] = from_f<T>(s.apply(fmaxf(acc + to_f(bias[n]), 0.f), (uint32_t)i));
+    out[i] = from_f<T>(s.apply_at(fmaxf(acc + to_f(bias[n]), 0.f), (uint32_t)m, (uint32_t)n,
+                                  (uint32_t)ld));
   }
 };
 
@@ -243,7 +256,7 @@ struct EpiFfnHiddenGrad {  // the gradient of the FFN hidden before its ReLU
   const float* pre; float* out; int ld; DropSite s;
   __device__ void operator()(int m, int n, int, float acc) const {
     const size_t i = (size_t)m * ld + n;
-    const float v = s.apply(acc, (uint32_t)i);
+    const float v = s.apply_at(acc, (uint32_t)m, (uint32_t)n, (uint32_t)ld);
     out[i] = pre[i] > 0.f ? v : 0.f;
   }
 };
@@ -336,7 +349,7 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv, const float* __restri
       if (j < nk) {
         const float p = expf(s[jj] - m_new);
         psum += p;
-        const bool kept = site.keep(prob_index(b, H, hd, Tlen, qi, k0 + j));
+        const bool kept = site.keep_at(prob_row(b, H, hd, Tlen, qi), k0 + j, Tlen);
         Ps[ql][j] = kept ? to_f(from_f<T>(p / site.keep_p)) : 0.f;
       }
     }
@@ -430,7 +443,7 @@ __global__ void attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restric
           }
           if (km[k0 + j] == 0.f) dot = kMaskedScore;
           const float P = expf(dot - lse_i);
-          const float dp = site.apply(dpd, prob_index(b, H, hd, Tlen, qi, k0 + j));
+          const float dp = site.apply_at(dpd, prob_row(b, H, hd, Tlen, qi), k0 + j, Tlen);
           if (sweep == 0) {
             part += P * dp;
             ppart += P;
@@ -533,8 +546,7 @@ __global__ void attn_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restri
         }
         if (masked) dot = kMaskedScore;
         const float P = expf(dot - Ls[i]);
-        const uint32_t pidx = prob_index(b, H, hd, Tlen, q0 + i, kj);
-        const bool kept = site.keep(pidx);
+        const bool kept = site.keep_at(prob_row(b, H, hd, Tlen, q0 + i), kj, Tlen);
         const float dp = kept ? dpd / site.keep_p : 0.f;
         Ps[kl][i] = kept ? to_f(from_f<T>(P / site.keep_p)) : 0.f;
         Ss[kl][i] = P * (dp - Dq[i]);
@@ -663,8 +675,11 @@ struct StackBwd {
   }
 };
 
-inline DropSite site_of(const uint32_t* seeds, int k, uint32_t thr, float kp) {
-  return DropSite{seeds[k], thr, kp};
+// Site k of a layer's 4 (0 the probabilities, of last axis T; 1, 2, 3 the
+// row sites) at last axis `width`; t8 the stream (hash4_w4).
+inline DropSite site_of(const uint32_t* seeds, int k, uint32_t thr, float kp, int t8,
+                        int width) {
+  return DropSite{DropBits::of(seeds[k], thr, t8, width), kp};
 }
 
 // The layer's forward up to the residual stream after attention: xn1, qkv,
@@ -672,7 +687,7 @@ inline DropSite site_of(const uint32_t* seeds, int k, uint32_t thr, float kp) {
 template <typename T>
 bool attention_sublayer(const T* const* p, const float* x_in, float* res, const float* kmask,
                         T* xn, T* qkv, T* attn, float* lse, const uint32_t* seeds,
-                        uint32_t thr, float kp, int B, int Tlen, int D, int H,
+                        uint32_t thr, float kp, int t8, int B, int Tlen, int D, int H,
                         cudaStream_t st) {
   const int M = B * Tlen, dk = D / H;
   const float inv_sqrt_dk = 1.0f / sqrtf((float)dk);
@@ -681,17 +696,18 @@ bool attention_sublayer(const T* const* p, const float* x_in, float* res, const 
   linear<T>(xn, D, p[WK], M, D, D, EpiScaleStore<T>{p[BK], 1.f, qkv + D, 3 * D}, st);
   linear<T>(xn, D, p[WV], M, D, D, EpiScaleStore<T>{p[BV], 1.f, qkv + 2 * D, 3 * D}, st);
   if (!attention_fwd_any<T>(dk, qkv, kmask, attn, lse, B, Tlen, D, H,
-                            site_of(seeds, 0, thr, kp), st))
+                            site_of(seeds, 0, thr, kp, t8, Tlen), st))
     return false;
   linear<T>(attn, D, p[WO], M, D, D,
-            EpiResidualDrop<T>{p[BO], res, D, site_of(seeds, 1, thr, kp)}, st);
+            EpiResidualDrop<T>{p[BO], res, D, site_of(seeds, 1, thr, kp, t8, D)}, st);
   return true;
 }
 
 template <typename T>
 int train_fwd(const T* x, const float* kmask, float* out, float* saved,
               const void* const* lp, int n_layers, const uint32_t* seeds, uint32_t thr,
-              float kp, void* ws, int B, int Tlen, int D, int H, int F, cudaStream_t st) {
+              float kp, int t8, void* ws, int B, int Tlen, int D, int H, int F,
+              cudaStream_t st) {
   const int M = B * Tlen;
   Carver c{static_cast<char*>(ws)};
   Fwd<T> w = Fwd<T>::carve(c, M, D, F);
@@ -704,13 +720,13 @@ int train_fwd(const T* x, const float* kmask, float* out, float* saved,
     cudaMemcpyAsync(saved + (size_t)l * M * D, out, (size_t)M * D * sizeof(float),
                     cudaMemcpyDeviceToDevice, st);
     if (!attention_sublayer<T>(p, out, out, kmask, w.xn, w.qkv, w.attn, nullptr, sd, thr,
-                               kp, B, Tlen, D, H, st))
+                               kp, t8, B, Tlen, D, H, st))
       return (int)cudaErrorInvalidValue;
     ln_rows<float, T, T>(out, p[LN2A], p[LN2B], w.xn, nullptr, M, D, st);
     linear<T>(w.xn, D, p[W1], M, F, D,
-              EpiReluDropStore<T>{p[B1], w.mid, F, site_of(sd, 2, thr, kp)}, st);
+              EpiReluDropStore<T>{p[B1], w.mid, F, site_of(sd, 2, thr, kp, t8, F)}, st);
     linear<T>(w.mid, F, p[W2], M, D, F,
-              EpiResidualDrop<T>{p[B2], out, D, site_of(sd, 3, thr, kp)}, st);
+              EpiResidualDrop<T>{p[B2], out, D, site_of(sd, 3, thr, kp, t8, D)}, st);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -726,29 +742,30 @@ int train_fwd(const T* x, const float* kmask, float* out, float* saved,
 template <typename T>
 int layer_bwd_core(const float* x, const float* dy, const float* kmask, const T* const* p,
                    float* const* g, const uint32_t* seeds, const uint32_t* below,
-                   bool dff_ready, uint32_t thr, float kp, float* dx, const Bwd<T>& w,
-                   int B, int Tlen, int D, int H, int F, cudaStream_t st) {
+                   bool dff_ready, uint32_t thr, float kp, int t8, float* dx,
+                   const Bwd<T>& w, int B, int Tlen, int D, int H, int F, cudaStream_t st) {
   const int M = B * Tlen, dk = D / H;
   const float inv_sqrt_dk = 1.0f / sqrtf((float)dk);
-  const long long MD = (long long)M * D, MF = (long long)M * F;
+  const long long MD = (long long)M * D;
 
   // ---- recompute the layer from its saved input
   cudaMemcpyAsync(w.x1, x, (size_t)MD * sizeof(float), cudaMemcpyDeviceToDevice, st);
-  if (!attention_sublayer<T>(p, x, w.x1, kmask, w.xn1, w.qkv, w.o, w.lse, seeds, thr, kp, B,
-                             Tlen, D, H, st))
+  if (!attention_sublayer<T>(p, x, w.x1, kmask, w.xn1, w.qkv, w.o, w.lse, seeds, thr, kp, t8,
+                             B, Tlen, D, H, st))
     return (int)cudaErrorInvalidValue;
   ln_rows<float, T, T>(w.x1, p[LN2A], p[LN2B], w.xn2, nullptr, M, D, st);
   linear<T>(w.xn2, D, p[W1], M, F, D, EpiBiasStoreF32<T>{p[B1], w.midp, F}, st);
 
   // ---- feed-forward sublayer
   if (!dff_ready)
-    drop_grad_kernel<<<blocks_for(MD), 256, 0, st>>>(dy, site_of(seeds, 3, thr, kp), MD, w.dff);
-  relu_drop_kernel<T><<<blocks_for(MF), 256, 0, st>>>(w.midp, site_of(seeds, 2, thr, kp), MF,
-                                                      w.midd);
+    drop_grad_kernel<<<M, kRowThreads, 0, st>>>(dy, site_of(seeds, 3, thr, kp, t8, D), D, w.dff);
+  relu_drop_kernel<T><<<M, kRowThreads, 0, st>>>(w.midp, site_of(seeds, 2, thr, kp, t8, F), F,
+                                                 w.midd);
   weight_grad<float, T>(w.dff, D, w.midd, F, M, D, F, g[W2], w.part, st);
   colsum<float>(w.dff, D, M, D, g[B2], st);
   linear_grad_input<float, T>(w.dff, D, p[W2], M, D, F,
-                              EpiFfnHiddenGrad{w.midp, w.dmidp, F, site_of(seeds, 2, thr, kp)},
+                              EpiFfnHiddenGrad{w.midp, w.dmidp, F,
+                                               site_of(seeds, 2, thr, kp, t8, F)},
                               st);
   weight_grad<float, T>(w.dmidp, F, w.xn2, D, M, F, D, g[W1], w.part, st);
   colsum<float>(w.dmidp, F, M, F, g[B1], st);
@@ -758,13 +775,13 @@ int layer_bwd_core(const float* x, const float* dy, const float* kmask, const T*
   colsum<float>(w.dxn, D, M, D, g[LN2B], st);
 
   // ---- attention sublayer
-  drop_grad_kernel<<<blocks_for(MD), 256, 0, st>>>(w.dx1, site_of(seeds, 1, thr, kp), MD,
-                                                   w.dattn);
+  drop_grad_kernel<<<M, kRowThreads, 0, st>>>(w.dx1, site_of(seeds, 1, thr, kp, t8, D), D,
+                                              w.dattn);
   weight_grad<float, T>(w.dattn, D, w.o, D, M, D, D, g[WO], w.part, st);
   colsum<float>(w.dattn, D, M, D, g[BO], st);
   linear_grad_input<float, T>(w.dattn, D, p[WO], M, D, D, EpiStoreT<T>{w.dO, D}, st);
   if (!attention_bwd_any<T>(dk, w.qkv, w.dO, kmask, w.lse, w.Dsum, w.dqkv, B, Tlen, D, H,
-                            site_of(seeds, 0, thr, kp), inv_sqrt_dk, st))
+                            site_of(seeds, 0, thr, kp, t8, Tlen), inv_sqrt_dk, st))
     return (int)cudaErrorInvalidValue;
   const int wi[3] = {WQ, WK, WV}, bi[3] = {BQ, BK, BV};
   for (int j = 0; j < 3; ++j) {
@@ -776,7 +793,7 @@ int layer_bwd_core(const float* x, const float* dy, const float* kmask, const T*
   }
   if (below != nullptr)
     ln_bwd<T>(x, p[LN1A], w.dxn, w.dx1, dx, w.gdn, M, D, st, w.dff,
-              site_of(below, 3, thr, kp));
+              site_of(below, 3, thr, kp, t8, D));
   else
     ln_bwd<T>(x, p[LN1A], w.dxn, w.dx1, dx, w.gdn, M, D, st);
   colsum<float>(w.gdn, D, M, D, g[LN1A], st);
@@ -786,8 +803,9 @@ int layer_bwd_core(const float* x, const float* dy, const float* kmask, const T*
 
 template <typename T>
 int layer_bwd(const float* x, const float* dy, const float* kmask, const void* const* lp,
-              const uint32_t* seeds, uint32_t thr, float kp, float* dx, void* const* gp,
-              void* ws, int B, int Tlen, int D, int H, int F, cudaStream_t st) {
+              const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
+              void* const* gp, void* ws, int B, int Tlen, int D, int H, int F,
+              cudaStream_t st) {
   Carver c{static_cast<char*>(ws)};
   const Bwd<T> w = Bwd<T>::carve(c, B, Tlen, D, H, F);
   const T* p[16];
@@ -796,8 +814,8 @@ int layer_bwd(const float* x, const float* dy, const float* kmask, const void* c
     p[i] = static_cast<const T*>(lp[i]);
     g[i] = static_cast<float*>(gp[i]);
   }
-  return layer_bwd_core<T>(x, dy, kmask, p, g, seeds, nullptr, false, thr, kp, dx, w, B, Tlen,
-                           D, H, F, st);
+  return layer_bwd_core<T>(x, dy, kmask, p, g, seeds, nullptr, false, thr, kp, t8, dx, w, B,
+                           Tlen, D, H, F, st);
 }
 
 // Elements of each of a layer's 16 parameters, in P order.
@@ -813,7 +831,7 @@ inline void param_sizes(int D, int F, size_t* n) {
 // stacked fp32 [N, ...] gradient outputs.
 template <typename T>
 int stack_bwd(const float* saved, const float* dy, const float* kmask, const void* const* lp,
-              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, float* dx,
+              int n_layers, const uint32_t* seeds, uint32_t thr, float kp, int t8, float* dx,
               void* const* gp, void* ws, int B, int Tlen, int D, int H, int F,
               cudaStream_t st) {
   const long long MD = (long long)B * Tlen * D;
@@ -822,8 +840,8 @@ int stack_bwd(const float* saved, const float* dy, const float* kmask, const voi
   size_t n[16];
   param_sizes(D, F, n);
   const int top = n_layers - 1;
-  drop_grad_kernel<<<blocks_for(MD), 256, 0, st>>>(dy, site_of(seeds + 4 * top, 3, thr, kp),
-                                                   MD, sw.w.dff);
+  drop_grad_kernel<<<B * Tlen, kRowThreads, 0, st>>>(
+      dy, site_of(seeds + 4 * top, 3, thr, kp, t8, D), D, sw.w.dff);
   const float* g_out = dy;
   for (int l = top; l >= 0; --l) {
     const T* p[16];
@@ -834,7 +852,7 @@ int stack_bwd(const float* saved, const float* dy, const float* kmask, const voi
     }
     float* d_in = l == 0 ? dx : sw.carry[l & 1];
     const int rc = layer_bwd_core<T>(saved + (size_t)l * MD, g_out, kmask, p, g, seeds + 4 * l,
-                                     l > 0 ? seeds + 4 * (l - 1) : nullptr, true, thr, kp,
+                                     l > 0 ? seeds + 4 * (l - 1) : nullptr, true, thr, kp, t8,
                                      d_in, sw.w, B, Tlen, D, H, F, st);
     if (rc != (int)cudaSuccess) return rc;
     g_out = d_in;
@@ -876,14 +894,17 @@ extern "C" long long mmtx_encoder_train_workspace(int dtype, int B, int T, int D
 // Kernel 3.  x [B, T, D] in the storage dtype; kmask [B, T] fp32; out fp32
 // [B, T, D] (the last layer's output, no final norm); saved fp32 [N, B, T, D]
 // (each layer's input); layer_ptrs: 16 device pointers per layer; seeds:
-// host array of 4 uint32 per layer; threshold / keep_p: the dropout rate.
+// host array of 4 uint32 per layer; threshold / keep_p: the dropout rate;
+// t8: the stream, -1 the per-element "hash" bits, else the "hash4" bits at
+// that 8-bit threshold (hash4_keep) on every site of last axis % 4 == 0.
 extern "C" int mmtx_encoder_train_fwd(int dtype, const void* x, const void* kmask,
                                       void* out, void* saved, const void* layer_ptrs,
                                       int n_layers, const void* seeds, unsigned threshold,
-                                      float keep_p, void* workspace, int B, int T, int D,
-                                      int H, int F, void* stream) {
+                                      float keep_p, int t8, void* workspace, int B, int T,
+                                      int D, int H, int F, void* stream) {
   using namespace mmtx;
-  if (!enct::shape_ok(B, T, D, H, F) || n_layers < 1) return (int)cudaErrorInvalidValue;
+  if (!enct::shape_ok(B, T, D, H, F) || n_layers < 1 || t8 > 255)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* const* lp = static_cast<const void* const*>(layer_ptrs);
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
@@ -892,14 +913,14 @@ extern "C" int mmtx_encoder_train_fwd(int dtype, const void* x, const void* kmas
   float* sv = static_cast<float*>(saved);
   if (enc_bwd::takes(dtype, D, H, F))
     return enc_wgmma::train_fwd(static_cast<const __nv_bfloat16*>(x), km, o, sv, lp, n_layers,
-                                sd, threshold, keep_p, workspace, B, T, D, H, F, st);
+                                sd, threshold, keep_p, t8, workspace, B, T, D, H, F, st);
   if (dtype == kF32)
     return enct::train_fwd<float>(static_cast<const float*>(x), km, o, sv, lp, n_layers, sd,
-                                  threshold, keep_p, workspace, B, T, D, H, F, st);
+                                  threshold, keep_p, t8, workspace, B, T, D, H, F, st);
   if (dtype == kBF16)
     return enct::train_fwd<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), km, o, sv, lp,
-                                          n_layers, sd, threshold, keep_p, workspace, B, T,
-                                          D, H, F, st);
+                                          n_layers, sd, threshold, keep_p, t8, workspace, B,
+                                          T, D, H, F, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -919,15 +940,17 @@ extern "C" int mmtx_encoder_train_fwd_path(int dtype, int D, int H, int F) {
 
 // Kernel 4.  x_l, dy fp32 [B, T, D]; layer_ptrs: the layer's 16 parameters
 // in the storage dtype; seeds: host array of the layer's 4 uint32 seeds;
-// dx fp32 [B, T, D]; grad_ptrs: 16 fp32 device buffers shaped like the
-// parameters.  Every output is written whole (nothing accumulates).
+// t8: the stream (as kernel 3's); dx fp32 [B, T, D]; grad_ptrs: 16 fp32
+// device buffers shaped like the parameters.  Every output is written whole
+// (nothing accumulates).
 extern "C" int mmtx_encoder_layer_bwd(int dtype, const void* x, const void* dy,
                                       const void* kmask, const void* layer_ptrs,
                                       const void* seeds, unsigned threshold, float keep_p,
-                                      void* dx, const void* grad_ptrs, void* workspace,
-                                      int B, int T, int D, int H, int F, void* stream) {
+                                      int t8, void* dx, const void* grad_ptrs,
+                                      void* workspace, int B, int T, int D, int H, int F,
+                                      void* stream) {
   using namespace mmtx;
-  if (!enct::shape_ok(B, T, D, H, F)) return (int)cudaErrorInvalidValue;
+  if (!enct::shape_ok(B, T, D, H, F) || t8 > 255) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* const* lp = static_cast<const void* const*>(layer_ptrs);
   void* const* gp = static_cast<void* const*>(const_cast<void*>(grad_ptrs));
@@ -937,13 +960,13 @@ extern "C" int mmtx_encoder_layer_bwd(int dtype, const void* x, const void* dy,
   const float* km = static_cast<const float*>(kmask);
   float* d = static_cast<float*>(dx);
   if (enc_bwd::takes(dtype, D, H, F))
-    return enc_bwd::layer_bwd(xx, g, km, lp, sd, threshold, keep_p, d, gp, workspace, B, T, D,
-                              H, F, st);
+    return enc_bwd::layer_bwd(xx, g, km, lp, sd, threshold, keep_p, t8, d, gp, workspace, B, T,
+                              D, H, F, st);
   if (dtype == kF32)
-    return enct::layer_bwd<float>(xx, g, km, lp, sd, threshold, keep_p, d, gp, workspace, B,
-                                  T, D, H, F, st);
+    return enct::layer_bwd<float>(xx, g, km, lp, sd, threshold, keep_p, t8, d, gp, workspace,
+                                  B, T, D, H, F, st);
   if (dtype == kBF16)
-    return enct::layer_bwd<__nv_bfloat16>(xx, g, km, lp, sd, threshold, keep_p, d, gp,
+    return enct::layer_bwd<__nv_bfloat16>(xx, g, km, lp, sd, threshold, keep_p, t8, d, gp,
                                           workspace, B, T, D, H, F, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -951,17 +974,18 @@ extern "C" int mmtx_encoder_layer_bwd(int dtype, const void* x, const void* dy,
 // Kernel 5.  saved fp32 [N, B, T, D] (kernel 3's, each layer's input); dy fp32
 // [B, T, D] (the gradient of the last layer's output); layer_ptrs: 16 device
 // pointers per layer in the storage dtype; seeds: host array of 4 uint32 per
-// layer; dx fp32 [B, T, D]; grad_ptrs: 16 fp32 device buffers, each the
-// parameter's gradient stacked over the layers [N, ...].  Every output is
-// written whole.
+// layer; t8: the stream (as kernel 3's); dx fp32 [B, T, D]; grad_ptrs: 16
+// fp32 device buffers, each the parameter's gradient stacked over the layers
+// [N, ...].  Every output is written whole.
 extern "C" int mmtx_encoder_stack_bwd(int dtype, const void* saved, const void* dy,
                                       const void* kmask, const void* layer_ptrs,
                                       int n_layers, const void* seeds, unsigned threshold,
-                                      float keep_p, void* dx, const void* grad_ptrs,
+                                      float keep_p, int t8, void* dx, const void* grad_ptrs,
                                       void* workspace, int B, int T, int D, int H, int F,
                                       void* stream) {
   using namespace mmtx;
-  if (!enct::shape_ok(B, T, D, H, F) || n_layers < 1) return (int)cudaErrorInvalidValue;
+  if (!enct::shape_ok(B, T, D, H, F) || n_layers < 1 || t8 > 255)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* const* lp = static_cast<const void* const*>(layer_ptrs);
   void* const* gp = static_cast<void* const*>(const_cast<void*>(grad_ptrs));
@@ -971,13 +995,13 @@ extern "C" int mmtx_encoder_stack_bwd(int dtype, const void* saved, const void* 
   const float* km = static_cast<const float*>(kmask);
   float* d = static_cast<float*>(dx);
   if (enc_bwd::takes(dtype, D, H, F))
-    return enc_bwd::stack_bwd(sv, g, km, lp, n_layers, sd, threshold, keep_p, d, gp, workspace,
-                              B, T, D, H, F, st);
+    return enc_bwd::stack_bwd(sv, g, km, lp, n_layers, sd, threshold, keep_p, t8, d, gp,
+                              workspace, B, T, D, H, F, st);
   if (dtype == kF32)
-    return enct::stack_bwd<float>(sv, g, km, lp, n_layers, sd, threshold, keep_p, d, gp,
+    return enct::stack_bwd<float>(sv, g, km, lp, n_layers, sd, threshold, keep_p, t8, d, gp,
                                   workspace, B, T, D, H, F, st);
   if (dtype == kBF16)
-    return enct::stack_bwd<__nv_bfloat16>(sv, g, km, lp, n_layers, sd, threshold, keep_p, d,
-                                          gp, workspace, B, T, D, H, F, st);
+    return enct::stack_bwd<__nv_bfloat16>(sv, g, km, lp, n_layers, sd, threshold, keep_p, t8,
+                                          d, gp, workspace, B, T, D, H, F, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,7 +23,7 @@ namespace enc_wgmma {
 // arguments of the C entry mmtx_encoder_train_fwd; its workspace bytes.
 int train_fwd(const __nv_bfloat16* x, const float* kmask, float* out, float* saved,
               const void* const* lp, int n_layers, const uint32_t* seeds, uint32_t thr,
-              float kp, void* ws, int B, int T, int D, int H, int F, cudaStream_t st);
+              float kp, int t8, void* ws, int B, int T, int D, int H, int F, cudaStream_t st);
 long long train_workspace_bytes(int B, int T, int D);
 
 }  // namespace enc_wgmma

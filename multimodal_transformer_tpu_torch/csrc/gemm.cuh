@@ -20,24 +20,23 @@ namespace mmtx {
 // Dropout of one value: keep (hash >= threshold) ? v / keep_p : 0.  The
 // threshold is min(round(p * 2^32), 2^32 - 1), computed on the host; p = 0
 // gives threshold 0, so every value is kept and divided by 1 exactly.
-struct DropSite {
-  uint32_t seed;
-  uint32_t threshold;
+// The stream (common.cuh DropBits) is chosen at run time.
+struct DropSite : DropBits {
   float keep_p;
-  __device__ __forceinline__ bool keep(uint32_t idx) const {
-    return fmix_hash(idx, seed) >= threshold;
-  }
   __device__ __forceinline__ float apply(float v, uint32_t idx) const {
     return keep(idx) ? v / keep_p : 0.f;
   }
+  __device__ __forceinline__ float apply_at(float v, uint32_t row, uint32_t col,
+                                            uint32_t width) const {
+    return keep_at(row, col, width) ? v / keep_p : 0.f;
+  }
 };
 
-// The flat position of probability (qi, kj) of head hd of video b in the
-// JAX package's [B, h, T, T] tensor: its dropout keep bit's counter.
-__device__ __forceinline__ uint32_t prob_index(int b, int H, int hd, int Tlen, int qi,
-                                               int kj) {
-  return (((uint32_t)b * H + hd) * (uint32_t)Tlen + (uint32_t)qi) * (uint32_t)Tlen +
-         (uint32_t)kj;
+// The row of probability (qi, *) of head hd of video b in the JAX
+// package's [B, h, T, T] tensor, as [B * h * T, T] rows: its dropout keep
+// bit is the site's at (prob_row, kj) of width T.
+__device__ __forceinline__ uint32_t prob_row(int b, int H, int hd, int Tlen, int qi) {
+  return ((uint32_t)b * H + hd) * (uint32_t)Tlen + (uint32_t)qi;
 }
 
 // Compensated summation: s + comp carries the running sum's lost bits.

@@ -221,7 +221,7 @@ struct GammaDrop {
   float keep;
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
     const int b = m / steps, t = m - b * steps;
-    const DropSite s{seeds[2 * t + which], thr, keep};
+    const DropSite s{{seeds[2 * t + which], thr}, keep};
     out[(size_t)m * ldo + n] = s.apply(fmaxf(acc + to_f(bias[n]), 0.f), (uint32_t)(b * N + n));
   }
 };

@@ -53,12 +53,6 @@ struct Rows {
   }
 };
 
-// The flat position of element (m, col) of a [rows, width] tensor: its
-// dropout keep bit's counter.
-__device__ __forceinline__ uint32_t flat(int m, int width, int col) {
-  return (uint32_t)m * (uint32_t)width + (uint32_t)col;
-}
-
 // v[p][...] from the residual rows in shared memory (row stride RS).
 template <int NP>
 __device__ __forceinline__ void read_rows(float (&v)[NP][64], const float* res, int RS,

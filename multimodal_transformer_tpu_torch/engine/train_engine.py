@@ -26,10 +26,15 @@ Engine's dropout: the key fold_in(PRNGKey(epoch), batch), with batch
 counted from 0 in each epoch (`step_seeds`), split along the configuration's
 key tree (`DropoutSeeds.from_key` over `dropout_sites()`), hashed into
 seeds on the "hash" stream (the default; kernels 3-7 and 10 draw their
-masks) or kept as keys on the "threefry" stream (`dropout_impl=
-"threefry"`: kernel T draws every mask, and the encoders and the MFN run
-their plain paths on the card, as the JAX package routes that stream off
-its kernels).  `seed_fn(step, T)` -> DropoutSeeds, where given, replaces
+masks) and the "hash4" stream (`dropout_impl="hash4"`, the JAX package's
+MMTX_DROPOUT_IMPL=hash4: kernels 3, 4 and 5 draw its multi-bit masks, the
+MFN kernels its per-element gamma bits), or kept as keys on the
+"threefry" stream (`dropout_impl="threefry"`: kernel T draws every mask,
+and the encoders and the MFN run their plain paths on the card, as the
+JAX package routes that stream off its kernels).  `prng_impl="rbg"` takes
+the JAX package's rbg keys (`jax_default_prng_impl="rbg"`, its CLI's
+--fast_rng) for the weights and the step keys; kernel P then draws what
+kernel T draws.  `seed_fn(step, T)` -> DropoutSeeds, where given, replaces
 that derivation (step counts the engine's steps from 0, T is the batch's
 length).  `encoder_backward`
 picks the encoders' training backward on the card: "perlayer" (kernel 4 per
@@ -102,7 +107,8 @@ class Engine:
                  seed_fn: Optional[Callable[[int, int], DropoutSeeds]] = None,
                  eval_dtype: Optional[torch.dtype] = None,
                  encoder_backward: str = "perlayer", nan_guard: bool = True,
-                 mesh=None, dropout_impl: str = "hash"):
+                 mesh=None, dropout_impl: str = "hash",
+                 prng_impl: str = "threefry"):
         """train_dtype: bf16 mixed training when set; eval_dtype: the dtype
         of `evaluate_batched`'s forward (None: float32), as in the JAX
         Engine, whose per-video evaluation stays float32; encoder_backward:
@@ -110,18 +116,26 @@ class Engine:
         losses and parameters for NaN and infinity (NanGuard); mesh: a 1-D
         "data" DeviceMesh (parallel.make_mesh) for data parallelism, this
         process being one of its ranks, device its device; dropout_impl:
-        "hash" or "threefry"."""
+        "hash", "hash4" or "threefry"; prng_impl: the key implementation
+        of the initial weights and the step keys, "threefry" (JAX's
+        default) or "rbg" (JAX's under `jax_default_prng_impl="rbg"`,
+        the JAX CLI's --fast_rng)."""
         self.cfg = cfg
         self.encoder_backward = check_encoder_backward(encoder_backward)
         if dropout_impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, "
                              f"got {dropout_impl!r}")
         self.dropout_impl = dropout_impl
+        if prng_impl not in prng.IMPLS:
+            raise ValueError(f"prng_impl must be one of {prng.IMPLS}, got "
+                             f"{prng_impl!r}")
+        self.prng_impl = prng_impl
         self.device = torch.device(device)
         self.logger = logger
         self.train_dtype = train_dtype
         self.eval_dtype = eval_dtype
-        self.module = build_model(cfg, seed=seed, device=self.device)
+        self.module = build_model(cfg, seed=seed, device=self.device,
+                                  prng_impl=prng_impl)
         self.module.train()
         self.optimizer = make_adam(self.module.parameters(), lr, weight_decay)
         self.scheduler = ReduceLROnPlateau(lr=lr)
@@ -139,10 +153,11 @@ class Engine:
     def step_seeds(self, T: int) -> DropoutSeeds:
         """The next step's dropout seeds: `seed_fn` where given, else those
         of the JAX Engine's key of the step, fold_in(PRNGKey(epoch),
-        batch), on the engine's stream."""
+        batch) under the engine's key implementation, on its stream."""
         if self.seed_fn is not None:
             return self.seed_fn(self.steps, T)
-        key = prng.fold_in(prng.key(self._epoch), self._batch)
+        key = prng.fold_in(prng.key(self._epoch, self.prng_impl),
+                           self._batch)
         return DropoutSeeds.from_key(self.module.dropout_sites(), key, T,
                                      self.dropout_impl)
 

@@ -177,8 +177,7 @@ class MFT(_Family):
             name = f"transformer_{m}"
             mfn_in[m] = encode(getattr(head, name),
                                getattr(head, f"embed_{m}")(outs[m]), mask,
-                               mask_mode, plain,
-                               None if seeds is None else seeds.encoder[name],
+                               mask_mode, plain, seeds, name,
                                encoder_backward)
         return _mfn_pred(head, mfn_in, mask, seeds, plain)
 
@@ -378,13 +377,16 @@ FAMILY_INITS = {"MFT": mft_init, "SFT": sft_init, "B1-LSTM": b1_lstm_init,
 
 
 def build_model(cfg: ModelConfig, *, seed: int | None = None,
-                device: torch.device | str = "cpu") -> nn.Module:
+                device: torch.device | str = "cpu",
+                prng_impl: str = "threefry") -> nn.Module:
     """The family's module on `device`, the CPU unless the caller names
     another, as a module's constructor is (the Engine, the CLI, serving
     and the benches pass the card).  With a seed, its weights are the JAX
-    package's `<family>_init(PRNGKey(seed))`, drawn on that device (kernel
-    T on the card, its plain version on the CPU); without one, PyTorch's
-    default init, for a module whose weights are loaded next."""
+    package's `<family>_init(PRNGKey(seed))` under the key implementation
+    `prng_impl` ("threefry", JAX's default, or "rbg"), drawn on that device
+    (kernel T, or kernel P for rbg keys, on the card; their plain versions
+    on the CPU); without one, PyTorch's default init, for a module whose
+    weights are loaded next."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; expected one of "
                          f"{FAMILIES}")
@@ -395,7 +397,7 @@ def build_model(cfg: ModelConfig, *, seed: int | None = None,
     with torch.device("meta"):  # every tensor is drawn below
         module = cls(cfg)
     module = module.to_empty(device=device)
-    tree = FAMILY_INITS[cfg.family](prng.key(seed), cfg, device)
+    tree = FAMILY_INITS[cfg.family](prng.key(seed, prng_impl), cfg, device)
     return load_jax_params(module, tree)
 
 

@@ -49,23 +49,25 @@ def _site(seeds, name: str):
     return None if seeds is None else getattr(seeds, name)
 
 
-def encode(enc: Encoder, e, mask, mask_mode: str, plain: bool, table=None,
-           encoder_backward: str = "perlayer"):
+def encode(enc: Encoder, e, mask, mask_mode: str, plain: bool, seeds=None,
+           name: str = "encoder", encoder_backward: str = "perlayer"):
     """An encoder of a family, h = 8 heads: the plain encoder when plain,
-    else as `encoder_stack` routes it; table: its [N, 4] dropout seeds in
-    training, None in eval."""
+    else as `encoder_stack` routes it; seeds: the step's `DropoutSeeds`
+    (the encoder's [N, 4] table is `seeds.encoder[name]`, on the stream
+    `seeds.hash4`) in training, None in eval."""
+    table = None if seeds is None else seeds.encoder[name]
+    hash4 = seeds is not None and seeds.hash4
     if plain:
         return encoder_stack_plain(enc, e, mask, h=HEADS, mask_mode=mask_mode,
-                                   seeds=table)
+                                   seeds=table, hash4=hash4)
     return encoder_stack(enc, e, mask, h=HEADS, mask_mode=mask_mode,
-                         seeds=table, backward=encoder_backward)
+                         seeds=table, backward=encoder_backward, hash4=hash4)
 
 
 def _encode(head: nn.Module, e, mask, mask_mode: str, plain: bool, seeds,
             encoder_backward: str):
     """The head's own encoder, whose seeds are `seeds.encoder["encoder"]`."""
-    table = None if seeds is None else seeds.encoder["encoder"]
-    return encode(head.encoder, e, mask, mask_mode, plain, table,
+    return encode(head.encoder, e, mask, mask_mode, plain, seeds, "encoder",
                   encoder_backward)
 
 

@@ -5,13 +5,16 @@ mode takes the stack's [N, 4] dropout seed table (one seed per layer for
 each of the four sites: attention probabilities, attention output, FFN
 hidden, FFN output) and applies the dropout of ops/basic.py; without seeds
 the stack runs in eval mode.  A table of threefry keys ([N, 4, 2], the
-"threefry" dropout; on a data-parallel rank `prng.RowKeys`, whose draws
-are the global batch's at the rank's rows) takes the plain path on any
-device, with each site's mask drawn by kernel T on the card, as the JAX
-package keeps that stream on its jnp encoder (no kernel regenerates its
-bits).  `encoder_init` draws the
-weights along the JAX key tree (one layer drawn, copied N times, as the
-reference's `clones()`).  Two mask modes, as in the JAX package:
+"threefry" dropout, [N, 4, 4] under rbg keys; on a data-parallel rank
+`prng.RowKeys`, whose draws are the global batch's at the rank's rows)
+takes the plain path on any device, with each site's mask drawn by kernel
+T (kernel P under rbg keys) on the card, as the JAX package keeps that
+stream on its jnp encoder (no kernel regenerates its bits).  A hash
+table with `hash4=True` (the "hash4" dropout) takes the hash's routes:
+kernels 3, 4 and 5 draw its multi-bit masks, as the JAX package's kernels
+do.  `encoder_init` draws the weights along the JAX key tree (one layer
+drawn, copied N times, as the reference's `clones()`).  Two mask modes, as
+in the JAX package:
 
   * "query" (the reference's quirk, kept as it is): the [B, T, 1] mask is
     broadcast over the query rows only, so padded query rows get -1e9
@@ -56,7 +59,7 @@ from torch import nn
 
 from ..utils import prng
 from ..utils.init import linear_init, norm_init
-from .basic import dropout
+from .basic import dropout, site_seed
 from .dispatch import encoder_route, needs_grad, use_kernel
 from .norm import LayerNorm
 
@@ -184,13 +187,13 @@ def row_parallel(lin: nn.Linear, x, group):
 
 def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str,
                   seeds=None, dropout_p: float = DROPOUT, flash: bool = False,
-                  group=None):
+                  group=None, hash4: bool = False):
     """seeds: the layer's 4 site seeds (or threefry keys), or None in eval;
+    hash4: the seeds are the "hash4" stream's;
     flash: attention through kernel 11 (see attention_heads); group: the
     "model" group of a tensor-parallel layer, whose h heads are this
     rank's."""
-    s = [None] * 4 if seeds is None else [
-        v if prng.is_keys(v) else int(v) for v in seeds]
+    s = [None] * 4 if seeds is None else [site_seed(v, hash4) for v in seeds]
     attn, ff = layer.self_attn, layer.feed_forward
     normed = layer.sublayer[0].norm(x)
     heads = attention_heads(attn, normed, normed, normed, mask, h=h,
@@ -205,14 +208,16 @@ def encoder_layer(layer: EncoderLayer, x, mask, *, h: int, mask_mode: str,
 
 def encoder_stack_plain(enc: Encoder, x, mask=None, *, h: int = 8,
                         mask_mode: str = "query", seeds=None,
-                        dropout_p: float = DROPOUT):
-    """The plain path, on any device.  x: [B, T, D]; seeds: [N, 4] or None."""
+                        dropout_p: float = DROPOUT, hash4: bool = False):
+    """The plain path, on any device.  x: [B, T, D]; seeds: [N, 4] or None;
+    hash4: as `encoder_stack`'s."""
     _check_tp(enc, seeds, x)
     for l, layer in enumerate(enc.layers):
         x = encoder_layer(layer, x, mask, h=h // enc.tp_size,
                           mask_mode=mask_mode,
                           seeds=None if seeds is None else seeds[l],
-                          dropout_p=dropout_p, group=enc.tp_group)
+                          dropout_p=dropout_p, group=enc.tp_group,
+                          hash4=hash4)
     return enc.norm(x)
 
 
@@ -237,10 +242,12 @@ def _check_tp(enc: Encoder, seeds, x) -> None:
 
 def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
                   mask_mode: str = "query", seeds=None,
-                  dropout_p: float = DROPOUT, backward: str = "perlayer"):
+                  dropout_p: float = DROPOUT, backward: str = "perlayer",
+                  hash4: bool = False):
     """Full N-layer pre-norm encoder with final norm.  x: [B, T, D];
     seeds: the [N, 4] dropout seed table (or [N, 4, 2] threefry keys) in
-    training, None in eval;
+    training, None in eval; hash4: the table's seeds are the "hash4"
+    stream's (ops/basic.py `site_seed`);
     backward: the training backward on the card, "perlayer" (kernel 4) or
     "stack" (kernel 5).  A tensor-parallel encoder takes the flash route
     in "key_query" mode with a mask, else the plain one."""
@@ -248,7 +255,8 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
         if mask is not None and mask_mode == "key_query":
             return encoder_stack_flash(enc, x, mask, h=h)
         return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode,
-                                   seeds=seeds, dropout_p=dropout_p)
+                                   seeds=seeds, dropout_p=dropout_p,
+                                   hash4=hash4)
     route = encoder_route(use_kernel(x) and mask is not None, x.shape[1],
                           mask_mode, seeds is not None, backward,
                           needs_grad(x, *enc.parameters()),
@@ -264,7 +272,7 @@ def encoder_stack(enc: Encoder, x, mask=None, *, h: int = 8,
             seeds = torch.zeros(len(enc.layers), 4, dtype=torch.int64)
             dropout_p = 0.0
         y = encoder_stack_train(enc, x, mask, h=h, p=dropout_p, seeds=seeds,
-                                backward=backward)
+                                backward=backward, hash4=hash4)
         return enc.norm(y.to(x.dtype))
     return encoder_stack_plain(enc, x, mask, h=h, mask_mode=mask_mode,
-                               seeds=seeds, dropout_p=dropout_p)
+                               seeds=seeds, dropout_p=dropout_p, hash4=hash4)

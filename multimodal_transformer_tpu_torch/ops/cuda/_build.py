@@ -43,12 +43,12 @@ _SIGNATURES = {
     "mmtx_mfn_scan_aligned": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                               _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mmtx_encoder_train_workspace": [_I, _I, _I, _I, _I, _I, _I],
-    "mmtx_encoder_train_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _U, _F, _P, _I,
-                               _I, _I, _I, _I, _P],
-    "mmtx_encoder_layer_bwd": [_I, _P, _P, _P, _P, _P, _U, _F, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _P],
-    "mmtx_encoder_stack_bwd": [_I, _P, _P, _P, _P, _I, _P, _U, _F, _P, _P, _P,
+    "mmtx_encoder_train_fwd": [_I, _P, _P, _P, _P, _P, _I, _P, _U, _F, _I, _P,
                                _I, _I, _I, _I, _I, _P],
+    "mmtx_encoder_layer_bwd": [_I, _P, _P, _P, _P, _P, _U, _F, _I, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
+    "mmtx_encoder_stack_bwd": [_I, _P, _P, _P, _P, _I, _P, _U, _F, _I, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _P],
     "mmtx_encoder_bwd_path": [_I, _I, _I, _I],
     "mmtx_encoder_train_fwd_path": [_I, _I, _I, _I],
     "mmtx_mfn_train_fwd": [_I, _P, _P, _P, _I, _P, _P, _U, _U, _F, _F, _P, _P,
@@ -66,6 +66,8 @@ _SIGNATURES = {
                              _F, _P],
     "mmtx_threefry": [_P, _I, ctypes.c_longlong, _I, _F, _P, _P,
                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong],
+    "mmtx_philox": [_P, _I, ctypes.c_longlong, _I, _F, _P, _P,
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong],
 }
 
 _lock = threading.Lock()

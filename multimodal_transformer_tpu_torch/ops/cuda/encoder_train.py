@@ -43,7 +43,11 @@ None stands in for another: a path that fails to build or launch raises.
 
 Dropout sites per layer (seed column): 0 attention probabilities, flat index
 over [B, h, T, T]; 1 attention output, 2 FFN hidden, 3 FFN output, flat
-index over [B, T, width].
+index over [B, T, width].  With `hash4=True` (the "hash4" stream) the
+seeds give every site whose last axis w is a multiple of 4 (the probabilities'
+is T) the multi-bit keep bits of `ops/basic.py hash4_keep` at its (row,
+column), row (b*h + head)*T + q or b*T + t; the others keep the hash
+bits.  The kernels take the stream as their 8-bit threshold (-1: hash).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import ctypes
 
 import torch
 
-from ..basic import dropout, dropout_with_idx, keep_threshold
+from ..basic import dropout, hash4_threshold, keep_threshold, site_seed
 from ..dispatch import (acc_dtype, check_encoder_backward, check_kernel_dtype,
                         use_kernel)
 from ..norm import layer_norm
@@ -119,12 +123,13 @@ class _Scores(torch.autograd.Function):
 
 
 def layer_train_plain(lp, x: torch.Tensor, kmask: torch.Tensor, seeds,
-                      p: float, h: int, cdt: torch.dtype | None = None
-                      ) -> torch.Tensor:
+                      p: float, h: int, cdt: torch.dtype | None = None,
+                      hash4: bool = False) -> torch.Tensor:
     """One layer's forward in plain PyTorch.  lp: the 16 parameters in the
     storage dtype (or upcast copies of them); x: [B, T, D] residual stream in
     the accumulation dtype; kmask [B, T]; seeds: the layer's 4 site seeds;
-    cdt: the storage dtype (default: float64 for float64 x, else lp's)."""
+    cdt: the storage dtype (default: float64 for float64 x, else lp's);
+    hash4: the seeds are the "hash4" stream's."""
     (ln1a, ln1b, wq, bq, wk, bk, wv, bv, wo, bo, ln2a, ln2b,
      w1, b1, w2, b2) = lp
     if cdt is None:
@@ -132,7 +137,7 @@ def layer_train_plain(lp, x: torch.Tensor, kmask: torch.Tensor, seeds,
     acc = x.dtype
     B, T, D = x.shape
     d_k = D // h
-    s0, s1, s2, s3 = (int(s) for s in seeds)
+    s0, s1, s2, s3 = (site_seed(s, hash4) for s in seeds)
     # bf16 into float32: values rounded where the forward stores them,
     # gradients rounded only at the TPU kernel's backward rounding points
     bf16 = cdt == torch.bfloat16 and acc == torch.float32
@@ -163,11 +168,7 @@ def layer_train_plain(lp, x: torch.Tensor, kmask: torch.Tensor, seeds,
         v = mm(xn, wv, bv).to(cdt)
         s = heads(q) @ heads(k).transpose(-2, -1)
     s = s.masked_fill(kmask[:, None, None, :] == 0, NEG_INF)
-    prob = torch.softmax(s, dim=-1)
-    if p > 0.0:
-        idx = torch.arange(prob.numel(), dtype=torch.int64,
-                           device=x.device).view(prob.shape)
-        prob = dropout_with_idx(prob, s0, p, idx)
+    prob = dropout(torch.softmax(s, dim=-1), s0, p)
     o = (c(prob) @ heads(v)).transpose(1, 2).reshape(B, T, D)
     x1 = x + dropout(mm(rg(o), wo, bo), s1, p)
     xn2 = c(layer_norm(x1, c(ln2a), c(ln2b)))
@@ -175,18 +176,20 @@ def layer_train_plain(lp, x: torch.Tensor, kmask: torch.Tensor, seeds,
     return x1 + dropout(mm(mid, w2, b2), s3, p)
 
 
-def encoder_stack_train_fwd_plain(params, x, kmask, seeds, p: float, h: int):
+def encoder_stack_train_fwd_plain(params, x, kmask, seeds, p: float, h: int,
+                                  hash4: bool = False):
     """(out [B, T, D], saved [N, B, T, D]) in the accumulation dtype."""
     xr = x.to(acc_dtype(x.dtype))
     saved = []
     for l in range(len(params) // N_PARAMS):
         saved.append(xr)
         xr = layer_train_plain(params[N_PARAMS * l:N_PARAMS * (l + 1)], xr,
-                               kmask, seeds[l], p, h)
+                               kmask, seeds[l], p, h, hash4=hash4)
     return xr, torch.stack(saved)
 
 
-def encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p: float, h: int):
+def encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p: float, h: int,
+                            hash4: bool = False):
     """(dx, [16 parameter grads]) of one layer, in the accumulation dtype."""
     acc = x_l.dtype
     with torch.enable_grad():
@@ -195,12 +198,14 @@ def encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p: float, h: int):
         # the forward reads them in the storage dtype
         ps = [t.detach().to(acc).requires_grad_() for t in lp]
         y = layer_train_plain(ps, x, kmask, seeds, p, h,
-                              cdt=acc if acc == torch.float64 else lp[2].dtype)
+                              cdt=acc if acc == torch.float64 else lp[2].dtype,
+                              hash4=hash4)
         grads = torch.autograd.grad(y, [x] + ps, dy)
     return grads[0], list(grads[1:])
 
 
-def encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p: float, h: int):
+def encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p: float, h: int,
+                            hash4: bool = False):
     """Kernel 5's plain version: `encoder_layer_bwd_plain` for every layer,
     last layer first.  Returns (dx, [16 gradients, each stacked over the
     layers as [N, ...]]) in the accumulation dtype."""
@@ -209,7 +214,7 @@ def encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p: float, h: int):
     for l in reversed(range(n_layers)):
         dy, per_layer[l] = encoder_layer_bwd_plain(
             params[N_PARAMS * l:N_PARAMS * (l + 1)], saved[l], dy, kmask,
-            seeds[l], p, h)
+            seeds[l], p, h, hash4)
     return dy, [torch.stack(gs) for gs in zip(*per_layer)]
 
 
@@ -234,6 +239,12 @@ def _kernel_args(x: torch.Tensor, params, what: str):
 def _check_heads(D: int, h: int, what: str) -> None:
     if D % h or D // h not in SUPPORTED_DK:
         raise ValueError(f"{what}: D={D}, h={h} gives d_k not in {SUPPORTED_DK}")
+
+
+def _hash4_t8(hash4: bool, p: float) -> int:
+    """The C entries' stream argument: the 8-bit threshold of the hash4
+    stream's multi-bit sites, -1 for the hash stream."""
+    return hash4_threshold(p) if hash4 else -1
 
 
 def _seed_array(seeds) -> ctypes.Array:
@@ -261,12 +272,15 @@ def _workspace(lib, dtype_code, B, T, D, h, F, backward: bool, device):
     return torch.empty(n, dtype=torch.uint8, device=device)
 
 
-def encoder_stack_train_fwd(params, x, kmask, seeds, p: float, h: int):
+def encoder_stack_train_fwd(params, x, kmask, seeds, p: float, h: int,
+                            hash4: bool = False):
     """Kernel 3.  params: the stack's 16*N parameters (layer order, each in
-    _layer_tensors order); x [B, T, D]; kmask [B, T]; seeds [N, 4].  Returns
-    (out, saved) in float32 (float64 for float64 CPU inputs)."""
+    _layer_tensors order); x [B, T, D]; kmask [B, T]; seeds [N, 4]; hash4:
+    the seeds are the "hash4" stream's.  Returns (out, saved) in float32
+    (float64 for float64 CPU inputs)."""
     if not use_kernel(x):
-        return encoder_stack_train_fwd_plain(params, x, kmask, seeds, p, h)
+        return encoder_stack_train_fwd_plain(params, x, kmask, seeds, p, h,
+                                             hash4)
     global fwd_launches
     what = "encoder_stack_train_fwd"
     dtype_code, B, T, D, F = _kernel_args(x, params, what)
@@ -294,18 +308,20 @@ def encoder_stack_train_fwd(params, x, kmask, seeds, p: float, h: int):
         rc = lib.mmtx_encoder_train_fwd(
             dtype_code, x.data_ptr(), km.data_ptr(), out.data_ptr(),
             saved.data_ptr(), ptrs, n_layers, seed_arr, keep_threshold(p),
-            1.0 - p, ws.data_ptr(), B, T, D, h, F, stream)
+            1.0 - p, _hash4_t8(hash4, p), ws.data_ptr(), B, T, D, h, F,
+            stream)
     _build.check(rc, what)
     fwd_launches += 1
     return out, saved
 
 
-def encoder_layer_bwd(lp, x_l, dy, kmask, seeds, p: float, h: int):
+def encoder_layer_bwd(lp, x_l, dy, kmask, seeds, p: float, h: int,
+                      hash4: bool = False):
     """Kernel 4.  lp: one layer's 16 parameters; x_l: its saved input and dy
-    the gradient of its output, [B, T, D] float32; seeds: its 4 site seeds.
-    Returns (dx, [16 parameter grads]) in float32."""
+    the gradient of its output, [B, T, D] float32; seeds: its 4 site seeds;
+    hash4: as kernel 3's.  Returns (dx, [16 parameter grads]) in float32."""
     if not use_kernel(x_l):
-        return encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p, h)
+        return encoder_layer_bwd_plain(lp, x_l, dy, kmask, seeds, p, h, hash4)
     global bwd_launches
     what = "encoder_layer_bwd"
     if x_l.dtype != torch.float32 or dy.dtype != torch.float32:
@@ -338,8 +354,8 @@ def encoder_layer_bwd(lp, x_l, dy, kmask, seeds, p: float, h: int):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mmtx_encoder_layer_bwd(
             dtype_code, x_l.data_ptr(), dy.data_ptr(), km.data_ptr(), ptrs,
-            seed_arr, keep_threshold(p), 1.0 - p, dx.data_ptr(), gptrs,
-            ws.data_ptr(), B, T, D, h, F, stream)
+            seed_arr, keep_threshold(p), 1.0 - p, _hash4_t8(hash4, p),
+            dx.data_ptr(), gptrs, ws.data_ptr(), B, T, D, h, F, stream)
     _build.check(rc, what)
     bwd_launches += 1
     return dx, grads
@@ -379,15 +395,18 @@ def _stack_bwd_args(params, saved, dy, kmask, seeds, h: int, what: str):
             params[12].shape[0], km)
 
 
-def encoder_stack_bwd(params, saved, dy, kmask, seeds, p: float, h: int):
+def encoder_stack_bwd(params, saved, dy, kmask, seeds, p: float, h: int,
+                      hash4: bool = False):
     """Kernel 5: the backward of every layer of the stack in one call.
     params: the stack's 16*N parameters (as for kernel 3); saved: kernel 3's
     [N, B, T, D] layer inputs and dy the gradient of the stack's output
-    [B, T, D], float32; seeds [N, 4].  Returns (dx, [16 gradients, each
+    [B, T, D], float32; seeds [N, 4]; hash4: as kernel 3's.  Returns (dx,
+    [16 gradients, each
     stacked over the layers as [N, ...]]) in float32, bit-identical to
     `encoder_layer_bwd` called for every layer."""
     if not use_kernel(saved):
-        return encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p, h)
+        return encoder_stack_bwd_plain(params, saved, dy, kmask, seeds, p, h,
+                                       hash4)
     global stack_bwd_launches
     what = "encoder_stack_bwd"
     dtype_code, n_layers, B, T, D, F, km = _stack_bwd_args(
@@ -406,7 +425,8 @@ def encoder_stack_bwd(params, saved, dy, kmask, seeds, p: float, h: int):
         rc = lib.mmtx_encoder_stack_bwd(
             dtype_code, saved.data_ptr(), dy.data_ptr(), km.data_ptr(), ptrs,
             n_layers, _seed_array(seeds), keep_threshold(p), 1.0 - p,
-            dx.data_ptr(), gptrs, ws.data_ptr(), B, T, D, h, F, stream)
+            _hash4_t8(hash4, p), dx.data_ptr(), gptrs, ws.data_ptr(), B, T,
+            D, h, F, stream)
     _build.check(rc, what)
     stack_bwd_launches += 1
     return dx, grads
@@ -418,10 +438,12 @@ class EncoderStackTrain(torch.autograd.Function):
     kernel 5 once ("stack")."""
 
     @staticmethod
-    def forward(ctx, x, kmask, seeds, p, h, backward, *params):
-        out, saved = encoder_stack_train_fwd(params, x, kmask, seeds, p, h)
+    def forward(ctx, x, kmask, seeds, p, h, backward, hash4, *params):
+        out, saved = encoder_stack_train_fwd(params, x, kmask, seeds, p, h,
+                                             hash4)
         ctx.save_for_backward(kmask, saved, *params)
         ctx.seeds, ctx.p, ctx.h, ctx.backward = seeds, p, h, backward
+        ctx.hash4 = hash4
         return out
 
     @staticmethod
@@ -431,26 +453,31 @@ class EncoderStackTrain(torch.autograd.Function):
         grads = [None] * len(params)
         if ctx.backward == "stack":
             dy, stacked = encoder_stack_bwd(params, saved, dy, kmask,
-                                            ctx.seeds, ctx.p, ctx.h)
+                                            ctx.seeds, ctx.p, ctx.h,
+                                            ctx.hash4)
             for l in range(saved.shape[0]):
                 grads[N_PARAMS * l:N_PARAMS * (l + 1)] = [s[l] for s in stacked]
         else:
             for l in reversed(range(saved.shape[0])):
                 lp = params[N_PARAMS * l:N_PARAMS * (l + 1)]
                 dy, gl = encoder_layer_bwd(lp, saved[l], dy, kmask,
-                                           ctx.seeds[l], ctx.p, ctx.h)
+                                           ctx.seeds[l], ctx.p, ctx.h,
+                                           ctx.hash4)
                 grads[N_PARAMS * l:N_PARAMS * (l + 1)] = gl
-        return (dy, None, None, None, None, None, *grads)
+        return (dy, None, None, None, None, None, None, *grads)
 
 
 def encoder_stack_train(enc, x: torch.Tensor, mask: torch.Tensor, *, h: int,
                         p: float, seeds: torch.Tensor,
-                        backward: str = "perlayer") -> torch.Tensor:
+                        backward: str = "perlayer",
+                        hash4: bool = False) -> torch.Tensor:
     """The N training layers of `enc` (no final norm) on x [B, T, D] with key
-    mask [B, T, 1] and seeds [N, 4]; backward: "perlayer" (kernel 4 per
-    layer) or "stack" (kernel 5).  Returns float32 [B, T, D] (float64 for
-    float64 inputs); differentiable in x and every layer parameter."""
+    mask [B, T, 1] and seeds [N, 4] (of the "hash4" stream with hash4);
+    backward: "perlayer" (kernel 4 per layer) or "stack" (kernel 5).
+    Returns float32 [B, T, D] (float64 for float64 inputs); differentiable
+    in x and every layer parameter."""
     check_encoder_backward(backward)
     params = [t for layer in enc.layers for t in _layer_tensors(layer)]
     kmask = mask[..., 0].to(acc_dtype(x.dtype))
-    return EncoderStackTrain.apply(x, kmask, seeds, p, h, backward, *params)
+    return EncoderStackTrain.apply(x, kmask, seeds, p, h, backward, hash4,
+                                   *params)

@@ -43,30 +43,42 @@ def reset_launches() -> None:
     launches = 0
 
 
+def launch_blocks(entry: str, max_keys: int, keys: np.ndarray, n: int,
+                  mode: int, p: float, out: torch.Tensor,
+                  layout: tuple) -> int:
+    """Call the C entry `entry` (kernel T's, or kernel P's: the same
+    arguments) once for each block of max_keys keys, with that block's
+    output rows; returns the number of launches."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    fn = getattr(_build.load(), entry)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for k0 in range(0, keys.shape[0], max_keys):
+            block = keys[k0:k0 + max_keys]
+            rc = fn(block.ctypes.data_as(ctypes.c_void_p), block.shape[0], n,
+                    mode, p, out[k0:k0 + max_keys].data_ptr(), stream,
+                    *layout)
+            _build.check(rc, entry)
+    return -(-keys.shape[0] // max_keys)
+
+
+def check_keys(keys, n: int, width: int, what: str) -> np.ndarray:
+    """keys as numpy uint32 [K >= 1, width]; raises on another shape or
+    n < 1."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    if keys.ndim != 2 or keys.shape[1] != width or keys.shape[0] < 1:
+        raise ValueError(f"{what}: keys must be [K >= 1, {width}], got "
+                         f"{keys.shape}")
+    if n < 1:
+        raise ValueError(f"{what}: n must be positive, got {n}")
+    return keys
+
+
 def _launch(keys: np.ndarray, n: int, mode: int, p: float,
             out: torch.Tensor, layout: tuple) -> None:
     global launches
-    keys = np.ascontiguousarray(keys, dtype=np.uint32)
-    lib = _build.load()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for k0 in range(0, keys.shape[0], MAX_KEYS):
-            block = keys[k0:k0 + MAX_KEYS]
-            rc = lib.mmtx_threefry(
-                block.ctypes.data_as(ctypes.c_void_p), block.shape[0], n,
-                mode, p, out[k0:k0 + MAX_KEYS].data_ptr(), stream, *layout)
-            _build.check(rc, "threefry")
-            launches += 1
-
-
-def _check(keys: np.ndarray, n: int) -> np.ndarray:
-    keys = np.asarray(keys, dtype=np.uint32)
-    if keys.ndim != 2 or keys.shape[1] != 2 or keys.shape[0] < 1:
-        raise ValueError(f"threefry: keys must be [K >= 1, 2], got "
-                         f"{keys.shape}")
-    if n < 1:
-        raise ValueError(f"threefry: n must be positive, got {n}")
-    return keys
+    launches += launch_blocks("mmtx_threefry", MAX_KEYS, keys, n, mode, p,
+                              out, layout)
 
 
 def threefry_bits(keys, n: int, device="cuda", *, start: int = 0,
@@ -74,7 +86,7 @@ def threefry_bits(keys, n: int, device="cuda", *, start: int = 0,
                   seg_stride: int | None = None) -> torch.Tensor:
     """The bits of n counters (0..n-1 by default) under each key, int32
     [K, n]."""
-    keys = _check(keys, n)
+    keys = check_keys(keys, n, 2, "threefry")
     layout = prng.counters(n, start, seg_len, seg_stride)
     out = torch.empty(keys.shape[0], n, dtype=torch.int32, device=device)
     if not use_kernel(out):
@@ -89,7 +101,7 @@ def threefry_keep_mask(keys, n: int, p: float, device="cuda", *,
                        seg_stride: int | None = None) -> torch.Tensor:
     """jax.random.bernoulli(key, p, (n,)) of each key at n counters (0..n-1
     by default), bool [K, n]."""
-    keys = _check(keys, n)
+    keys = check_keys(keys, n, 2, "threefry")
     layout = prng.counters(n, start, seg_len, seg_stride)
     out = torch.empty(keys.shape[0], n, dtype=torch.bool, device=device)
     if not use_kernel(out):

@@ -327,7 +327,8 @@ def _launch_name(name: str):
 
 
 def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
-                          seed: int = 0, calls: int = 5, p: float = ENC_P
+                          seed: int = 0, calls: int = 5, p: float = ENC_P,
+                          hash4: bool = False
                           ) -> Dict[str, Tuple[float, int]]:
     """(device ms per call, events captured) of each launch name of kernel
     4 (one layer's backward, template arguments included; device-to-device
@@ -335,7 +336,8 @@ def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
     Each of the wgmma path's kernels launches once a call, so its reading is
     the mean of its launches (it holds when the profiler drops events); the
     FMA path's names launch several times a call and are summed over the
-    calls, so a dropped event lowers them: the count shows it."""
+    calls, so a dropped event lowers them: the count shows it.  hash4: on
+    the "hash4" dropout stream."""
     gen, lp, _, kmask, seeds = _encoder_train_case(B, T, dtype, device, seed,
                                                    256, 128, 1)
     x = torch.randn(B, T, 256, generator=gen).to(device)
@@ -343,7 +345,8 @@ def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
     seen: Dict[str, int] = {}
     with torch.no_grad():
         out = kernel_device_ms(
-            lambda: enct_k.encoder_layer_bwd(lp, x, dy, kmask, seeds[0], p, 8),
+            lambda: enct_k.encoder_layer_bwd(lp, x, dy, kmask, seeds[0], p, 8,
+                                             hash4),
             calls, _launch_name,
             per_launch=enc_k.kernel_path(dtype, 32, 256, 128)
             == enc_k.PATH_WGMMA, seen=seen)
@@ -354,20 +357,22 @@ def encoder_bwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
 @torch.no_grad()
 def encoder_train_fwd_kernel_ms(B: int, T: int, dtype: torch.dtype, *, device,
                                 seed: int = 0, calls: int = 5,
-                                p: float = ENC_P
+                                p: float = ENC_P, hash4: bool = False
                                 ) -> Dict[str, Tuple[float, int]]:
     """(device ms per call, events captured) of each launch name of kernel
     3 (template arguments included; device-to-device copies as "Memcpy
     DtoD") over `calls` warm calls at D=256, h=8, F=128, 6 layers.  A name's
     events are summed over the calls, so an event the profiler drops lowers
     its reading: on the wgmma path each call launches 7 row chains and 6
-    attentions, and the counts show it."""
+    attentions, and the counts show it.  hash4: on the "hash4" dropout
+    stream."""
     _, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                      seed, 256, 128,
                                                      TRAIN_LAYERS)
     seen: Dict[str, int] = {}
     out = kernel_device_ms(
-        lambda: enct_k.encoder_stack_train_fwd(params, x, kmask, seeds, p, 8),
+        lambda: enct_k.encoder_stack_train_fwd(params, x, kmask, seeds, p, 8,
+                                               hash4),
         calls, _launch_name, seen=seen)
     return {k: (v, seen[k]) for k, v in sorted(out.items(),
                                                key=lambda kv: -kv[1])}
@@ -503,14 +508,16 @@ def check_mfn_aligned(B: int, T: int, dtype: torch.dtype, *, device,
         label="" if hp == mfnv_k.ALIGN_HP else f"hp={hp} ", timed=timed)
 
 
-def _label(p, d_k: int = 32) -> str:
-    """The shape label's prefix of a training check at a dropout rate or a
-    head width other than the model's."""
-    return ("" if p is None else f"p={p} ") + ("" if d_k == 32 else
-                                               f"dk={d_k} ")
+def _label(p, d_k: int = 32, stream: str = "hash") -> str:
+    """The shape label's prefix of a training check at a dropout rate, a
+    head width or a dropout stream other than the model's."""
+    return (("" if stream == "hash" else f"{stream} ")
+            + ("" if p is None else f"p={p} ")
+            + ("" if d_k == 32 else f"dk={d_k} "))
 
 
 def _encoder_train_case(B, T, dtype, device, seed, D, F, n_layers):
+    """The stack, its inputs and its seed table (of either hash stream)."""
     gen = torch.Generator().manual_seed(seed)
     enc = random_encoder(gen, D, F, n_layers).to(device=device, dtype=dtype)
     params = [t.detach() for layer in enc.layers
@@ -526,14 +533,16 @@ def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, n_layers: int = TRAIN_LAYERS,
                             reps: int = 5, p: float | None = None,
-                            repeat: bool = False) -> KernelCheck:
+                            repeat: bool = False,
+                            stream: str = "hash") -> KernelCheck:
     """Kernel 3: the stack's output and every layer's saved input; repeat:
-    also call the kernel again and require the same bits."""
+    also call the kernel again and require the same bits; stream: the
+    dropout stream, "hash" or "hash4"."""
     rate = ENC_P if p is None else p
     _, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                      seed, D, F, n_layers)
     valid = kmask.bool()
-    args = (kmask, seeds, rate, h)
+    args = (kmask, seeds, rate, h, stream == "hash4")
     ref = enct_k.encoder_stack_train_fwd_plain([p.double() for p in params],
                                                x.double(), *args)
     plain = enct_k.encoder_stack_train_fwd_plain(params, x, *args)
@@ -548,7 +557,8 @@ def check_encoder_train_fwd(B: int, T: int, dtype: torch.dtype, *, device,
     split = lambda o: [o[0]] + [o[1][l] for l in range(1, n_layers)]
     valids = [valid] * n_layers
     return KernelCheck(
-        "encoder_stack_train_fwd", _label(p, D // h) + f"B={B} T={T} D={D}",
+        "encoder_stack_train_fwd",
+        _label(p, D // h, stream) + f"B={B} T={T} D={D}",
         _dtype_name(dtype),
         _parts(names, split(kern), split(plain), split(ref), valids),
         _finite(split(kern), valids),
@@ -571,18 +581,19 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                             seed: int = 0, D: int = 256, h: int = 8,
                             F: int = 128, reps: int = 5,
                             p: float | None = None,
-                            repeat: bool = False) -> KernelCheck:
+                            repeat: bool = False,
+                            stream: str = "hash") -> KernelCheck:
     """Kernel 4: dx and the 16 parameter grads of one layer, from a random
     layer input and a random output cotangent that is 0 past each video's
     length; repeat: also call the kernel again and require the same
-    bits."""
+    bits; stream: the dropout stream."""
     rate = ENC_P if p is None else p
     gen, lp, _, kmask, seeds = _encoder_train_case(B, T, dtype, device, seed,
                                                    D, F, 1)
     x = torch.randn(B, T, D, generator=gen).to(device)
     dy = torch.randn(B, T, D, generator=gen).to(device) * kmask[..., None]
     valid = kmask.bool()
-    args = (kmask, seeds[0], rate, h)
+    args = (kmask, seeds[0], rate, h, stream == "hash4")
     ref = enct_k.encoder_layer_bwd_plain([p.double() for p in lp], x.double(),
                                          dy.double(), *args)
     plain = enct_k.encoder_layer_bwd_plain(lp, x, dy, *args)
@@ -597,7 +608,7 @@ def check_encoder_layer_bwd(B: int, T: int, dtype: torch.dtype, *, device,
     flat = lambda o: [o[0]] + list(o[1])
     valids = [valid] + [None] * len(lp)
     return KernelCheck(
-        "encoder_layer_bwd", _label(p, D // h) + f"B={B} T={T} D={D}",
+        "encoder_layer_bwd", _label(p, D // h, stream) + f"B={B} T={T} D={D}",
         _dtype_name(dtype),
         _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
                valids),
@@ -617,21 +628,22 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
                             F: int = 128, n_layers: int = TRAIN_LAYERS,
                             reps: int = 5,
                             p: float | None = None,
-                            repeat: bool = False) -> KernelCheck:
+                            repeat: bool = False,
+                            stream: str = "hash") -> KernelCheck:
     """Kernel 5: dx and the 16 stacked parameter grads of the whole stack,
     from kernel 3's saved layer inputs and a random output cotangent that is
     0 past each video's length; also bit-identical to kernel 4 called for
     every layer, last first, and (repeat) to itself called again
-    (`identical`)."""
+    (`identical`); stream: the dropout stream."""
     rate = ENC_P if p is None else p
     gen, params, x, kmask, seeds = _encoder_train_case(B, T, dtype, device,
                                                        seed, D, F, n_layers)
     with torch.no_grad():
         _, saved = enct_k.encoder_stack_train_fwd(params, x, kmask, seeds,
-                                                  rate, h)
+                                                  rate, h, stream == "hash4")
     dy = torch.randn(B, T, D, generator=gen).to(device) * kmask[..., None]
     valid = kmask.bool()
-    args = (kmask, seeds, rate, h)
+    args = (kmask, seeds, rate, h, stream == "hash4")
     ref = enct_k.encoder_stack_bwd_plain(_double(params), saved.double(),
                                          dy.double(), *args)
     plain = enct_k.encoder_stack_bwd_plain(params, saved, dy, *args)
@@ -641,7 +653,7 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
         for l in reversed(range(n_layers)):
             g, per_layer[l] = enct_k.encoder_layer_bwd(
                 params[enct_k.N_PARAMS * l:enct_k.N_PARAMS * (l + 1)],
-                saved[l], g, kmask, seeds[l], rate, h)
+                saved[l], g, kmask, seeds[l], rate, h, stream == "hash4")
     torch.cuda.synchronize()
     identical = torch.equal(kern[0], g) and all(
         torch.equal(a, torch.stack(b)) for a, b in zip(kern[1],
@@ -654,7 +666,7 @@ def check_encoder_stack_bwd(B: int, T: int, dtype: torch.dtype, *, device,
     flat = lambda o: [o[0]] + list(o[1])
     valids = [valid] + [None] * enct_k.N_PARAMS
     c = KernelCheck(
-        "encoder_stack_bwd", _label(p, D // h) + f"B={B} T={T} D={D}",
+        "encoder_stack_bwd", _label(p, D // h, stream) + f"B={B} T={T} D={D}",
         _dtype_name(dtype),
         _parts(("dx",) + GRAD_NAMES, flat(kern), flat(plain), flat(ref),
                valids),

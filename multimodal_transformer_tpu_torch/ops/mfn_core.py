@@ -24,8 +24,10 @@ site as T ranges of counters (`mfn_head`).
 The head's dropout indexes the TIME-major [T, B, 64] hidden, as the JAX
 package's head does (it runs time-major): element [b, t, c] of the port's
 batch-major hidden takes the keep bit (hash) or the threefry counter of
-position (t * B + b) * 64 + c (with B the global batch's rows and b the
-global row on a data-parallel rank, `mfn_head`).
+position (t * B + b) * 64 + c, or on the "hash4" stream the multi-bit
+bits of row t * B + b (with B the global batch's rows and b the global
+row on a data-parallel rank, `mfn_head`).  The gamma sites draw the
+per-element hash bits on both hash streams, as in the JAX package.
 
 Gate algebra (reference MFT/multiTransformer.py:200-224):
     c*       = [c_{t-1}; c_t]
@@ -43,7 +45,7 @@ from torch import nn
 
 from ..utils import prng
 from ..utils.init import linear_init, lstm_init
-from .basic import apply_keep, dropout_with_idx
+from .basic import apply_keep, dropout_with_idx, hash4_keep, is_hash4
 from .cuda.mfn import mfn_scan_fused, mfn_scan_fused_plain
 from .cuda.mfn_train import mfn_states_train, mfn_train_fwd_plain
 from .dispatch import needs_grad, use_kernel
@@ -145,11 +147,12 @@ def mfn_states(mfn: MFN, inputs, seeds=None, *, plain: bool = False):
 def gamma_masks(mfn: MFN, keys, like: torch.Tensor) -> torch.Tensor:
     """The threefry stream's gamma keep masks, [T, 2, B, 64] bool on like's
     device: `bernoulli(keys[t, k], 1 - p_k, [B, 64])` for every step t and
-    gamma k, drawn in one call (both rates are 0.2); keys may be a rank's
-    `prng.RowKeys`, whose masks are the global batch's at its rows."""
+    gamma k, drawn in one call (both rates are 0.2); keys [T, 2, W] may be
+    threefry or rbg keys, or a rank's `prng.RowKeys`, whose masks are the
+    global batch's at its rows."""
     B, T = like.shape[:2]
     p = DROPOUTS["gamma1"]
-    assert DROPOUTS["gamma2"] == p and keys.shape == (T, 2, 2)
+    assert DROPOUTS["gamma2"] == p and keys.shape[:2] == (T, 2)
     return prng.bernoulli(keys, 1.0 - p, (B, mfn.gamma1_fc1.out_features),
                           like.device)
 
@@ -159,7 +162,8 @@ def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
     """out_rows: (r0, rows) when these B rows are rows r0.. of a global
     batch of `rows` rows (a data-parallel rank): row b then takes the keep
     bits of the global hidden's row r0 + b, position
-    (t * rows + r0 + b) * 64 + c.  out_seed may be a threefry key, whose
+    (t * rows + r0 + b) * 64 + c (a `Hash4Seed`: the multi-bit bits of the
+    time-major row t * rows + r0 + b).  out_seed may be a threefry key, whose
     mask is drawn over the time-major [T, B, 64] hidden and transposed: on
     a rank, T segments of B * 64 counters at stride rows * 64 from
     r0 * 64."""
@@ -174,9 +178,13 @@ def mfn_head(mfn: MFN, hs: torch.Tensor, mems: torch.Tensor,
         h = apply_keep(h, keep.transpose(0, 1), DROPOUTS["out"])
     elif out_seed is not None:
         ar = lambda n: torch.arange(n, dtype=torch.int64, device=h.device)
-        idx = ((ar(T)[None, :, None] * rows + r0 + ar(B)[:, None, None]) * W
-               + ar(W))
-        h = dropout_with_idx(h, int(out_seed), DROPOUTS["out"], idx)
+        row = ar(T)[None, :] * rows + r0 + ar(B)[:, None]  # [B, T]
+        if is_hash4(out_seed):  # the multi-bit counters of those rows
+            keep = hash4_keep(out_seed, row, W, DROPOUTS["out"])
+            h = apply_keep(h, keep, DROPOUTS["out"])
+        else:
+            h = dropout_with_idx(h, int(out_seed), DROPOUTS["out"],
+                                 row[..., None] * W + ar(W))
     return mfn.out_fc2(h)
 
 

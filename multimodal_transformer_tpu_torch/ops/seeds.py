@@ -39,11 +39,23 @@ step's key without JAX: the module that listed the sites splits the key
 along its JAX apply's key tree (`sites.split_keys`, each family's and
 head's `dropout_keys` in models/, from `encoder_keys` and `mfn_keys`
 below), and the keys are hashed; the Engine's key of a step is
-`fold_in(PRNGKey(epoch), batch_num)` (utils/prng.py).  With
-impl="threefry" the sites keep their keys instead of hashing them (the
-JAX package's "threefry" dropout, `jax.random.bernoulli` at every site):
-the tables are then [N, 4, 2] and [T, 2, 2] numpy uint32 keys, and each
-site's mask is drawn by kernel T.
+`fold_in(PRNGKey(epoch), batch_num)` (utils/prng.py), under the
+Engine's key implementation (threefry keys of 2 words; rbg keys of 4, the
+JAX package's `--fast_rng`).  With impl="threefry" the sites keep their
+keys instead of hashing them (the JAX package's "threefry" dropout,
+`jax.random.bernoulli` at every site): the tables are then [N, 4, W] and
+[T, 2, W] numpy uint32 keys of W words, and each site's mask is drawn by
+kernel T (threefry keys) or kernel P (rbg keys).  With impl="hash4" the
+seeds are the hash's and `DropoutSeeds.hash4` is set: the scalar sites'
+seeds are `ops/basic.py Hash4Seed`s, the encoders' tables stay int64 and
+the encoders read the stream from the flag; the MFN's gamma table draws
+the per-element bits under both hash streams, as in the JAX package.
+
+On the "hash4" stream a multi-bit site (last axis w, w % 4 == 0) hashes
+the counter row * w/4 + c % (w/4), not the flat position, so `for_rows`
+shifts its seed by r0 times the site's counters per batch row, a quarter
+of its elements; a site that falls back to the per-element bits (w % 4
+!= 0, the attention probabilities at T % 4 != 0) keeps the hash's shift.
 The port still takes the seeds as a value, and a trainer may pass any
 (`Engine(seed_fn=...)`).
 
@@ -60,20 +72,21 @@ import numpy as np
 import torch
 
 from ..utils import prng
+from .basic import Hash4Seed
 
 HASH_MUL = 0x9E3779B1  # the hash's first multiply (ops/basic.py, csrc/common.cuh)
 _M32 = 0xFFFFFFFF
-DROPOUT_IMPLS = ("hash", "threefry")
+DROPOUT_IMPLS = ("hash", "hash4", "threefry")
 
 
 def encoder_keys(keys, n_layers: int) -> np.ndarray:
-    """An encoder's [..., N, 4, 2] table of keys: split N a layer, then 4
+    """An encoder's [..., N, 4, W] table of keys: split N a layer, then 4
     a site (the JAX package's ops/pallas/encoder.py dropout_seed_table)."""
     return prng.split(prng.split(keys, n_layers), 4)
 
 
 def mfn_keys(key, T: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The MFN's [T, 2, 2] gamma keys, split(split(key, T), 2), and its
+    """The MFN's [T, 2, W] gamma keys, split(split(key, T), 2), and its
     head's `out` key, fold_in(key, 7) (ops/mfn_core.py there)."""
     return prng.split(prng.split(key, T), 2), prng.fold_in(key, 7)
 
@@ -102,9 +115,10 @@ class DropoutSites:
 
 @dataclasses.dataclass(frozen=True)
 class DropoutSeeds:
-    # hash seeds (ints, int64 tables) or, on the threefry stream, keys
-    # (numpy uint32 [2], tables [N, 4, 2] and [T, 2, 2]; prng.RowKeys of
-    # them on a data-parallel rank, `for_rows`)
+    # hash seeds (ints, int64 tables; Hash4Seed at the scalar sites on the
+    # hash4 stream) or, on the threefry stream, keys (numpy uint32 [W], tables
+    # [N, 4, W] and [T, 2, W]; prng.RowKeys of them on a data-parallel
+    # rank, `for_rows`)
     front: Dict[str, int]             # modality -> seed of the [B, W, E] site
     encoder: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     mfn: Optional[torch.Tensor] = None  # [T, 2] int64 (gamma1, gamma2)
@@ -113,29 +127,38 @@ class DropoutSeeds:
     decoder: Optional[int] = None
     # (first row, global rows) of a data-parallel rank, for the `out` site
     rows: Optional[Tuple[int, int]] = None
+    hash4: bool = False  # the "hash4" stream (the encoder tables' too)
 
     @staticmethod
     def from_key(sites: DropoutSites, key, T: int,
                  impl: str = "hash") -> "DropoutSeeds":
         """The seeds that the JAX apply draws from `key` at every site of
         `sites` (a step of T windows): impl "hash" hashes each site's key
-        (`basic.hash_seed`), "threefry" keeps the keys."""
+        (`basic.hash_seed`), "hash4" too, on that stream (`hash4`),
+        "threefry" keeps the keys.  key: a threefry or an rbg key."""
         if impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout impl must be one of {DROPOUT_IMPLS}, "
                              f"got {impl!r}")
         keys = sites.split_keys(np.asarray(key, dtype=np.uint32), T)
-        return keys if impl == "threefry" else keys.hashed()
+        if impl == "threefry":
+            return keys
+        return keys.hashed(hash4=impl == "hash4")
 
     def threefry(self) -> bool:
-        """Whether the sites hold threefry keys (the "threefry" stream)."""
+        """Whether the sites hold keys, threefry or rbg (the "threefry"
+        stream)."""
         return any(prng.is_keys(v) for v in (
             *self.front.values(), *self.encoder.values(), self.mfn,
             self.out, self.embed, self.decoder))
 
-    def hashed(self) -> "DropoutSeeds":
-        """These keys' hash seeds: ints, int64 tables."""
+    def hashed(self, hash4: bool = False) -> "DropoutSeeds":
+        """These keys' hash seeds: ints, int64 tables; hash4: on that
+        stream, the scalar seeds `Hash4Seed`s (the MFN's gamma table keeps
+        the per-element bits on both hash streams)."""
+        tag = Hash4Seed if hash4 else int
+
         def val(k):
-            return None if k is None else int(prng.hash_seed(k))
+            return None if k is None else tag(int(prng.hash_seed(k)))
 
         def table(k):
             return torch.from_numpy(prng.hash_seed(k).astype(np.int64))
@@ -144,7 +167,7 @@ class DropoutSeeds:
             {m: val(k) for m, k in self.front.items()},
             {name: table(k) for name, k in self.encoder.items()},
             None if self.mfn is None else table(self.mfn), val(self.out),
-            val(self.embed), val(self.decoder), self.rows)
+            val(self.embed), val(self.decoder), self.rows, hash4)
 
     def for_rows(self, sites: DropoutSites, r0: int, rows: int,
                  T: int) -> "DropoutSeeds":
@@ -153,7 +176,9 @@ class DropoutSeeds:
         are the global batch's masks at its rows: each batch-major site's
         hash seed shifted by r0 times the site's elements per row, or its
         threefry keys wrapped as `prng.RowKeys`, whose draw starts at that
-        product's counter.  Both keep (r0, rows) for the `out` site."""
+        product's counter; on the "hash4" stream a multi-bit site's seed
+        by r0 times its counters per row (a quarter of its elements).  All
+        keep (r0, rows) for the `out` site."""
         if self.threefry():
             def rows_of(keys):
                 return None if keys is None else prng.RowKeys(keys, r0, rows)
@@ -163,25 +188,37 @@ class DropoutSeeds:
                 rows_of(self.mfn), self.out, rows_of(self.embed),
                 rows_of(self.decoder), (r0, rows))
 
-        def shift(seed, per_row):
+        hash4 = self.hash4
+        tag = Hash4Seed if hash4 else int
+
+        def counters(width, per_row):
+            # a batch row's counters at a site of last axis `width`
+            return per_row // 4 if hash4 and width % 4 == 0 else per_row
+
+        def shift(seed, n):
             if seed is None:
                 return None
-            return (int(seed) + r0 * per_row * HASH_MUL) & _M32
+            return tag((int(seed) + r0 * n * HASH_MUL) & _M32)
 
         def shift_cols(table, per_row):
             d = torch.tensor([r0 * n * HASH_MUL & _M32 for n in per_row],
                              dtype=torch.int64)
             return (table.to(torch.int64) + d) & _M32
 
-        front = {m: shift(self.front[m], T * e)
+        front = {m: shift(self.front[m], counters(e, T * e))
                  for m, e in zip(sites.front, sites.front_widths)}
-        encoder = {name: shift_cols(self.encoder[name],
-                                    (h * T * T, T * d, T * f, T * d))
+        encoder = {name: shift_cols(self.encoder[name], (
+            counters(T, h * T * T), counters(d, T * d), counters(f, T * f),
+            counters(d, T * d)))
                    for name, (d, f, h) in zip(sites.encoders,
                                               sites.encoder_dims)}
+        # the gamma sites: per-element bits on both hash streams
         mfn = (None if self.mfn is None
                else shift_cols(self.mfn, sites.gamma_widths))
         return DropoutSeeds(front, encoder, mfn, self.out,
-                            shift(self.embed, T * sites.embed_width),
-                            shift(self.decoder, T * sites.decoder_width),
-                            (r0, rows))
+                            shift(self.embed, counters(
+                                sites.embed_width, T * sites.embed_width)),
+                            shift(self.decoder, counters(
+                                sites.decoder_width,
+                                T * sites.decoder_width)),
+                            (r0, rows), hash4)

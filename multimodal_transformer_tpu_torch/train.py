@@ -29,11 +29,13 @@ rounding.  `--visualize` with `--eval` / `--test` writes
                     the MFN on their plain paths);
   --ckpt_backend    "msgpack" (the default) writes the single-file train
                     state; "orbax" exits nonzero: reading or writing orbax
-                    checkpoints needs the orbax and tensorstore packages;
-  --fast_rng        exits nonzero: JAX's rbg PRNG draws its split, fold_in
-                    and bits with lax.rng_bit_generator, whose algorithm
-                    each XLA backend chooses, so its stream has no
-                    backend-independent definition to port.
+                    checkpoints needs the orbax and tensorstore packages.
+
+`--fast_rng` is the JAX CLI's: the rbg key implementation
+(`jax_default_prng_impl="rbg"`) for the initial weights and the dropout
+keys, so the same flags repeat the JAX run (utils/prng.py: threefry split
+and fold_in on each half of the key, XLA's Philox bits; kernel P draws
+them on the card where kernel T draws threefry's).
 
 Flags the reference parses but never uses (--split, --sup_ratio,
 --normalize, ...) are accepted.
@@ -129,7 +131,8 @@ def train_one(args, cfg, ckpt_path, logger):
     train_dtype = torch.bfloat16 if args.mixed_precision else None
     eng = Engine(cfg, lr=args.lr, seed=1, logger=logger,
                  train_dtype=train_dtype, device=args.device,
-                 dropout_impl=args.dropout_impl)
+                 dropout_impl=args.dropout_impl,
+                 prng_impl="rbg" if args.fast_rng else "threefry")
     # Preemption save: on SIGTERM finish the current epoch, save the whole
     # train state and exit 143; `--resume` picks up exactly there.
     preempted = []
@@ -374,8 +377,10 @@ def build_arg_parser():
                         help='bf16 forward/backward with fp32 master '
                              'params + Adam')
     parser.add_argument('--fast_rng', action='store_true', default=False,
-                        help="not available: JAX's rbg PRNG, whose bits "
-                             'each XLA backend chooses')
+                        help="the rbg PRNG (JAX's jax_default_prng_impl="
+                             '"rbg") for the initial weights and the dropout '
+                             'keys: another stream than the default '
+                             "threefry keys, the JAX CLI's --fast_rng run")
     parser.add_argument('--dropout_impl', type=str, default='hash',
                         choices=['hash', 'threefry'],
                         help='dropout mask generator: "hash" (default, the '
@@ -401,11 +406,6 @@ def build_arg_parser():
 
 
 def main(args):
-    if args.fast_rng:
-        sys.exit("error: --fast_rng is not available: JAX's rbg PRNG draws "
-                 "its split, fold_in and bits with lax.rng_bit_generator, "
-                 "whose algorithm each XLA backend chooses, so its stream "
-                 "cannot be repeated here (the default threefry keys can)")
     if args.ckpt_backend == "orbax":
         sys.exit("error: --ckpt_backend orbax is not available: orbax "
                  "checkpoints need the orbax and tensorstore packages, which "

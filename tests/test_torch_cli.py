@@ -7,8 +7,8 @@ seed 7; tests/test_cli.py), and across the two CLIs:
     video (:86), the B1 window lift (:104), `--resume` (:193, on the port's
     `.state`), SIGTERM preemption (:207), `--visualize` writing both plots,
     a `--dropout_impl threefry` run with `--ckpt_backend msgpack`, and the
-    refusals: `--fast_rng`, `--ckpt_backend orbax`, `--device cuda`
-    without a card;
+    refusals: `--ckpt_backend orbax`, `--device cuda` without a card
+    (`--fast_rng` runs: tests/test_torch_rbg.py);
   * the port's `.pth` evaluated by the JAX `train.py --eval --load` gives
     the port's CCC within 1e-4;
   * a JAX-written `.ckpt` swept by the port's `--perf` gives the JAX
@@ -283,7 +283,6 @@ def test_threefry_dropout_run_with_the_msgpack_state(workdir):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--device", "cpu", "--fast_rng"], "rng_bit_generator"),
     (["--device", "cpu", "--ckpt_backend", "orbax"], "tensorstore"),
     (["--device", "cuda", "--eval", "--load", "x.pth"], "no CUDA device"),
     (["--device", "cpu", "--family", "B4-GRU"], "unknown --family")])

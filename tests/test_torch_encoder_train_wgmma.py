@@ -369,14 +369,18 @@ def test_spill_gate_reads_the_training_chains_by_their_symbols():
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    # the symbols ptxas reports for chain_kernel<D, 128, kTrain>
-    chain = "_ZN4mmtx9enc_wgmma12chain_kernelILi{}ELi128ELb{}EEEvNS0_9ChainArgsE"
-    train = [_ptxas_entry(chain.format(D, 1), 0) for D in (128, 256)]
-    evals = [_ptxas_entry(chain.format(D, 0), 0) for D in (128, 256)]
+    # the symbols ptxas reports for chain_kernel<D, 128, kTrain, kH4>
+    chain = ("_ZN4mmtx9enc_wgmma12chain_kernelILi{}ELi128ELb{}ELb{}EEEvNS0_9"
+             "ChainArgsE")
+    train = [_ptxas_entry(chain.format(D, 1, h), 0) for D in (128, 256)
+             for h in (0, 1)]
+    evals = [_ptxas_entry(chain.format(D, 0, 0), 0) for D in (128, 256)]
     gate = lambda log: cs.spill_gate(log, cs.ENC_WGMMA,
                                      cs.ENC_TRAIN_FWD_CHAINS)
     assert gate("".join(evals + train)) == 0
-    assert gate("".join(evals + train[:1] + [
-        _ptxas_entry(chain.format(256, 1), 4)])) == 8
+    assert gate("".join(evals + train[:3] + [
+        _ptxas_entry(chain.format(256, 1, 1), 4)])) == 8
     with pytest.raises(cs.SmokeFailure, match="cannot check"):
         gate("".join(evals))
+    with pytest.raises(cs.SmokeFailure, match="cannot check"):
+        gate("".join(evals + train[::2]))  # no hash4 instance

@@ -95,7 +95,7 @@ def test_encoder_stack_routes_by_grad_mode(encoder_case, monkeypatch, T):
     monkeypatch.setattr(attention, "encoder_stack_flash",
                         lambda enc, x, mask, h: calls.append("flash") or x)
 
-    def train(enc, x, mask, *, h, p, seeds, backward):
+    def train(enc, x, mask, *, h, p, seeds, backward, hash4=False):
         calls.append(("train", p, seeds.tolist(), backward))
         return x
 

@@ -152,7 +152,7 @@ def test_library_name_follows_the_sources():
     assert {s.name for s in _build.sources()} == {
         "encoder.cu", "mfn.cu", "encoder_train.cu", "encoder_bwd.cu",
         "mfn_train.cu", "window_embed.cu", "flash_attention.cu",
-        "mfn_variants.cu", "threefry.cu"}
+        "mfn_variants.cu", "threefry.cu", "philox.cu"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

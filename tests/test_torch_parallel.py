@@ -21,8 +21,13 @@ CPU, ranks on gloo over a FileStore:
     of 5 videos; each of the three again on the threefry stream
     (`Engine(..., dropout_impl="threefry")` against the JAX mesh Engine
     under `set_dropout_impl("threefry")`; the B2-Trans epoch over 8
-    videos, two full batches); every rank ends with the same
-    parameters; the negative controls (seeds not shifted to the rank's
+    videos, two full batches); an MFT A+L epoch at T = 8 on the "hash4"
+    stream (`Engine(..., dropout_impl="hash4")` against the JAX mesh Engine
+    under `set_dropout_impl("hash4")`: multi-bit sites shifted by their
+    counters per row); a B2-Trans A+L epoch under rbg keys on the hash
+    stream (`prng_impl="rbg"`, the JAX side under
+    `jax_default_prng_impl="rbg"`: only the key tree changes); every rank
+    ends with the same parameters; the negative controls (seeds not shifted to the rank's
     rows, or the `out` site indexed by the rank's own rows), on both
     streams, fail the same comparison;
   * tensor parallelism on a 2 x 2 ("data", "model") mesh (one spawn of 4
@@ -37,6 +42,7 @@ The JAX side runs in this process while the ranks run (they never import
 jax); the dropout seeds of every step come from the JAX Engine's keys.
 """
 
+import contextlib
 import multiprocessing
 import threading
 from concurrent.futures import ProcessPoolExecutor
@@ -268,13 +274,26 @@ def _data(mods, V, T, lens, seed):
 
 
 def _case(family, mods, *, V, T, lens, batch_size, kind="epoch", seed=3,
-          evaluate=False, pad_time_to=None, impl="hash"):
+          evaluate=False, pad_time_to=None, impl="hash", prng="threefry"):
     x, y = _data(mods, V, T, lens, seed)
     return dict(family=family, mods=mods, mask_mode="key_query",
                 dims=SMALL_DIMS, seed=seed, x=x, y=y, lens=lens,
                 batch_size=batch_size, shuffle_seed=9, kind=kind,
                 evaluate=evaluate, pad_time_to=pad_time_to, key=seed + 2,
-                impl=impl)
+                impl=impl, prng=prng)
+
+
+@contextlib.contextmanager
+def _jax_keys(prng_impl: str):
+    """JAX's keys under the case's key implementation ("threefry" or
+    "rbg"), the default restored after."""
+    old = jax.config.jax_default_prng_impl
+    if prng_impl == "rbg":
+        jax.config.update("jax_default_prng_impl", "rbg")
+    try:
+        yield
+    finally:
+        jax.config.update("jax_default_prng_impl", old)
 
 
 def _cases(impl: str, suffix: str = "") -> dict:
@@ -300,8 +319,16 @@ def _cases(impl: str, suffix: str = "") -> dict:
 
 
 # the hash stream's cases, then the threefry stream's (kernel T's masks on
-# the card; its plain version here)
-DP_CASES = {**_cases("hash"), **_cases("threefry", "_threefry")}
+# the card; its plain version here); an MFT epoch at T = 8 (a multi-bit
+# attention site) on the hash4 stream, batches of 5 with a pad row; a
+# B2-Trans epoch under rbg keys
+DP_CASES = {**_cases("hash"), **_cases("threefry", "_threefry"),
+            "mft_hash4": _case("MFT", AL, V=10, T=8,
+                               lens=[8, 5, 6, 4, 8, 7, 3, 8, 2, 5],
+                               batch_size=5, pad_time_to=8, impl="hash4"),
+            "b2_rbg": _case("B2-Trans", AL, V=6, T=8,
+                            lens=[8, 8, 7, 6, 8, 5], batch_size=4,
+                            pad_time_to=8, prng="rbg")}
 CONTROLS = {"b2_unshifted": ("b2", "unshifted"),
             "mft_local_out": ("mft", "local_out"),
             "b2_threefry_unshifted": ("b2_threefry", "unshifted"),
@@ -369,6 +396,11 @@ def _jax_mesh_engine(name: str, tree) -> dict:
     pool) or in the test's."""
     jax.config.update("jax_platforms", "cpu")
     case = DP_CASES[name]
+    with _jax_keys(case["prng"]):
+        return _jax_mesh_engine_epoch(case, tree)
+
+
+def _jax_mesh_engine_epoch(case, tree) -> dict:
     key = jax.random.PRNGKey(case["key"])
     _, apply = jbuild_model(_jax_cfg(case))
     steps = {}
@@ -565,8 +597,8 @@ def runs():
     try:
         tp_join = _run_ranks_in_thread(ranks.tp_cases, TP_DATA * TP_MODEL,
                                        _tp_cases(), TP_DATA, TP_MODEL)
-        trees = {name: export_params(build_model(ranks.config(case),
-                                                 seed=case["seed"]))
+        trees = {name: export_params(build_model(
+            ranks.config(case), seed=case["seed"], prng_impl=case["prng"]))
                  for name, case in DP_CASES.items()}
         first, *rest = DP_CASES
         # the longest JAX compiles first (the MFT steps, the threefry
@@ -581,13 +613,15 @@ def runs():
             tp_future = pool.submit(_jax_tp)
             rank_cases = {}
             for name, case in DP_CASES.items():
-                cfg, key = ranks.config(case), jax.random.PRNGKey(case["key"])
+                cfg = ranks.config(case)
                 sites = build_model(cfg, device="meta").dropout_sites()
-                rank_cases[name] = dict(case, seeds=[
-                    DropoutSeeds.from_key(sites, np.asarray(
-                        jax.random.key_data(jax.random.fold_in(key, i))), T,
-                        case["impl"])
-                    for i, T in enumerate(_steps_T(case))])
+                with _jax_keys(case["prng"]):
+                    key = jax.random.PRNGKey(case["key"])
+                    rank_cases[name] = dict(case, seeds=[
+                        DropoutSeeds.from_key(sites, np.asarray(
+                            jax.random.key_data(jax.random.fold_in(key, i))),
+                            T, case["impl"])
+                        for i, T in enumerate(_steps_T(case))])
             for name, (base, control) in CONTROLS.items():
                 rank_cases[name] = dict(rank_cases[base], evaluate=False,
                                         control=control)

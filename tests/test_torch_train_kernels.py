@@ -248,11 +248,11 @@ def routed(monkeypatch):
         calls.append("layer")
         return enct.encoder_layer_bwd_plain(*a)
 
-    def stack(params, saved, dy, kmask, seeds, p, h):
+    def stack(params, saved, dy, kmask, seeds, p, h, hash4=False):
         enct._stack_bwd_args(params, saved, dy, kmask, seeds, h, "kernel 5")
         calls.append("stack")
         return enct.encoder_stack_bwd_plain(params, saved, dy, kmask, seeds,
-                                            p, h)
+                                            p, h, hash4)
 
     monkeypatch.setattr(enct, "encoder_stack_train_fwd", fwd)
     monkeypatch.setattr(enct, "encoder_layer_bwd", layer)

@@ -58,7 +58,7 @@ def _run_case(mesh, case: dict) -> dict:
     seeds = case["seeds"]
     eng = Engine(cfg, lr=1e-3, seed=case["seed"], device="cpu",
                  nan_guard=False, mesh=mesh, dropout_impl=case["impl"],
-                 seed_fn=lambda step, T: seeds[step])
+                 prng_impl=case["prng"], seed_fn=lambda step, T: seeds[step])
     out = {}
     DropoutSeeds.for_rows = CONTROLS[case.get("control")]
     try:
